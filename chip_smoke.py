@@ -6,7 +6,8 @@ Needs one NVIDIA card (Hopper, sm_90a) and nvcc; there is no CPU path.
 Phases, each of which raises on failure:
 
 1. device: the card, its power limit, torch/CUDA/nvcc versions;
-2. build: the path kernel from rvpt_tpu_torch/csrc at first use;
+2. build: the three kernels (path_kernel K1, bwd_kernel K2, closest_hit B8)
+   from rvpt_tpu_torch/csrc, one nvcc each, started together;
 3. kernel vs plain: the CUDA kernel against its plain PyTorch version on
    the card, Cornell box at 1920x1080 (rays passed in: 3 bounces, both
    styles, >= 99.5% of pixel channels within 1e-4; rays made in the
@@ -16,12 +17,38 @@ Phases, each of which raises on failure:
 4. goldens, for the record: the kernel route against
    tests/goldens/cornell_kajiya.png (printed, not asserted: the kernel and
    the XLA path that made the golden round differently);
-5. the slice: Renderer.draw x16 of the Cornell box at 1920x1080, 4
-   bounces, style standard, through the kernel (its launch count must
-   rise by exactly 16), then save_image.
+5. the display slice: Renderer.draw x16 of the Cornell box at 1920x1080,
+   4 bounces, style standard, through the kernel (its launch count must
+   rise by exactly 16), then save_image;
+6. records: K1 with collect at 1080p x 4 bounces (rays passed in) gives
+   radiance equal to K1 without it, and records that agree with
+   trace_plain's (>= 99.5% of ray-bounce hits equal, >= 99.5% of fields
+   within 1e-4);
+7. K2 against bwd_plain on the same kernel record, with g = 1/(3N) (the
+   mean loss) and a seeded g at that scale: per-ray o/d cotangents, in
+   units of g's scale, >= 99.5% within rtol 1e-4, atol 1e-6, over all
+   entries and over those the plain version makes non-zero (at least 0.1%
+   of them); the 24 table columns within rtol 1e-3, atol 1e-7 (f32 sums of
+   2M terms in other orders);
+8. B8 against closest_hit_triangles on 1080p camera rays and bounced rays:
+   index equal on >= 99.9%, t within rtol 1e-5 where they agree;
+9. the headline step (bench.py:63-90 on the port): value and gradient of
+   the mean image over trainable_params (albedo, emission) through
+   make_fast_kajiya, one K1 and one K2 launch per step, gradients finite,
+   non-zero and within rtol 2e-2, atol 1e-5 of autograd through
+   integrator_kajiya (which runs B8), and the camera's translation and fov
+   gradients of the same loss within rtol 2e-2, atol 1e-7; timed over 10
+   steps;
+10. the trainer, the setup of examples/inverse_rendering.py at 1920x1080:
+   target = mean of 8 render_sample_chw frames (B8), init albedo 0.5 and
+   emission x 0.25, recover(steps=50, learning_rate=3e-2); the loss stays
+   finite and the mean absolute albedo and emission errors fall.  This
+   slice's main path: the launch counts are zeroed before it and read
+   after it, and each of the three kernels must have run.
 
-Prints the kernel record as a JSON line, then, last, one JSON line
-{"ok": true, "device": {...}}.
+Prints the kernel record as a JSON line (launches of the trainer run;
+times, bounds and errors of this run), the card's name and power limit,
+then, last, one JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -48,6 +75,333 @@ def cuda_ms(fn, iters):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+# Operations per unit of work, counted from the kernels' code (every FP32
+# add, multiply, compare, divide, square root, sin/cos and rsqrt as one
+# operation, and PCG3D's integer operations at the same rate: a lower bound
+# on the time).  Per ray-bounce: one metric-tensor triangle test (6 dot
+# products 30, t 3, barycentrics 14, tests 6), one sphere test, one plane
+# test, the Kajiya shading of a hit (normals, Fresnel, three candidate
+# directions, sin/cos, state update) and one PCG3D draw with its three
+# unit conversions; per ray: the camera ray (PCG3D, film coordinates, the
+# pinhole direction and its normalization).  K2 per live ray-bounce: the
+# winner's geometry and shading recomputed plus their adjoint.
+OPS_TRI, OPS_SPH, OPS_PLN = 53, 40, 15
+OPS_SHADE, OPS_PCG, OPS_CAMERA = 120, 33, 69
+OPS_BWD_BOUNCE = 300
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): FP32
+# outside the tensor cores and HBM3 bandwidth.
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+
+
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the FP32 rate."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def share_close(a, b, rtol, atol):
+    import torch
+
+    return torch.isclose(a, b, rtol=rtol, atol=atol).float().mean().item()
+
+
+def od_agreement(got, want, scale):
+    """Per-ray o/d cotangents held to rtol 1e-4, atol 1e-6 in units of g's
+    scale (they are linear in g, so got/scale is the cotangent of a g of
+    order 1).  Returns the share within over all entries, the share within
+    over the entries the plain version makes non-zero (most are exactly 0:
+    a Lambert-only path has no origin gradient), their count, and the
+    largest error in units of g."""
+    import torch
+
+    a, b = got / scale, want / scale
+    close = torch.isclose(a, b, rtol=1e-4, atol=1e-6)
+    nz = b != 0
+    n_nz = int(nz.sum().item())
+    nz_share = close[nz].float().mean().item() if n_nz else 0.0
+    return (close.float().mean().item(), nz_share, n_nz,
+            (a - b).abs().max().item())
+
+
+def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
+    """Phases 6-10 (the training slice); returns the kernels' numbers."""
+    import numpy as np
+    import torch
+
+    from rvpt_tpu_torch import RenderSettings
+    from rvpt_tpu_torch.core import rng
+    from rvpt_tpu_torch.models import camera as camera_mod
+    from rvpt_tpu_torch.models.integrators import integrator_kajiya
+    from rvpt_tpu_torch.ops import intersect as tint
+    from rvpt_tpu_torch.ops import intersect_pk as ipk
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops.fast_grad import make_fast_kajiya
+    from rvpt_tpu_torch.render import render_sample_chw
+    from rvpt_tpu_torch.train import inverse
+
+    n, nb, inf = cfg.num_pixels, 4, float("inf")
+    pt = pk.PathTracer(scene)
+    t_, s_, p_, _ = pt.counts
+    ops_bounce = t_ * OPS_TRI + s_ * OPS_SPH + p_ * OPS_PLN + OPS_SHADE + OPS_PCG
+    out = {}
+
+    # ---- 6. K1 records at 1080p x 4 bounces, rays passed in
+    def k1_collect():
+        return pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 1, 16, nb,
+                                     "standard", rays=rays, collect=True)
+
+    def plain_collect():
+        return pk.trace_plain(pt.tables, pt.counts, pixel, 1, 16, nb, "standard",
+                              rays=rays, collect=True)
+
+    got, rec = k1_collect()
+    bare = pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 1, 16, nb,
+                                 "standard", rays=rays)
+    want, wrec = plain_collect()
+    torch.cuda.synchronize()
+    same_rgb = torch.equal(got, bare)
+    rgb_close = share_close(got, want, 1e-4, 1e-4)
+    hits_eq = (rec.hits == wrec.hits).all(dim=1).float().mean().item()
+    fields_close = share_close(rec.fields, wrec.fields, 1e-4, 1e-4)
+    fields_err = (rec.fields - wrec.fields).abs().max().item()
+    print(f"[records] K1 collect, {cfg.width}x{cfg.height} x {nb} bounces, rays in: radiance equal "
+          f"to K1 without collect: {same_rgb}; vs trace_plain: radiance "
+          f"{rgb_close:.6f} within 1e-4, (fam, idx) equal on {hits_eq:.6f} of "
+          f"ray-bounces, fields {fields_close:.6f} within 1e-4 (bars 0.995), "
+          f"max field |err| {fields_err:.3g}")
+    check(same_rgb, "K1 radiance changes with collect")
+    check(rgb_close >= 0.995, f"K1 collect radiance disagrees: {rgb_close:.6f}")
+    check(hits_eq >= 0.995, f"K1 hit records disagree: {hits_eq:.6f}")
+    check(fields_close >= 0.995, f"K1 record fields disagree: {fields_close:.6f}")
+    del got, bare, want, wrec
+    for _ in range(2):
+        k1_collect()
+    k1c_ms = cuda_ms(k1_collect, 10)
+    k1c_plain_ms = cuda_ms(plain_collect, 2)
+    live = int(rec.fields[:, 12].sum().item())
+    # rays in (24 B) + pixel ids (8) + film (12) per ray, 60 B per record slot
+    k1c_bound, k1c_by = bound(n * (24 + 8 + 12 + 60 * nb), live * ops_bounce)
+    print(f"[time] K1 collect {k1c_ms:.4f} ms, plain {k1c_plain_ms:.4f} ms, bound "
+          f"{k1c_bound:.4f} ms by {k1c_by} ({live} live ray-bounces) [{smi}]")
+    out["k1c"] = dict(ms=k1c_ms, plain_ms=k1c_plain_ms, bound_ms=k1c_bound,
+                      bound_by=k1c_by)
+
+    # ---- 7. K2 against bwd_plain on the kernel's record
+    tables, counts = pk.pack_bwd(scene)
+    scale = 1.0 / (3 * n)  # the mean-image loss's cotangent
+    g_mean = torch.full((n, 3), scale, device=dev)
+    g_rand = torch.from_numpy(np.random.default_rng(7).normal(size=(n, 3))
+                              .astype(np.float32) * np.float32(scale)).to(dev)
+    k2_err = 0.0
+    for gname, g in (("g = 1/(3N)", g_mean), ("seeded g at that scale", g_rand)):
+        kf, kgo, kgd = pk.launch_bwd_kernel(tables, counts, rec, pixel, 1, 16,
+                                            "standard", g)
+        wf, wgo, wgd = pk.bwd_plain(tables, counts, rec, pixel, 1, 16,
+                                    "standard", g)
+        torch.cuda.synchronize()
+        od_line = []
+        for label, k, w in (("o", kgo, wgo), ("d", kgd, wgd)):
+            share, nz_share, n_nz, err = od_agreement(k, w, scale)
+            od_line.append(f"{label}: {share:.6f} of all, {nz_share:.6f} of the "
+                           f"{n_nz} non-zero, max |err| {err:.3g}")
+            check(share >= 0.995 and nz_share >= 0.995,
+                  f"K2 {label} cotangents disagree: {share:.6f} of all, "
+                  f"{nz_share:.6f} of the non-zero entries")
+            # A non-zero cotangent on at least 0.1% of the entries, so that a
+            # K2 that wrote zeros fails the share of the non-zero ones.
+            check(n_nz >= 3 * n // 1000, f"the plain {label} cotangent is zero "
+                  f"on all but {n_nz} entries")
+            k2_err = max(k2_err, err * scale)
+        tab_err = (kf - wf).abs().max().item()
+        tab_rel = ((kf - wf).abs() / wf.abs().clamp_min(1e-30))[wf.abs() > 1e-6].max().item()
+        tab_ok = torch.allclose(kf, wf, rtol=1e-3, atol=1e-7)
+        print(f"[K2-vs-plain] {gname}: o/d cotangents within rtol 1e-4 atol 1e-6 in "
+              f"units of g's scale (bars 0.995): {'; '.join(od_line)}; 24 table "
+              f"columns ({kf.numel()} entries) within rtol 1e-3 atol 1e-7: {tab_ok}, "
+              f"max |err| {tab_err:.3g}, max rel err {tab_rel:.3g} (entries > 1e-6)")
+        check(bool(torch.isfinite(kf).all()) and bool(torch.isfinite(kgo).all())
+              and bool(torch.isfinite(kgd).all()), "K2 output not finite")
+        check(wf.abs().max().item() > 0, "plain table gradient is zero")
+        check(tab_ok, f"K2 table gradients disagree: max |err| {tab_err:.3g}")
+        k2_err = max(k2_err, tab_err)
+
+    def k2():
+        return pk.launch_bwd_kernel(tables, counts, rec, pixel, 1, 16, "standard",
+                                    g_mean)
+
+    def k2_plain():
+        return pk.bwd_plain(tables, counts, rec, pixel, 1, 16, "standard", g_mean)
+
+    for _ in range(2):
+        k2()
+    k2_ms = cuda_ms(k2, 10)
+    k2_plain_ms = cuda_ms(k2_plain, 2)
+    # The record slots K2 reads: 48 B per live ray-bounce (o, d, thr, the
+    # active flag and the hit; it never reads the gathered color) and the
+    # active flag (4 B) of a dead one; per ray g (12), the pixel id (8) and
+    # the o/d cotangents written (24).
+    k2_bound, k2_by = bound(live * 48 + (n * nb - live) * 4 + n * (12 + 8 + 24),
+                            live * OPS_BWD_BOUNCE)
+    print(f"[time] K2 {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
+          f"{k2_bound:.4f} ms by {k2_by}, kernel at {k2_bound / k2_ms:.1%} of it [{smi}]")
+    out["k2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
+                     bound_ms=k2_bound, bound_by=k2_by)
+
+    # ---- 8. B8 against closest_hit_triangles, camera and bounced rays
+    v = (scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    packed = ipk.pack_triangles(*v)
+    o_cam = torch.stack(rays[0:3], dim=-1).contiguous()
+    d_cam = torch.stack(rays[3:6], dim=-1).contiguous()
+    o_b = rec.fields[1, 0:3].T.contiguous()
+    d_b = rec.fields[1, 3:6].T.contiguous()
+    del rec
+    b8_err = 0.0
+    for label, o, d in (("camera rays", o_cam, d_cam), ("bounce-2 rays", o_b, d_b)):
+        t, idx = ipk.launch_closest_hit(o, d, packed, 0.0, inf)
+        wt, widx = tint.closest_hit_triangles(o, d, *v, 0.0, inf)
+        torch.cuda.synchronize()
+        same = idx == widx
+        idx_eq = same.float().mean().item()
+        hit = same & (widx >= 0)
+        t_bad = int((~torch.isclose(t[hit], wt[hit], rtol=1e-5, atol=0.0)).sum().item())
+        err = (t[hit] - wt[hit]).abs().max().item() if hit.any() else 0.0
+        b8_err = max(b8_err, err)
+        print(f"[B8-vs-plain] {label}: index equal on {idx_eq:.6f} (bar 0.999), "
+              f"t outside rtol 1e-5 on {t_bad} of {int(hit.sum().item())} agreeing "
+              f"hits, max |err| {err:.3g}; {(widx >= 0).float().mean().item():.4f} "
+              f"of rays hit a triangle")
+        check(idx_eq >= 0.999, f"B8 indices disagree on {label}: {idx_eq:.6f}")
+        check(t_bad == 0, f"B8 t disagrees on {label} at {t_bad} hits")
+    b8_ms = cuda_ms(lambda: ipk.launch_closest_hit(o_cam, d_cam, packed, 0.0, inf), 20)
+    b8_plain_ms = cuda_ms(lambda: tint.closest_hit_triangles(o_cam, d_cam, *v, 0.0, inf), 3)
+    # Per ray the ray (24 B) in, t (4) and the index (4: an i32 holds it,
+    # as in the TPU kernel, though the wrapper hands torch an int64) out;
+    # the 16 triangle fields once.
+    b8_bound, b8_by = bound(n * (24 + 4 + 4) + 64 * t_, n * t_ * OPS_TRI)
+    print(f"[time] B8 {b8_ms:.4f} ms, plain {b8_plain_ms:.4f} ms, bound "
+          f"{b8_bound:.4f} ms by {b8_by}, kernel at {b8_bound / b8_ms:.1%} of it "
+          f"({cfg.width}x{cfg.height} camera rays, {t_} triangles) [{smi}]")
+    out["b8"] = dict(max_abs_err=b8_err, ms=b8_ms, plain_ms=b8_plain_ms,
+                     bound_ms=b8_bound, bound_by=b8_by)
+    del o_b, d_b
+
+    # ---- 9. the headline step: bench.py's mean-image loss, value and grad
+    st = RenderSettings(max_bounces=nb, style="standard")
+    trace = make_fast_kajiya(scene, 16, nb, style="standard")
+    params = {k: x.detach().clone().requires_grad_(True)
+              for k, x in inverse.trainable_params(scene).items()}
+    # The camera's leaves too, for the check: their gradients reach the
+    # scene only through K2's origin and direction cotangents.
+    checked = {**params, **{f"camera.{k}": getattr(cam, k).detach().clone()
+                            .requires_grad_(True) for k in ("translation", "fov")}}
+
+    def camera_rays(leaves):
+        ju, jv = rng.uniform2(pixel, 0, 0)
+        cx = (xs.to(torch.float32) + ju) / cfg.width
+        cy = 1.0 - (ys.to(torch.float32) + jv) / cfg.height
+        return camera_mod.generate_rays(inverse.apply_camera(cam, leaves), cx, cy)
+
+    def step(frame, leaves=params):
+        ray = camera_rays(leaves)
+        s = inverse.apply_params(scene, leaves)
+        loss = torch.mean(trace(s, ray.origin, ray.direction, pixel, frame))
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+
+    k1_0, k2_0 = pk.launch_path_kernel.launches, pk.launch_bwd_kernel.launches
+    loss, grads = step(1, checked)
+    torch.cuda.synchronize()
+    k1_step = pk.launch_path_kernel.launches - k1_0
+    k2_step = pk.launch_bwd_kernel.launches - k2_0
+    check(k1_step == 1 and k2_step == 1,
+          f"a step launched K1 {k1_step} and K2 {k2_step} times, not once each")
+    for k, gr in zip(checked, grads):
+        check(bool(torch.isfinite(gr).all()), f"gradient of {k} not finite")
+        check(gr.abs().max().item() > 0, f"gradient of {k} is zero")
+    ray = camera_rays(checked)
+    ref_loss = torch.mean(integrator_kajiya(inverse.apply_params(scene, checked),
+                                            ray, pixel, 1, st, salt_base=16))
+    ref = torch.autograd.grad(ref_loss, list(checked.values()))
+    torch.cuda.synchronize()
+    for k, a, b in zip(checked, grads, ref):
+        err = (a - b).abs().max().item()
+        tol = 1e-7 if k.startswith("camera.") else 1e-5
+        ok = torch.allclose(a, b, rtol=2e-2, atol=tol)
+        print(f"[step] d loss / d {k}: paired trace vs autograd through "
+              f"integrator_kajiya (B8): within rtol 2e-2 atol {tol:g}: {ok}, max "
+              f"|err| {err:.3g}, max |grad| {b.abs().max().item():.4g}")
+        check(ok, f"gradient of {k} disagrees with autograd: max |err| {err:.3g}")
+    print(f"[step] loss {loss.item():.6f} (autograd route {ref_loss.item():.6f})")
+    del ref, ref_loss, ray
+    for f in range(2):
+        step(2 + f)
+    steps = 10
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for f in range(steps):
+        step(4 + f)
+    stop.record()
+    stop.synchronize()
+    step_ms = start.elapsed_time(stop) / steps
+    rays_per_step = n * 1 * nb
+    print(f"[step] fwd+bwd {cfg.width}x{cfg.height} x {nb} bounces, standard: {step_ms:.4f} ms/step, "
+          f"{rays_per_step / step_ms / 1e3:.1f} Mrays/s (W*H*aa*bounces per step); "
+          f"K1 collect {k1c_ms:.4f} ms ({k1c_ms / step_ms:.1%}), K2 {k2_ms:.4f} ms "
+          f"({k2_ms / step_ms:.1%}) [{smi}]")
+
+    # ---- 10. the trainer at 1920x1080: this slice's main path
+    st10 = RenderSettings(max_bounces=nb, aa=1, style="standard")
+    frames, train_steps = 8, 50
+    mats = scene.materials
+    init = inverse.apply_params(scene, {
+        "materials.albedo": torch.full_like(mats.albedo, 0.5),
+        "materials.emission": mats.emission * 0.25})
+    # A 2-step run first, so the timed run pays no first-use costs (CUDA
+    # modules loaded at first launch, the allocator's first blocks).
+    inverse.recover(init, cam, st10, cfg, None,
+                    render_sample_chw(scene, cam, st10, cfg, 0), steps=2,
+                    learning_rate=3e-2)
+    pk.launch_path_kernel.launches = 0
+    pk.launch_bwd_kernel.launches = 0
+    ipk.launch_closest_hit.launches = 0
+    target = torch.zeros((3, cfg.height, cfg.width), device=dev)
+    for f in range(frames):
+        target = target + render_sample_chw(scene, cam, st10, cfg, f) / frames
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_scene, losses, _ = inverse.recover(init, cam, st10, cfg, None, target,
+                                           steps=train_steps, learning_rate=3e-2)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) / train_steps * 1e3
+    launches = {"path_kernel": pk.launch_path_kernel.launches,
+                "bwd_kernel": pk.launch_bwd_kernel.launches,
+                "closest_hit": ipk.launch_closest_hit.launches}
+
+    def mean_err(a, b):
+        return (a - b).abs().mean().item()
+
+    alb0 = mean_err(init.materials.albedo, mats.albedo)
+    em0 = mean_err(init.materials.emission, mats.emission)
+    alb = mean_err(rec_scene.materials.albedo, mats.albedo)
+    em = mean_err(rec_scene.materials.emission, mats.emission)
+    print(f"[train] recover, {cfg.width}x{cfg.height} x {nb} bounces, {train_steps} steps, lr 3e-2: "
+          f"{train_ms:.4f} ms/step (after a 2-step warm-up run); loss {losses[0]:.6f} -> {losses[-1]:.6f}; mean "
+          f"|albedo err| {alb0:.4f} -> {alb:.4f}, mean |emission err| {em0:.4f} -> "
+          f"{em:.4f}; launches {launches} [{smi}]")
+    check(all(np.isfinite(losses)), "trainer loss not finite")
+    check(alb < alb0, f"albedo error did not fall: {alb0:.4f} -> {alb:.4f}")
+    check(em < em0, f"emission error did not fall: {em0:.4f} -> {em:.4f}")
+    for name, count in launches.items():
+        check(count > 0, f"{name} never launched on the trainer's path")
+    check(launches["path_kernel"] == 2 * train_steps
+          and launches["bwd_kernel"] == train_steps,
+          f"the trainer launched {launches}: expected one K1 and one K2 per "
+          f"rendered gradient and one K1 per stop-gradient buffer")
+    out["launches"] = launches
+    return out
 
 
 def main() -> int:
@@ -82,15 +436,18 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda} | nvcc {nvcc_v} | "
           f"python {sys.version.split()[0]}")
 
-    # ---- 2. build
+    # ---- 2. build: one nvcc per source, all started together
+    kernels = ("path_kernel", "bwd_kernel", "closest_hit")
     t0 = time.perf_counter()
-    pk._path_lib()
-    info = build.BUILD_INFO["path_kernel"]
-    print(f"[build] path_kernel built in {info['seconds']:.2f} s "
-          f"(load {time.perf_counter() - t0:.2f} s): {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    build.build_all(kernels)
+    for name in kernels:
+        build.load_library(name)
+        info = build.BUILD_INFO[name]
+        print(f"[build] {name} built in {info['seconds']:.2f} s: {info['path']}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"[build] ptxas {name}: {line.strip()}")
+    print(f"[build] all three in {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. kernel vs plain on the card
     cfg = FilmConfig(1920, 1080)
@@ -148,9 +505,20 @@ def main() -> int:
     plain_frame()
     plain_ms = cuda_ms(plain_frame, 3)
     rays_per_frame = n * 4
+    # K1's bound for this frame: its live ray-bounces (dead lanes leave the
+    # loop) from the records of the same frame, and the film it writes.
+    _, disp_rec = pk.launch_path_kernel(pt.tables, pt.counts, None, n, 1, 16, 4,
+                                        "standard", collect=True, **main_kw)
+    live = int(disp_rec.fields[:, 12].sum().item())
+    del disp_rec
+    t_, s_, p_, _ = pt.counts
+    ops_bounce = t_ * OPS_TRI + s_ * OPS_SPH + p_ * OPS_PLN + OPS_SHADE + OPS_PCG
+    k1_bound, k1_by = bound(12 * n, live * ops_bounce + n * OPS_CAMERA)
     print(f"[time] 1920x1080 x 4 bounces: kernel {ms:.4f} ms "
           f"({rays_per_frame / ms / 1e3:.1f} Mrays/s), plain {plain_ms:.4f} ms "
-          f"({rays_per_frame / plain_ms / 1e3:.1f} Mrays/s) [{smi}]")
+          f"({rays_per_frame / plain_ms / 1e3:.1f} Mrays/s); bound {k1_bound:.4f} ms "
+          f"by {k1_by} ({live} live ray-bounces x {ops_bounce} ops + camera rays), "
+          f"kernel at {k1_bound / ms:.1%} of it [{smi}]")
 
     # ---- 4. goldens, for the record
     gcfg = FilmConfig(64, 64)
@@ -192,13 +560,36 @@ def main() -> int:
           f"film mean {accum.mean().item():.6f}; plain version {plain_ms:.4f} ms/frame, "
           f"{r.rays_per_frame / plain_ms / 1e3:.1f} Mrays/s; saved {png} [{smi}]")
 
-    print(json.dumps({"kernels": [{
+    display_launches = launches
+    train = training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays)
+
+    kernels = [{
         "name": "path_kernel", "route": "cuda",
         "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:1115",
-        "launches": launches, "max_abs_err": max_err, "within_1e-4": close,
-        "ms": ms, "plain_ms": plain_ms,
-    }]}))
+        "launches": train["launches"]["path_kernel"],
+        "launches_display": display_launches,
+        "max_abs_err": max_err, "within_1e-4": close,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+        "library_ms": None,
+        "collect_ms": train["k1c"]["ms"], "collect_plain_ms": train["k1c"]["plain_ms"],
+        "collect_bound_ms": train["k1c"]["bound_ms"],
+        "collect_bound_by": train["k1c"]["bound_by"],
+    }, {
+        "name": "bwd_kernel", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/bwd_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:1346",
+        "launches": train["launches"]["bwd_kernel"], **train["k2"],
+        "library_ms": None,
+    }, {
+        "name": "closest_hit", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/closest_hit.cu",
+        "replaces": "rvpt_tpu/ops/intersect_pk.py:89",
+        "launches": train["launches"]["closest_hit"], **train["b8"],
+        "library_ms": None,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

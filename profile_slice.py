@@ -1,21 +1,29 @@
-"""Where the display frame's time goes, on one NVIDIA card.
+"""Where the time goes, on one NVIDIA card: the display frame or the
+training step.
 
-    python3 profile_slice.py [--width 1920] [--height 1080] [--bounces 4]
-                             [--frames 20] [--repeats 3]
+    python3 profile_slice.py [--fwd-bwd] [--width 1920] [--height 1080]
+                             [--bounces 4] [--frames 20] [--repeats 3]
 
-Drives ``Renderer.draw`` of the Cornell box (style standard) through the
-CUDA path kernel and prints:
+Default mode drives ``Renderer.draw`` of the Cornell box (style standard)
+through the CUDA path kernel.  ``--fwd-bwd`` drives the headline training
+step instead (bench.py:63-90 on the port, chip_smoke.py phase 9): value and
+gradient of the mean image over ``trainable_params`` (albedo, emission)
+through ``make_fast_kajiya``, i.e. camera rays, K1 with records, K2 and its
+table sum, and the autograd glue.  Prints:
 
-* wall ms/frame without the profiler, timed with CUDA events over
-  ``--frames`` draws, ``--repeats`` times;
-* from one torch.profiler trace of ``--frames`` draws: device time per
-  frame, the path kernel's part of it, device operations and host-to-device
-  copies per frame by name, the device's idle share of the traced window
-  (1 - union of device intervals / window), and an estimate of the idle
-  share without the profiler (1 - device time / unprofiled wall time).
+* wall ms per frame or step without the profiler, timed with CUDA events
+  over ``--frames`` iterations, ``--repeats`` times;
+* from one torch.profiler trace of ``--frames`` iterations: device time
+  per iteration, split by kernel (display: the path kernel and the rest;
+  fwd+bwd: K1 with records, K2, K2's table sum and the glue), device
+  operations and host-to-device copies per iteration by name, the device's
+  idle share of the traced window (1 - union of device intervals /
+  window), and an estimate of the idle share without the profiler (1 -
+  device time / unprofiled wall time).
 
 The last line is one JSON object with every number.  The trace is written
-to out/profile_slice_trace.json.
+to out/profile_slice_trace.json (out/profile_fwd_bwd_trace.json with
+--fwd-bwd).
 """
 
 from __future__ import annotations
@@ -39,8 +47,59 @@ def _union_us(intervals):
     return total
 
 
+def _display(a, dev):
+    """One display frame: ``Renderer.draw``; parts by kernel name."""
+    from rvpt_tpu_torch import FilmConfig, RenderSettings
+    from rvpt_tpu_torch.renderer import Renderer
+    from rvpt_tpu_torch.scene import builtin
+
+    cfg = FilmConfig(a.width, a.height)
+    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    r = Renderer(scene, cam, RenderSettings(max_bounces=a.bounces, style="standard"),
+                 cfg)
+    parts = {"path_kernel": ("path_kernel",)}
+    return r.draw, r.flush, parts, "profile_slice_trace.json"
+
+
+def _fwd_bwd(a, dev):
+    """One headline training step; parts by kernel name."""
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig
+    from rvpt_tpu_torch.core import rng
+    from rvpt_tpu_torch.models import camera as camera_mod
+    from rvpt_tpu_torch.ops.fast_grad import make_fast_kajiya
+    from rvpt_tpu_torch.render import _pixel_grid
+    from rvpt_tpu_torch.scene import builtin
+    from rvpt_tpu_torch.train import inverse
+
+    cfg = FilmConfig(a.width, a.height)
+    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    trace = make_fast_kajiya(scene, 16, a.bounces, style="standard")
+    pixel, xs, ys = _pixel_grid(cfg, dev)
+    params = {k: x.detach().clone().requires_grad_(True)
+              for k, x in inverse.trainable_params(scene).items()}
+    frame = [0]
+
+    def step():
+        ju, jv = rng.uniform2(pixel, 0, 0)
+        cx = (xs.to(torch.float32) + ju) / cfg.width
+        cy = 1.0 - (ys.to(torch.float32) + jv) / cfg.height
+        ray = camera_mod.generate_rays(cam, cx, cy)
+        s = inverse.apply_params(scene, params)
+        frame[0] += 1
+        loss = torch.mean(trace(s, ray.origin, ray.direction, pixel, frame[0]))
+        return torch.autograd.grad(loss, list(params.values()))
+
+    parts = {"k1_collect": ("path_kernel",), "k2": ("bwd_kernel",),
+             "k2_table_sum": ("table_sum_kernel",)}
+    return step, torch.cuda.synchronize, parts, "profile_fwd_bwd_trace.json"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--fwd-bwd", action="store_true",
+                    help="profile the training step instead of the display frame")
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--bounces", type=int, default=4)
@@ -54,21 +113,18 @@ def main() -> int:
         raise SystemExit("profile_slice: no CUDA device")
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from rvpt_tpu_torch import FilmConfig, RenderSettings
-    from rvpt_tpu_torch.renderer import Renderer
-    from rvpt_tpu_torch.scene import builtin
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     dev = torch.device("cuda")
-    cfg = FilmConfig(a.width, a.height)
-    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
-    r = Renderer(scene, cam, RenderSettings(max_bounces=a.bounces, style="standard"), cfg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mode = "fwd_bwd" if a.fwd_bwd else "display"
+    run, flush, parts, trace_name = (_fwd_bwd if a.fwd_bwd else _display)(a, dev)
+    unit = "step" if a.fwd_bwd else "frame"
     for _ in range(3):
-        r.draw()
-    r.flush()
+        run()
+    flush()
 
     wall_ms = []
     for _ in range(a.repeats):
@@ -76,23 +132,23 @@ def main() -> int:
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(a.frames):
-            r.draw()
+            run()
         stop.record()
-        r.flush()
+        flush()
         stop.synchronize()
         wall_ms.append(start.elapsed_time(stop) / a.frames)
-    print(f"[wall] {a.width}x{a.height} x {a.bounces} bounces: "
-          f"{[round(v, 4) for v in wall_ms]} ms/frame over {a.repeats} x {a.frames} "
-          f"draws, unprofiled [{smi}]")
+    print(f"[wall] {mode} {a.width}x{a.height} x {a.bounces} bounces: "
+          f"{[round(v, 4) for v in wall_ms]} ms/{unit} over {a.repeats} x {a.frames} "
+          f"iterations, unprofiled [{smi}]")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("profile_slice.frames"):
             for _ in range(a.frames):
-                r.draw()
-            r.flush()
+                run()
+            flush()
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "out"), exist_ok=True)
-    trace_path = os.path.join(here, "out", "profile_slice_trace.json")
+    trace_path = os.path.join(here, "out", trace_name)
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
@@ -109,34 +165,42 @@ def main() -> int:
     busy = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in dev_ev])
     span_end = max(w1, max(e["ts"] + e["dur"] for e in dev_ev))
     dev_us = sum(e["dur"] for e in dev_ev)
-    k1_ev = [e for e in dev_ev if "path_kernel" in e["name"]]
-    k1_us = sum(e["dur"] for e in k1_ev)
+    per = a.frames
+    part_us = {}
+    part_n = {}
+    for part, keys in parts.items():
+        ev = [e for e in dev_ev if any(k in e["name"] for k in keys)]
+        part_us[part] = sum(e["dur"] for e in ev)
+        part_n[part] = len(ev)
+    glue_us = dev_us - sum(part_us.values())
     by_name = Counter(e["name"] for e in dev_ev)
     h2d = sum(1 for e in dev_ev if "HtoD" in e["name"])
 
     rec = {
-        "shape": [a.width, a.height, a.bounces], "frames": a.frames,
-        "card": smi, "wall_ms_per_frame": wall_ms,
-        "traced_window_ms_per_frame": (span_end - w0) / 1e3 / a.frames,
-        "device_ms_per_frame": dev_us / 1e3 / a.frames,
-        "path_kernel_ms_per_frame": k1_us / 1e3 / a.frames,
-        "path_kernel_share_of_device": k1_us / dev_us,
-        "path_kernel_launches": len(k1_ev),
-        "device_ops_per_frame": len(dev_ev) / a.frames,
-        "h2d_copies_per_frame": h2d / a.frames,
+        "mode": mode, "shape": [a.width, a.height, a.bounces], "iterations": per,
+        "card": smi, f"wall_ms_per_{unit}": wall_ms,
+        f"traced_window_ms_per_{unit}": (span_end - w0) / 1e3 / per,
+        f"device_ms_per_{unit}": dev_us / 1e3 / per,
+        **{f"{p}_ms_per_{unit}": us / 1e3 / per for p, us in part_us.items()},
+        **{f"{p}_share_of_device": us / dev_us for p, us in part_us.items()},
+        **{f"{p}_launches": part_n[p] for p in parts},
+        f"other_device_ms_per_{unit}": glue_us / 1e3 / per,
+        "other_share_of_device": glue_us / dev_us,
+        f"device_ops_per_{unit}": len(dev_ev) / per,
+        f"h2d_copies_per_{unit}": h2d / per,
         "device_idle_share": 1.0 - busy / (span_end - w0),
         # The profiler slows the host, so the traced window overstates idle
         # time; this estimate holds the traced device time against the
-        # unprofiled wall time of the same frames.
+        # unprofiled wall time of the same work.
         "device_idle_share_unprofiled_est":
-            1.0 - dev_us / 1e3 / a.frames / min(wall_ms),
-        "device_ops": {k: v / a.frames for k, v in by_name.most_common()},
+            1.0 - dev_us / 1e3 / per / min(wall_ms),
+        "device_ops": {k: v / per for k, v in by_name.most_common()},
     }
     for k, v in rec.items():
-        if k not in ("device_ops", "card", "shape", "frames"):
+        if k not in ("device_ops", "card", "shape", "iterations", "mode"):
             print(f"[profile] {k}: {v}")
-    for name, per_frame in rec["device_ops"].items():
-        print(f"[profile] per frame {per_frame:g} x {name[:100]}")
+    for name, n in rec["device_ops"].items():
+        print(f"[profile] per {unit} {n:g} x {name[:100]}")
     print(json.dumps(rec))
     return 0
 

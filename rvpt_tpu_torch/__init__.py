@@ -5,23 +5,18 @@ imports).  Module paths and names mirror ``rvpt_tpu`` one to one.  Plain
 tensor code is PyTorch; the whole-path kernel (the Pallas kernel K1 of
 ``rvpt_tpu.ops.pathkernel``) is hand-written CUDA C++ for Hopper under
 ``csrc/``, built at first use.  A CPU tensor takes each kernel's plain
-PyTorch version; a CUDA tensor launches the kernel or raises.
+PyTorch version; a CUDA tensor launches the kernel or raises.  Entry
+points build on the card unless the caller passes ``device="cpu"``.
 """
 
-import torch
-
 from .config import FilmConfig, RenderSettings
+from .core.device import resolve_device
 from .core.types import Isect, Ray
 from .models.camera import Camera
 from .ops.film import Film
 from .scene.scene import Scene, SceneBuilder
 
 __version__ = "0.1.0"
-
-
-def default_device() -> torch.device:
-    """``cuda`` when a card is present, else ``cpu``."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 __all__ = [
@@ -33,5 +28,5 @@ __all__ = [
     "RenderSettings",
     "Scene",
     "SceneBuilder",
-    "default_device",
+    "resolve_device",
 ]

@@ -3,12 +3,22 @@
 //
 // Replaces the Pallas kernel K1 of rvpt_tpu/ops/pathkernel.py
 // (make_path_kernel :1115, launched by _path_call :1276) in its row form
-// with integ="kajiya", collect=False: in-kernel camera rays
-// (_gen_rays_inkernel :1059) or rays passed in, closest hit over triangles,
-// spheres and planes (_search :715), Kajiya shading (_shade :925,
-// _shade_geom :857), and the style="standard" tail (:1254-1257).  The TPU
-// layout is not carried over: no [8,1024] tiles or padded lanes, no
-// MAX_GROUP bounce split with its 16-field carry, no one-hot table fetches.
+// with integ="kajiya": in-kernel camera rays (_gen_rays_inkernel :1059) or
+// rays passed in, closest hit over triangles, spheres and planes
+// (_search :715), Kajiya shading (_shade :925, _shade_geom :857), the
+// style="standard" tail (:1254-1257), and the collect records
+// (:1202-1215).  The TPU layout is not carried over: no [8,1024] tiles or
+// padded lanes, no MAX_GROUP bounce split with its 16-field carry, no
+// one-hot table fetches.
+//
+// Collect mode (the COLLECT instance, for the gradient): before each
+// bounce's search the thread writes its 13 bounce-input fields (o, d,
+// throughput, gathered color, active as 0/1) to rec_f[B][13][N], and after
+// it the hit's (family, index) to rec_i[B][2][N], -1 where the lane missed.
+// Bounces after the lane ended get its frozen state, active 0 and -1 hits,
+// as the JAX kernel's masked lanes do.  That record, 60 bytes per
+// ray-bounce (498 MB at 1920x1080 x 4 bounces), is the collect mode's main
+// cost.  Collecting adds only stores, so the radiance is unchanged.
 //
 // What bounds it on this card: arithmetic.  The scene tables are tiny
 // (Cornell: 12x17 + 2x5 + 6x8 floats, under 1 KB) and are staged into
@@ -16,8 +26,10 @@
 // word (a broadcast).  Each ray-bounce runs 12 triangle and 2 sphere tests
 // plus shading; the only ray-sized device-memory traffic is the f32[3,N]
 // film write (24.9 MB at 1920x1080), or also the six f32[N] ray inputs
-// when rays are passed in.  A lane that has terminated leaves the bounce
-// loop at once, which is exact: a dead lane adds nothing.
+// when rays are passed in.  Tables above the 48 KB default take the
+// opt-in shared memory (up to 227 KB on Hopper).  A lane that has
+// terminated leaves the bounce loop at once, which is exact: a dead lane
+// adds nothing.
 //
 // Rounding: every expression keeps the operation order of the JAX kernel
 // and of the plain PyTorch version beside this wrapper
@@ -27,6 +39,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "kajiya_common.cuh"
 
 namespace {
 
@@ -41,40 +55,8 @@ constexpr int PINHOLE = 0, ORTHO = 1;
 constexpr int THREADS = 256;
 
 constexpr float BIG = 3.0e38f;
-constexpr float DENOM_EPS = 1e-30f;
-constexpr float TWO_PI = (float)6.283185307179586;
 constexpr float HALF_TURN = (float)(0.5 * 6.283185307179586);
-constexpr float EPSILON = 5e-3f;
-// Sky gradient white + (blue - white) * t, the difference taken in double
-// and rounded once, as the Python constants are.
-constexpr float SKY_R = (float)(0.2 - 1.0);
-constexpr float SKY_G = (float)(0.3 - 1.0);
-constexpr float SKY_B = (float)(0.7 - 1.0);
-constexpr float INV_2_24 = (float)(1.0 / 16777216.0);
-
-__device__ __forceinline__ void pcg3d(uint32_t& x, uint32_t& y, uint32_t& z) {
-  x = x * 1664525u + 1013904223u;
-  y = y * 1664525u + 1013904223u;
-  z = z * 1664525u + 1013904223u;
-  x += y * z;
-  y += z * x;
-  z += x * y;
-  x ^= x >> 16;
-  y ^= y >> 16;
-  z ^= z >> 16;
-  x += y * z;
-  y += z * x;
-  z += x * y;
-}
-
-// Top 24 bits -> [0, 1), exact.
-__device__ __forceinline__ float unit(uint32_t bits) {
-  return (float)(int)(bits >> 8) * INV_2_24;
-}
-
-__device__ __forceinline__ float safe_den(float d) {
-  return fabsf(d) < DENOM_EPS ? DENOM_EPS : d;
-}
+using namespace kajiya;
 
 __device__ __forceinline__ void camera_ray(
     const float* cam, int mode, uint32_t pix, uint32_t frame,
@@ -127,13 +109,15 @@ __device__ __forceinline__ void camera_ray(
   }
 }
 
+template <bool COLLECT>
 __global__ void __launch_bounds__(THREADS) path_kernel(
     const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
     int n_mat, const float* __restrict__ cam_in,
     const int64_t* __restrict__ pix_ids, const float* __restrict__ ox_in,
     const float* __restrict__ oy_in, const float* __restrict__ oz_in,
     const float* __restrict__ dx_in, const float* __restrict__ dy_in,
-    const float* __restrict__ dz_in, float* __restrict__ out, int n,
+    const float* __restrict__ dz_in, float* __restrict__ out,
+    float* __restrict__ rec_f, int32_t* __restrict__ rec_i, int n,
     uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
     int max_bounces, int standard, int cam_mode, float mint) {
   extern __shared__ float smem[];
@@ -172,12 +156,21 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;  // emission gathered on the path
   float rr = 0.0f, rg = 0.0f, rb = 0.0f;  // finished radiance
   bool active = true;
+  int recorded = 0;  // bounces written to the record so far
+  // Record slot f of bounce b for this ray.
+  auto slot = [&](int b, int f) { return ((int64_t)b * 13 + f) * n + i; };
+  auto write_fields = [&](int b, float act) {
+    const float v[13] = {ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, act};
+    for (int f = 0; f < 13; ++f) rec_f[slot(b, f)] = v[f];
+  };
 
   for (int bounce = 0; bounce < max_bounces && active; ++bounce) {
+    if (COLLECT) write_fields(bounce, 1.0f);
     // ---- closest hit: triangles, spheres, planes; strict '<' keeps the
     // first minimum within and across families.
     float t_best = BIG, wnx = 0.0f, wny = 0.0f, wnz = 0.0f, wmat = 0.0f;
     bool hit = false;
+    int wfam = -1, widx = -1;
     for (int j = 0; j < n_tri; ++j) {
       const float* T = tri + TRI_STRIDE * j;
       const float nx = T[0], ny = T[1], nz = T[2];
@@ -199,6 +192,8 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
         wnz = nz;
         wmat = T[16];
         hit = true;
+        wfam = 0;
+        widx = j;
       }
     }
     for (int j = 0; j < n_sph; ++j) {
@@ -224,6 +219,8 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
         wnz = oz + ts * dz - S[2];
         wmat = S[4];
         hit = true;
+        wfam = 1;
+        widx = j;
       }
     }
     for (int j = 0; j < n_pln; ++j) {
@@ -240,7 +237,14 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
         wnz = nz;
         wmat = P[4];
         hit = true;
+        wfam = 2;
+        widx = j;
       }
+    }
+    if (COLLECT) {
+      rec_i[((int64_t)bounce * 2) * n + i] = wfam;
+      rec_i[((int64_t)bounce * 2 + 1) * n + i] = widx;
+      recorded = bounce + 1;
     }
 
     // ---- Kajiya shading (_shade / _shade_geom)
@@ -333,6 +337,13 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     tg = tg * M[1];
     tb = tb * M[2];
   }
+  if (COLLECT) {  // the lane ended early: frozen state, no hits
+    for (int b = recorded; b < max_bounces; ++b) {
+      write_fields(b, 0.0f);
+      rec_i[((int64_t)b * 2) * n + i] = -1;
+      rec_i[((int64_t)b * 2 + 1) * n + i] = -1;
+    }
+  }
   if (standard && active) {
     rr = rr + cr;
     rg = rg + cg;
@@ -343,32 +354,66 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   out[2 * (int64_t)n + i] = rb;
 }
 
+template <bool COLLECT>
+int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
+           const float* cam, const int64_t* pix_ids, const float* ox,
+           const float* oy, const float* oz, const float* dx, const float* dy,
+           const float* dz, float* out, float* rec_f, int32_t* rec_i, int n,
+           uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
+           int max_bounces, int standard, int cam_mode, float mint,
+           void* stream) {
+  const int n_tab = TRI_STRIDE * n_tri + SPH_STRIDE * n_sph +
+                    PLN_STRIDE * n_pln + MAT_STRIDE * n_mat;
+  const size_t smem = sizeof(float) * (CAM_LEN + n_tab);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        path_kernel<COLLECT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (n + THREADS - 1) / THREADS;
+  path_kernel<COLLECT><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, ox, oy, oz, dx, dy, dz,
+      out, rec_f, rec_i, n, frame, salt_base, jitter_salt, max_bounces,
+      standard, cam_mode, mint);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest table (in floats) the kernel stages into its default 48 KB of
-// shared memory, after the camera vector.
-int rvpt_path_max_table_floats() { return 48 * 1024 / 4 - CAM_LEN; }
+// Largest table (in floats) the kernel stages into the card's opt-in
+// shared memory per block, after the camera vector.
+int rvpt_path_max_table_floats() {
+  int dev = 0, bytes = 48 * 1024;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return bytes / 4 - CAM_LEN;
+}
 
-// Launch on `stream`; returns cudaGetLastError() of the launch.
+// Launch on `stream`; returns cudaGetLastError() of the launch.  With
+// rec_f and rec_i non-null the collect instance writes the record.
 int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
                     int n_mat, const float* cam, const int64_t* pix_ids,
                     const float* ox, const float* oy, const float* oz,
                     const float* dx, const float* dy, const float* dz,
-                    float* out, int n, uint32_t frame,
-                    uint32_t salt_base, uint32_t jitter_salt, int max_bounces,
-                    int standard, int cam_mode, float mint, void* stream) {
+                    float* out, float* rec_f, int32_t* rec_i, int n,
+                    uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
+                    int max_bounces, int standard, int cam_mode, float mint,
+                    void* stream) {
   if (n <= 0) return 0;
-  const int n_tab = TRI_STRIDE * n_tri + SPH_STRIDE * n_sph +
-                    PLN_STRIDE * n_pln + MAT_STRIDE * n_mat;
-  const size_t smem = sizeof(float) * (CAM_LEN + n_tab);
-  const int blocks = (n + THREADS - 1) / THREADS;
-  path_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, ox, oy, oz, dx, dy, dz,
-      out, n, frame, salt_base, jitter_salt, max_bounces, standard,
-      cam_mode, mint);
-  return (int)cudaGetLastError();
+  if (rec_f != nullptr && rec_i != nullptr) {
+    return launch<true>(tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, ox,
+                        oy, oz, dx, dy, dz, out, rec_f, rec_i, n, frame,
+                        salt_base, jitter_salt, max_bounces, standard,
+                        cam_mode, mint, stream);
+  }
+  return launch<false>(tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, ox,
+                       oy, oz, dx, dy, dz, out, nullptr, nullptr, n, frame,
+                       salt_base, jitter_salt, max_bounces, standard, cam_mode,
+                       mint, stream);
 }
 
 const char* rvpt_error_string(int code) {

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.device import resolve_device
 from ..core.math import PI, TWO_PI, normalize, unit_spherical_to_cartesian
 from ..core.types import Ray
 
@@ -42,7 +43,7 @@ class Camera:
         mode: int = PINHOLE,
         device=None,
     ) -> "Camera":
-        f32 = dict(dtype=torch.float32, device=device)
+        f32 = dict(dtype=torch.float32, device=resolve_device(device))
         return Camera(
             translation=torch.tensor(translation, **f32),
             rotation=torch.tensor(rotation, **f32),

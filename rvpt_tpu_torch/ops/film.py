@@ -12,6 +12,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.device import resolve_device
+
 
 @dataclass(frozen=True)
 class Film:
@@ -22,7 +24,7 @@ class Film:
     def create(height: int, width: int, device=None) -> "Film":
         return Film(
             accum=torch.zeros((3, height, width), dtype=torch.float32,
-                              device=device),
+                              device=resolve_device(device)),
             frame=0,
         )
 

@@ -5,7 +5,8 @@ Every test is phrased over a ``[rays, prims]`` block built from component
 broadcasts, with the metric-tensor triangle test of the reference
 (intersection.glsl:267-323).  Ties keep the first minimum: the lowest
 index within a family, and the earlier family (triangles, then spheres,
-then planes) across families.  BVH traversal waits for the BVH port.
+then planes) across families.  On the card the triangle search runs the
+CUDA kernel of ``intersect_pk``.  BVH traversal waits for the BVH port.
 """
 
 from __future__ import annotations
@@ -206,10 +207,24 @@ def plane_isect_single(o, d, normal, d_off):
 
 def closest_hit_scene(scene: Scene, ray: Ray, mint, maxt, tri_chunk: int = 2048):
     """Closest hit across all primitive families: (family[N], idx[N], t[N]),
-    family and index -1 on a miss."""
+    family and index -1 on a miss.
+
+    Rays on the card search the triangles with the CUDA kernel B8
+    (``intersect_pk.launch_closest_hit``), on detached inputs: the search
+    selects and does not differentiate, and ``isect_from_hit`` rebuilds the
+    differentiable record from the index.  Rays on the CPU take the plain
+    search ``closest_hit_triangles``."""
     o, d = ray.origin, ray.direction
-    t_tri, i_tri = closest_hit_triangles(
-        o, d, scene.tri_v0, scene.tri_v1, scene.tri_v2, mint, maxt, tri_chunk)
+    if scene.num_triangles > 0 and o.device.type == "cuda":
+        from . import intersect_pk
+
+        packed = intersect_pk.pack_triangles(
+            scene.tri_v0.detach(), scene.tri_v1.detach(), scene.tri_v2.detach())
+        t_tri, i_tri = intersect_pk.launch_closest_hit(
+            o.detach().contiguous(), d.detach().contiguous(), packed, mint, maxt)
+    else:
+        t_tri, i_tri = closest_hit_triangles(
+            o, d, scene.tri_v0, scene.tri_v1, scene.tri_v2, mint, maxt, tri_chunk)
     t_sph, i_sph = closest_hit_spheres(o, d, scene.sph_center, scene.sph_radius,
                                        mint, maxt)
     t_pln, i_pln = closest_hit_planes(o, d, scene.pln_normal, scene.pln_d,

@@ -1,24 +1,31 @@
-"""Whole-path Kajiya tracer: the port of the Pallas kernel K1.
+"""Whole-path Kajiya tracer and its whole-chain pullback: the ports of the
+Pallas kernels K1 and K2.
 
 ``rvpt_tpu/ops/pathkernel.py`` traces the whole Kajiya path in one Pallas
 launch per group of <= 8 bounces (make_path_kernel :1115, _path_call
-:1276).  Here the same function has two versions:
+:1276), optionally writing per-bounce records, and pulls an image
+cotangent back through the whole chain from those records
+(make_bwd_kernel :1346, _bwd_call :1609, bwd_path :1801).  Here each
+function has two versions:
 
-* ``csrc/path_kernel.cu``: hand-written CUDA for Hopper, one thread per
-  pixel, the whole bounce loop in registers, one launch per trace
-  (``launch_path_kernel``);
-* ``trace_plain``: the same function in plain PyTorch on flat [N] tensors,
-  the reference the kernel is held against.
+* ``csrc/path_kernel.cu`` (K1) and ``csrc/bwd_kernel.cu`` (K2):
+  hand-written CUDA for Hopper, one thread per ray, one launch per trace
+  or pullback (``launch_path_kernel``, ``launch_bwd_kernel``);
+* ``trace_plain`` and ``bwd_plain``: the same functions in plain PyTorch
+  on flat [N] tensors, the references the kernels are held against.
 
-``PathTracer.trace`` dispatches on the device of its tables: a CPU tensor
-takes the plain version, a CUDA tensor launches the kernel or raises.
-Scene tables are packed in the row form (one f32 row per primitive) in the
-field orders below.
+``PathTracer.trace`` and ``bwd_path`` dispatch on the device of their
+tables: a CPU tensor takes the plain version, a CUDA tensor launches the
+kernel or raises.  Scene tables are packed in the row form (one f32 row per
+primitive) in the field orders below.  A trace's record (``PathRecord``)
+is flat and SoA: per bounce the 13 bounce-input fields and the
+(family, index) hit record, -1 where the lane was dead or missed.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,6 +33,7 @@ from torch import nn
 
 from ..core import rng
 from ..scene.scene import Scene
+from .build import check_cuda, check_launch, load_library
 from .intersect import triangle_precompute
 
 _BIG = 3.0e38
@@ -43,6 +51,36 @@ TRI_FIELDS = (
 SPH_FIELDS = ("cx", "cy", "cz", "rad", "mat")
 PLN_FIELDS = ("nx", "ny", "nz", "doff", "mat")
 MAT_FIELDS = ("ar", "ag", "ab", "er", "eg", "eb", "ior", "kind")
+
+# Raw (vertex-level) differentiable tables of the backward, and its id
+# tables (pathkernel.py:75-81).
+DIFF_FIELDS = (
+    "tv0x", "tv0y", "tv0z", "tv1x", "tv1y", "tv1z", "tv2x", "tv2y", "tv2z",
+    "scx", "scy", "scz", "srad",
+    "pnx", "pny", "pnz", "pd",
+    "mar", "mag", "mab", "mer", "meg", "meb", "mior",
+)
+NONDIFF_FIELDS = ("tmat", "smat", "pmat", "mkind")
+# pack_bwd row widths: each family's DIFF_FIELDS columns, then its id.
+BWD_WIDTHS = (10, 5, 5, 8)
+GRAD_WIDTHS = (9, 4, 4, 7)
+# The kernel backward's bound (the "pallas" route's, fast_grad.py:108):
+# K2 stages the raw tables and their gradient sums in shared memory.
+MAX_BWD_TRIANGLES = 1024
+
+# Record fields per bounce: o, d, throughput, gathered color, active.
+RECORD_FIELDS = ("ox", "oy", "oz", "dx", "dy", "dz", "tr", "tg", "tb",
+                 "cr", "cg", "cb", "active")
+
+
+class PathRecord(NamedTuple):
+    """Per-bounce record of a trace, flat and SoA over N rays:
+    ``fields`` f32[B, 13, N] (``RECORD_FIELDS`` at each bounce's start,
+    ``active`` as 0/1) and ``hits`` int32[B, 2, N] (family, index of the
+    hit, -1 where the lane was dead or missed)."""
+
+    fields: torch.Tensor
+    hits: torch.Tensor
 
 # Camera parameter vector layout (f32[24]).
 CAM_M = 0          # 0..15: camera matrix, row-major
@@ -178,26 +216,29 @@ def _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint):
     """Closest hit over triangles, spheres, planes (``_search``): a
     candidate wins only with a strictly smaller t, so the first minimum
     wins within a family and the earlier family across families.
-    Returns (t_best, normal xyz, material id, hit)."""
+    Returns (t_best, normal xyz, material id, hit, family, index); family
+    and index are int32, -1 on a miss."""
     big = torch.full_like(ox, _BIG)
     t_best = big
     wnx = torch.zeros_like(ox)
     wny = torch.zeros_like(ox)
     wnz = torch.zeros_like(ox)
     wmat = torch.zeros_like(ox)
-    hit = torch.zeros_like(ox, dtype=torch.bool)
+    wfam = torch.full_like(ox, -1, dtype=torch.int32)
+    widx = torch.full_like(ox, -1, dtype=torch.int32)
 
-    def take(valid, t, nx, ny, nz, mat):
-        nonlocal t_best, wnx, wny, wnz, wmat, hit
+    def take(valid, t, nx, ny, nz, mat, fam, idx):
+        nonlocal t_best, wnx, wny, wnz, wmat, wfam, widx
         t_best = torch.where(valid, t, t_best)
         wnx = torch.where(valid, nx, wnx)
         wny = torch.where(valid, ny, wny)
         wnz = torch.where(valid, nz, wnz)
         wmat = torch.where(valid, mat, wmat)
-        hit = hit | valid
+        wfam = torch.where(valid, fam, wfam)
+        widx = torch.where(valid, idx, widx)
 
-    for (nx, ny, nz, e0x, e0y, e0z, e1x, e1y, e1z, v0n, v0e0, v0e1,
-         g00, g11, g01, inv_det, mat) in tri:
+    for j, (nx, ny, nz, e0x, e0y, e0z, e1x, e1y, e1z, v0n, v0e0, v0e1,
+            g00, g11, g01, inv_det, mat) in enumerate(tri):
         dn = nx * dx + ny * dy + nz * dz
         on = nx * ox + ny * oy + nz * oz
         de0 = e0x * dx + e0y * dy + e0z * dz
@@ -210,9 +251,9 @@ def _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint):
         u = inv_det * (g11 * b0 - g01 * b1)
         v = inv_det * (g00 * b1 - g01 * b0)
         valid = (mint < t) & (t < t_best) & (u > 0.0) & (v > 0.0) & (u + v < 1.0)
-        take(valid, t, nx, ny, nz, mat)
+        take(valid, t, nx, ny, nz, mat, 0, j)
 
-    for cx, cy, cz, rad, mat in sph:
+    for j, (cx, cy, cz, rad, mat) in enumerate(sph):
         ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
         dd = dx * dx + dy * dy + dz * dz
         bh = dx * ocx + dy * ocy + dz * ocz
@@ -228,9 +269,9 @@ def _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint):
         ts = torch.where(disc > 0.0, ts, big)
         valid = ts < t_best
         take(valid, ts, ox + ts * dx - cx, oy + ts * dy - cy, oz + ts * dz - cz,
-             mat)
+             mat, 1, j)
 
-    for nx, ny, nz, doff, mat in pln:
+    for j, (nx, ny, nz, doff, mat) in enumerate(pln):
         if not float(np.float32(nx) * np.float32(nx) + np.float32(ny) * np.float32(ny)
                      + np.float32(nz) * np.float32(nz)) > 0.0:
             continue  # zero normal: never a valid plane
@@ -238,21 +279,23 @@ def _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint):
         on = nx * ox + ny * oy + nz * oz
         tp = (doff - on) / _safe_den(dn)
         valid = (tp > mint) & (tp < t_best)
-        take(valid, tp, nx, ny, nz, mat)
+        take(valid, tp, nx, ny, nz, mat, 2, j)
 
-    return t_best, wnx, wny, wnz, wmat, hit
+    return t_best, wnx, wny, wnz, wmat, wfam >= 0, wfam, widx
 
 
 def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
                 rays=None, cam_params=None, cam_mode=PINHOLE, jitter_salt=0,
-                mint=0.0) -> torch.Tensor:
-    """The plain PyTorch version of the whole-path kernel -> f32[3, N].
+                mint=0.0, collect=False):
+    """The plain PyTorch version of the whole-path kernel -> f32[3, N], or
+    (f32[3, N], ``PathRecord``) with ``collect``.
 
     ``tables``/``counts`` from ``pack_fwd``; ``pix`` int64[N] pixel ids;
     ``rays`` six f32[N] components (ox, oy, oz, dx, dy, dz) or None to
     generate camera rays from ``cam_params``.  The bounce-b RNG salt is
     ``salt_base + 4 b``.  Mirrors ``_search``/``_shade``/``_shade_geom``
-    of the JAX kernel line for line."""
+    of the JAX kernel line for line, and its ``collect`` records
+    (pathkernel.py:1202-1215)."""
     t, s, p, nm = counts
     flat = tables.tolist()
     o = 0
@@ -275,10 +318,18 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
     cr = cg = cb = zeros
     rr = rg = rb = zeros
     active = torch.ones_like(ox, dtype=torch.bool)
+    rec_fields, rec_hits = [], []
 
     for b in range(int(max_bounces)):
-        t_best, wnx, wny, wnz, wmat, hit = _search_plain(
+        if collect:
+            rec_fields.append(torch.stack([ox, oy, oz, dx, dy, dz, tr, tg, tb,
+                                           cr, cg, cb, active.to(torch.float32)]))
+        t_best, wnx, wny, wnz, wmat, hit, wfam, widx = _search_plain(
             tri, sph, pln, ox, oy, oz, dx, dy, dz, mint)
+        if collect:
+            live_hit = active & hit
+            rec_hits.append(torch.stack([torch.where(live_hit, wfam, -1),
+                                         torch.where(live_hit, widx, -1)]))
 
         miss_now = active & ~hit
         st = dy * 0.5 + 0.5
@@ -358,7 +409,10 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
         rr = torch.where(active, rr + cr, rr)
         rg = torch.where(active, rg + cg, rg)
         rb = torch.where(active, rb + cb, rb)
-    return torch.stack([rr, rg, rb])
+    out = torch.stack([rr, rg, rb])
+    if collect:
+        return out, PathRecord(torch.stack(rec_fields), torch.stack(rec_hits))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -367,78 +421,70 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
 
 
 def _path_lib():
-    from .build import load_library
-
     lib = load_library("path_kernel")
     if not hasattr(lib, "_rvpt_bound"):
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.rvpt_path_trace.argtypes = [
             ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            ptr, i32, u32, u32, u32, i32, i32, i32, ctypes.c_float, ptr,
+            ptr, ptr, ptr, i32, u32, u32, u32, i32, i32, i32, ctypes.c_float,
+            ptr,
         ]
         lib.rvpt_path_trace.restype = i32
         lib.rvpt_path_max_table_floats.argtypes = []
         lib.rvpt_path_max_table_floats.restype = i32
-        lib.rvpt_error_string.argtypes = [i32]
-        lib.rvpt_error_string.restype = ctypes.c_char_p
         lib._rvpt_bound = True
     return lib
 
 
-def _check_cuda(x: torch.Tensor, dtype, name: str, n: int | None = None):
-    if x.device.type != "cuda" or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(
-            f"{name}: need a contiguous {dtype} CUDA tensor, got "
-            f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
-    if n is not None and x.numel() != n:
-        raise ValueError(f"{name}: need {n} elements, got {x.numel()}")
-
-
 def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
                        style, rays=None, cam_params=None, cam_mode=PINHOLE,
-                       jitter_salt=0, mint=0.0) -> torch.Tensor:
-    """Launch the CUDA kernel -> f32[3, n] on the tables' card.
+                       jitter_salt=0, mint=0.0, collect=False):
+    """Launch the CUDA kernel -> f32[3, n] on the tables' card, or
+    (f32[3, n], ``PathRecord``) with ``collect``.
 
     ``pix`` int64[n] pixel ids, or None for the ids 0..n-1 (the raster
     film).  Other arguments as ``trace_plain``.  Counts one launch in
     ``launch_path_kernel.launches``."""
     t, s, p, nm = counts
     dev = tables.device
-    _check_cuda(tables, torch.float32, "tables", 17 * t + 5 * s + 5 * p + 8 * nm)
+    check_cuda(tables, torch.float32, "tables", 17 * t + 5 * s + 5 * p + 8 * nm)
     lib = _path_lib()
     if tables.numel() > lib.rvpt_path_max_table_floats():
         raise ValueError(
             f"scene tables of {tables.numel()} floats exceed the kernel's "
             f"shared-memory staging ({lib.rvpt_path_max_table_floats()})")
     if pix is not None:
-        _check_cuda(pix, torch.int64, "pixel", n)
+        check_cuda(pix, torch.int64, "pixel", n, dev)
     if rays is None:
         if cam_params is None:
             raise ValueError("camera rays need cam_params")
-        _check_cuda(cam_params, torch.float32, "cam_params", 24)
+        check_cuda(cam_params, torch.float32, "cam_params", 24, dev)
         ray_ptrs = [None] * 6
         cam_ptr = cam_params.data_ptr()
     else:
         for k, r in enumerate(rays):
-            _check_cuda(r, torch.float32, f"ray component {k}", n)
+            check_cuda(r, torch.float32, f"ray component {k}", n, dev)
         ray_ptrs = [r.data_ptr() for r in rays]
         cam_ptr = None
-    for x in (pix, cam_params, *(rays or ())):
-        if x is not None and x.device != dev:
-            raise ValueError(f"inputs on {x.device}, tables on {dev}")
+    nb = int(max_bounces)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    record = None
+    if collect:
+        record = PathRecord(
+            torch.empty((nb, len(RECORD_FIELDS), n), dtype=torch.float32, device=dev),
+            torch.empty((nb, 2, n), dtype=torch.int32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rvpt_path_trace(
         tables.data_ptr(), t, s, p, nm, cam_ptr,
-        None if pix is None else pix.data_ptr(), *ray_ptrs, out.data_ptr(), n,
+        None if pix is None else pix.data_ptr(), *ray_ptrs, out.data_ptr(),
+        None if record is None else record.fields.data_ptr(),
+        None if record is None else record.hits.data_ptr(), n,
         int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
-        int(jitter_salt) & 0xFFFFFFFF, int(max_bounces),
+        int(jitter_salt) & 0xFFFFFFFF, nb,
         int(style == "standard"), int(cam_mode), float(mint), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"path kernel launch failed: {lib.rvpt_error_string(err).decode()}")
+    check_launch(lib, err, "path kernel")
     launch_path_kernel.launches += 1
-    return out
+    return out if record is None else (out, record)
 
 
 launch_path_kernel.launches = 0
@@ -459,9 +505,10 @@ class PathTracer(nn.Module):
 
     def trace(self, pixel, origin, direction, frame, salt_base, max_bounces,
               style="reference", gen_rays=False, cam_params=None,
-              cam_mode=PINHOLE, jitter_salt=0):
+              cam_mode=PINHOLE, jitter_salt=0, collect_states=False):
         """Trace full Kajiya paths -> (r, g, b), each f32[N] (the JAX
-        ``PathTracer.trace`` interface); ``forward`` returns them as one
+        ``PathTracer.trace`` interface), or ((r, g, b), ``PathRecord``)
+        with ``collect_states``; ``forward`` returns the radiance as one
         f32[3, N] tensor.
 
         ``pixel`` is an int64[N] tensor of pixel ids, or an int N meaning
@@ -469,12 +516,16 @@ class PathTracer(nn.Module):
         inside the trace from ``cam_params`` (``camera_params``) and
         ``origin``/``direction`` are ignored; otherwise they are f32[N,3]
         tensors or (x, y, z) tuples of f32[N]."""
-        return self(pixel, origin, direction, frame, salt_base, max_bounces,
-                    style, gen_rays, cam_params, cam_mode, jitter_salt).unbind(0)
+        out = self(pixel, origin, direction, frame, salt_base, max_bounces,
+                   style, gen_rays, cam_params, cam_mode, jitter_salt,
+                   collect_states)
+        if collect_states:
+            return out[0].unbind(0), out[1]
+        return out.unbind(0)
 
     def forward(self, pixel, origin, direction, frame, salt_base, max_bounces,
                 style="reference", gen_rays=False, cam_params=None,
-                cam_mode=PINHOLE, jitter_salt=0) -> torch.Tensor:
+                cam_mode=PINHOLE, jitter_salt=0, collect_states=False):
         dev = self.tables.device
         if isinstance(pixel, int):
             n, pix = pixel, None
@@ -488,18 +539,380 @@ class PathTracer(nn.Module):
                 comps = (origin[:, 0], origin[:, 1], origin[:, 2],
                          direction[:, 0], direction[:, 1], direction[:, 2])
             rays = tuple(c.contiguous() for c in comps)
+        kw = dict(rays=rays, cam_params=cam_params, cam_mode=cam_mode,
+                  jitter_salt=jitter_salt, mint=self.mint, collect=collect_states)
         if dev.type == "cuda":
-            out = launch_path_kernel(
-                self.tables, self.counts, pix, n, frame, salt_base, max_bounces,
-                style, rays=rays, cam_params=cam_params, cam_mode=cam_mode,
-                jitter_salt=jitter_salt, mint=self.mint)
-        elif dev.type == "cpu":
+            return launch_path_kernel(self.tables, self.counts, pix, n, frame,
+                                      salt_base, max_bounces, style, **kw)
+        if dev.type == "cpu":
             if pix is None:
                 pix = torch.arange(n, dtype=torch.int64)
-            out = trace_plain(
-                self.tables, self.counts, pix, frame, salt_base, max_bounces,
-                style, rays=rays, cam_params=cam_params, cam_mode=cam_mode,
-                jitter_salt=jitter_salt, mint=self.mint)
-        else:
-            raise ValueError(f"no path tracer for device {dev}")
-        return out
+            return trace_plain(self.tables, self.counts, pix, frame, salt_base,
+                               max_bounces, style, **kw)
+        raise ValueError(f"no path tracer for device {dev}")
+
+    @staticmethod
+    def hits_from_record(record: PathRecord):
+        """Per-bounce (families, indices) int64[B, N] of a record (the
+        JAX ``hits_from_record`` layout)."""
+        return record.hits[:, 0].long(), record.hits[:, 1].long()
+
+
+# ---------------------------------------------------------------------------
+# Backward: the whole-chain pullback from a record
+# ---------------------------------------------------------------------------
+
+
+def pack_bwd(scene: Scene) -> tuple[torch.Tensor, tuple[int, int, int, int]]:
+    """Raw differentiable tables + id tables for the pullback, in the row
+    form (``BWD_WIDTHS``): [T,10] triangle rows (v0, v1, v2, material id),
+    [S,5] sphere rows (center, radius, material id), [P,5] plane rows
+    (normal, offset, material id), [M,8] material rows (albedo, emission,
+    ior, kind), one flat f32 buffer, plus the row counts (T, S, P, M).
+    A material-less scene gets one zero row (``pack_bwd`` :245-253)."""
+    f32 = torch.float32
+    t, s, p = scene.num_triangles, scene.num_spheres, scene.num_planes
+    tri = torch.cat([scene.tri_v0, scene.tri_v1, scene.tri_v2,
+                     scene.tri_mat.to(f32)[:, None]], dim=-1).reshape(t, 10)
+    sph = torch.cat([scene.sph_center, scene.sph_radius[:, None],
+                     scene.sph_mat.to(f32)[:, None]], dim=-1).reshape(s, 5)
+    pln = torch.cat([scene.pln_normal, scene.pln_d[:, None],
+                     scene.pln_mat.to(f32)[:, None]], dim=-1).reshape(p, 5)
+    m = scene.materials
+    if m.count:
+        mat = torch.cat([m.albedo, m.emission, m.ior[:, None],
+                         m.kind.to(f32)[:, None]], dim=-1)
+    else:
+        mat = torch.zeros((1, 8), dtype=f32, device=scene.device)
+    flat = torch.cat([tri.reshape(-1), sph.reshape(-1), pln.reshape(-1),
+                      mat.reshape(-1)]).to(f32).contiguous()
+    return flat, (t, s, p, mat.shape[0])
+
+
+def _split_rows(flat, counts, widths):
+    """The four families' [rows, width] blocks of a flat row-form buffer."""
+    out, o = [], 0
+    for rows, w in zip(counts, widths):
+        out.append(flat[o:o + rows * w].reshape(rows, w))
+        o += rows * w
+    return out
+
+
+def gtabs_from_flat(gflat, counts) -> tuple[torch.Tensor, ...]:
+    """The 24 table-gradient columns, in ``DIFF_FIELDS`` order, of a flat
+    gradient buffer ([T,9] | [S,4] | [P,4] | [M,7] rows)."""
+    cols = []
+    for block in _split_rows(gflat, counts, GRAD_WIDTHS):
+        cols.extend(block.unbind(1))
+    return tuple(cols)
+
+
+def _bwd_f(prim, tri_l, sph_l, pln_l, mat_l, m_tri, m_sph, m_pln, active,
+           miss_now, is_lam, is_mir, ru, rv, rw):
+    """One bounce of the replay the pullback differentiates: the JAX
+    kernel's ``f`` (pathkernel.py:1446-1560) on flat [N] lanes, with the
+    winner's raw rows already looked up (``tri_l`` [N,9] etc., None for an
+    empty family).  Returns the 15 outputs (o, d, thr, col, sky radiance)."""
+    ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb = prim
+    zeros = torch.zeros_like(ox)
+    t = wnx = wny = wnz = zeros
+
+    def clip(x):
+        return torch.clamp(x, -1e6, 1e6)
+
+    def safe_div(num, den):
+        return num / _safe_den(den)
+
+    if tri_l is not None:
+        v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z = tri_l.unbind(1)
+        e0x, e0y, e0z = v1x - v0x, v1y - v0y, v1z - v0z
+        e1x, e1y, e1z = v2x - v0x, v2y - v0y, v2z - v0z
+        nx = e0y * e1z - e0z * e1y
+        ny = e0z * e1x - e0x * e1z
+        nz = e0x * e1y - e0y * e1x
+        dn = dx * nx + dy * ny + dz * nz
+        t_t = safe_div((v0x - ox) * nx + (v0y - oy) * ny + (v0z - oz) * nz, dn)
+        t = torch.where(m_tri, clip(t_t), t)
+        wnx = torch.where(m_tri, nx, wnx)
+        wny = torch.where(m_tri, ny, wny)
+        wnz = torch.where(m_tri, nz, wnz)
+
+    if sph_l is not None:
+        cx, cy, cz, r = sph_l.unbind(1)
+        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+        dd = dx * dx + dy * dy + dz * dz
+        bh = dx * ocx + dy * ocy + dz * ocz
+        ct = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+        disc = torch.clamp(bh * bh - dd * ct, min=1e-12)
+        sq = torch.sqrt(disc)
+        t0 = safe_div(-bh - sq, dd)
+        t1 = safe_div(-bh + sq, dd)
+        t_s = torch.where(t0 > 0.0, t0, t1)
+        t_s = torch.where(m_sph, clip(t_s), zeros)
+        t = torch.where(m_sph, t_s, t)
+        wnx = torch.where(m_sph, ox + t_s * dx - cx, wnx)
+        wny = torch.where(m_sph, oy + t_s * dy - cy, wny)
+        wnz = torch.where(m_sph, oz + t_s * dz - cz, wnz)
+
+    if pln_l is not None:
+        lnx, lny, lnz, doff = pln_l.unbind(1)
+        dn = dx * lnx + dy * lny + dz * lnz
+        t_p = safe_div(doff - (ox * lnx + oy * lny + oz * lnz), dn)
+        t = torch.where(m_pln, clip(t_p), t)
+        wnx = torch.where(m_pln, lnx, wnx)
+        wny = torch.where(m_pln, lny, wny)
+        wnz = torch.where(m_pln, lnz, wnz)
+
+    alb_r, alb_g, alb_b, em_r, em_g, em_b, ior = mat_l.unbind(1)
+    sky_t = dy * 0.5 + 0.5
+    ra = torch.where(miss_now, cr + tr * (_WHITE[0] + _SKY[0] * sky_t), zeros)
+    ga = torch.where(miss_now, cg + tg * (_WHITE[1] + _SKY[1] * sky_t), zeros)
+    ba = torch.where(miss_now, cb + tb * (_WHITE[2] + _SKY[2] * sky_t), zeros)
+
+    cr2 = torch.where(active, cr + tr * em_r, cr)
+    cg2 = torch.where(active, cg + tg * em_g, cg)
+    cb2 = torch.where(active, cb + tb * em_b, cb)
+
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
+    inv_nl = _rsqrt_safe(wnx * wnx + wny * wny + wnz * wnz)
+    nX, nY, nZ = wnx * inv_nl, wny * inv_nl, wnz * inv_nl
+    inv_dl = _rsqrt_safe(dx * dx + dy * dy + dz * dz)
+    iX, iY, iZ = dx * inv_dl, dy * inv_dl, dz * inv_dl
+
+    cos_view = iX * nX + iY * nY + iZ * nZ
+    flipped = cos_view > 0.0
+    cos_in = torch.abs(cos_view)
+    nX = torch.where(flipped, -nX, nX)
+    nY = torch.where(flipped, -nY, nY)
+    nZ = torch.where(flipped, -nZ, nZ)
+    eta = torch.where(flipped, ior, 1.0 / torch.clamp(ior, min=1e-8))
+
+    phi = _TWO_PI * ru
+    cos_t = 1.0 - 2.0 * rv
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12))
+    lamX = nX + sin_t * torch.cos(phi)
+    lamY = nY + sin_t * torch.sin(phi)
+    lamZ = nZ + cos_t
+
+    refX = iX + 2.0 * cos_in * nX
+    refY = iY + 2.0 * cos_in * nY
+    refZ = iZ + 2.0 * cos_in * nZ
+
+    cos_out_sqr = 1.0 - eta * eta * (1.0 - cos_in * cos_in)
+    cos_out = torch.sqrt(torch.clamp(cos_out_sqr, min=1e-12))
+    with torch.no_grad():  # the Fresnel choice is a stop-gradient
+        r_perp = (eta * cos_in - cos_out) / (eta * cos_in + cos_out)
+        r_par = (cos_in - eta * cos_out) / (cos_in + eta * cos_out)
+        f_refl = 0.5 * (r_perp * r_perp + r_par * r_par)
+        refl = (cos_out_sqr <= 0.0) | (rw < f_refl)
+    k = eta * cos_in - cos_out
+    dieX = torch.where(refl, refX, eta * iX + k * nX)
+    dieY = torch.where(refl, refY, eta * iY + k * nY)
+    dieZ = torch.where(refl, refZ, eta * iZ + k * nZ)
+    die_off = torch.where(refl, _EPSILON, -_EPSILON)
+
+    out_dx = torch.where(is_lam, lamX, torch.where(is_mir, refX, dieX))
+    out_dy = torch.where(is_lam, lamY, torch.where(is_mir, refY, dieY))
+    out_dz = torch.where(is_lam, lamZ, torch.where(is_mir, refZ, dieZ))
+    off = torch.where(is_lam | is_mir, _EPSILON, die_off)
+
+    return (torch.where(active, px + off * nX, ox),
+            torch.where(active, py + off * nY, oy),
+            torch.where(active, pz + off * nZ, oz),
+            torch.where(active, out_dx, dx),
+            torch.where(active, out_dy, dy),
+            torch.where(active, out_dz, dz),
+            torch.where(active, tr * alb_r, tr),
+            torch.where(active, tg * alb_g, tg),
+            torch.where(active, tb * alb_b, tb),
+            cr2, cg2, cb2, ra, ga, ba)
+
+
+def bwd_plain(tables, counts, record: PathRecord, pix, frame, salt_base,
+              style, g):
+    """The plain PyTorch version of the whole-chain pullback.
+
+    ``tables``/``counts`` from ``pack_bwd``; ``record`` a trace's
+    ``PathRecord``; ``pix`` int64[N] pixel ids (None: 0..N-1); ``g`` the
+    radiance cotangent f32[N, 3].  Per bounce, in reverse, ``torch.autograd``
+    differentiates ``_bwd_f`` (the JAX kernel's replay, its formulas, not
+    the search's) with respect to its inputs and the winner's rows, which
+    are looked up by indexing; the lookups' pullback adds each ray's row
+    cotangent into its table row in float64 (``index_add_``), so the table
+    gradient is the exactly summed reference the kernel's f32 sums are
+    held against.  Returns (the flat table gradient, [T,9] | [S,4] |
+    [P,4] | [M,7] rows; o cotangent f32[N,3]; d cotangent f32[N,3])."""
+    t, s, p, nm = counts
+    fields, hits = record.fields, record.hits
+    nb, _, n = fields.shape
+    dev = fields.device
+    if pix is None:
+        pix = torch.arange(n, dtype=torch.int64, device=dev)
+    rows = _split_rows(tables.detach(), counts, BWD_WIDTHS)
+    diff = [blk[:, :w] for blk, w in zip(rows, GRAD_WIDTHS)]
+    ids = [blk[:, -1].to(torch.int64) for blk in rows]
+    mkind = rows[3][:, 7]
+    g = g.reshape(n, 3)
+    grads_out = [g[:, 0], g[:, 1], g[:, 2]]
+    zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
+    cot = [zeros] * 12
+    if style == "standard":
+        # Lanes still active after the last bounce add their gathered
+        # color (:1375-1382).
+        fin = (fields[nb - 1, 12] > 0.0) & (hits[nb - 1, 0] >= 0)
+        cot[9:12] = [torch.where(fin, gc, zeros) for gc in grads_out]
+    gacc = [torch.zeros(d.shape, dtype=torch.float64, device=dev) for d in diff]
+    with torch.enable_grad():
+        for b in reversed(range(nb)):
+            fam = hits[b, 0].to(torch.int64)
+            idx = hits[b, 1].to(torch.int64)
+            act_in = fields[b, 12] > 0.0
+            hit = fam >= 0
+            active = act_in & hit
+            miss_now = act_in & ~hit
+            ru, rv, rw = (rng.u32_to_unit_float(x)
+                          for x in rng.pcg3d(pix, frame, salt_base + 4 * b))
+            mat_id = torch.zeros((n,), dtype=torch.int64, device=dev)
+            looked, masks, rows_of = [], [], []
+            for fam_id, count in enumerate((t, s, p)):
+                if count == 0:
+                    looked.append(None)
+                    masks.append(None)
+                    rows_of.append(None)
+                    continue
+                safe = torch.clamp(idx, 0, count - 1)
+                m = fam == fam_id
+                looked.append(diff[fam_id][safe].requires_grad_(True))
+                masks.append(m)
+                rows_of.append(safe)
+                mat_id = torch.where(m, ids[fam_id][safe], mat_id)
+            mi = torch.clamp(mat_id, 0, nm - 1)
+            kind = mkind[mi]
+            mat_l = diff[3][mi].requires_grad_(True)
+            prim = [fields[b, f].detach().requires_grad_(True) for f in range(12)]
+            outs = _bwd_f(prim, *looked, mat_l, *masks, active, miss_now,
+                          kind == 0.0, kind == 1.0, ru, rv, rw)
+            inputs = prim + [x for x in looked if x is not None] + [mat_l]
+            got = list(torch.autograd.grad(outs, inputs,
+                                           grad_outputs=cot + grads_out,
+                                           allow_unused=True))
+            cot = [c if c is not None else zeros for c in got[:12]]
+            rest = got[12:]
+            for k, sel in enumerate(rows_of + [mi]):
+                if sel is None:
+                    continue
+                gk = rest.pop(0)
+                if gk is not None:
+                    gacc[k].index_add_(0, sel, gk.to(torch.float64))
+    gflat = torch.cat([ga.reshape(-1) for ga in gacc]).to(torch.float32)
+    return (gflat, torch.stack(cot[0:3], dim=-1),
+            torch.stack(cot[3:6], dim=-1))
+
+
+def _bwd_lib():
+    lib = load_library("bwd_kernel")
+    if not hasattr(lib, "_rvpt_bound"):
+        ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        lib.rvpt_bwd_blocks.argtypes = [i32, i32, i32, i32, i32]
+        lib.rvpt_bwd_blocks.restype = i32
+        lib.rvpt_bwd.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
+                                 ptr, ptr, ptr, ptr, i32, i32, i32, u32, u32,
+                                 i32, ptr]
+        lib.rvpt_bwd.restype = i32
+        lib._rvpt_bound = True
+    return lib
+
+
+def launch_bwd_kernel(tables, counts, record: PathRecord, pix, frame,
+                      salt_base, style, g):
+    """Launch the CUDA pullback K2 on the tables' card; arguments and
+    result as ``bwd_plain``.  The table gradient is summed per block in
+    shared memory and the per-block partials reduced by a second kernel
+    in a fixed order.  Counts one launch (the pair) in
+    ``launch_bwd_kernel.launches``."""
+    t, s, p, nm = counts
+    dev = tables.device
+    if t > MAX_BWD_TRIANGLES:
+        raise ValueError(
+            f"{t} triangles exceed the backward kernel's shared-memory "
+            f"staging ({MAX_BWD_TRIANGLES})")
+    check_cuda(tables, torch.float32, "tables", 10 * t + 5 * s + 5 * p + 8 * nm)
+    nb, nf, n = record.fields.shape
+    if nf != len(RECORD_FIELDS) or record.hits.shape != (nb, 2, n):
+        raise ValueError("record: need fields [B,13,N] and hits [B,2,N]")
+    check_cuda(record.fields, torch.float32, "record fields", device=dev)
+    check_cuda(record.hits, torch.int32, "record hits", device=dev)
+    check_cuda(g, torch.float32, "cotangent", 3 * n, dev)
+    if pix is not None:
+        check_cuda(pix, torch.int64, "pixel", n, dev)
+    lib = _bwd_lib()
+    n_grad = 9 * t + 4 * s + 4 * p + 7 * nm
+    blocks = lib.rvpt_bwd_blocks(n, t, s, p, nm)
+    if blocks < 0:
+        check_launch(lib, -blocks, "backward kernel (occupancy query)")
+    go = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    gd = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    partials = torch.empty((max(n_grad * blocks, 1),), dtype=torch.float32,
+                           device=dev)
+    gflat = torch.empty((n_grad,), dtype=torch.float32, device=dev)
+    err = lib.rvpt_bwd(
+        tables.data_ptr(), t, s, p, nm,
+        None if pix is None else pix.data_ptr(), record.fields.data_ptr(),
+        record.hits.data_ptr(), g.data_ptr(), go.data_ptr(), gd.data_ptr(),
+        partials.data_ptr(), gflat.data_ptr(), n, nb, blocks,
+        int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
+        int(style == "standard"), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, err, "backward kernel")
+    launch_bwd_kernel.launches += 1
+    return gflat, go, gd
+
+
+launch_bwd_kernel.launches = 0
+
+
+def bwd_path(scene: Scene, record: PathRecord, frame, g, salt_base: int,
+             style: str, pixel=None):
+    """Whole-chain pullback from a record (``bwd_path`` :1801).
+
+    ``g`` is the radiance cotangent f32[N, 3]; ``pixel`` the trace's
+    int64[N] pixel ids (None: 0..N-1).  Returns (the 24 table-gradient
+    columns in ``DIFF_FIELDS`` order, o cotangent f32[N,3], d cotangent
+    f32[N,3]).  A scene on the card launches K2, a scene on the CPU takes
+    ``bwd_plain``."""
+    tables, counts = pack_bwd(scene)
+    dev = tables.device
+    if dev.type == "cuda":
+        gflat, go, gd = launch_bwd_kernel(tables, counts, record, pixel, frame,
+                                          salt_base, style, g.contiguous())
+    elif dev.type == "cpu":
+        gflat, go, gd = bwd_plain(tables, counts, record, pixel, frame,
+                                  salt_base, style, g)
+    else:
+        raise ValueError(f"no backward for device {dev}")
+    return gtabs_from_flat(gflat, counts), go, gd
+
+
+def scene_grads_from_tables(scene: Scene, gtabs) -> dict:
+    """Scene-shaped leaf gradients from the 24 table-gradient columns
+    (``scene_grads_from_tables`` :1836)."""
+    g = dict(zip(DIFF_FIELDS, gtabs))
+    t, s, p = scene.num_triangles, scene.num_spheres, scene.num_planes
+    m = scene.materials.count
+
+    def v3(a, b, c, rows):
+        return torch.stack([g[a][:rows], g[b][:rows], g[c][:rows]], dim=-1)
+
+    return {
+        "tri_v0": v3("tv0x", "tv0y", "tv0z", t),
+        "tri_v1": v3("tv1x", "tv1y", "tv1z", t),
+        "tri_v2": v3("tv2x", "tv2y", "tv2z", t),
+        "sph_center": v3("scx", "scy", "scz", s),
+        "sph_radius": g["srad"][:s],
+        "pln_normal": v3("pnx", "pny", "pnz", p),
+        "pln_d": g["pd"][:p],
+        "albedo": v3("mar", "mag", "mab", m),
+        "emission": v3("mer", "meg", "meb", m),
+        "ior": g["mior"][:m],
+    }

@@ -18,6 +18,7 @@ import torch
 
 from .config import FilmConfig, RenderSettings
 from .core import rng
+from .core.device import resolve_device
 from .models import camera as camera_mod
 from .models.integrators import AA_STRIDE, KAJIYA, eval_integrator
 from .ops import film as film_ops
@@ -29,7 +30,8 @@ _INTEGRATOR_SITE = 16
 def _pixel_grid(cfg: FilmConfig, device=None):
     """Flat pixel ids and integer coords; id = x + y*W matches the
     reference's seeding index (util.glsl:35), so RNG streams do not depend
-    on how the film is cut up."""
+    on how the film is cut up.  ``device`` None is the card."""
+    device = resolve_device(device)
     ys, xs = torch.meshgrid(
         torch.arange(cfg.height, dtype=torch.int64, device=device),
         torch.arange(cfg.width, dtype=torch.int64, device=device),
@@ -111,6 +113,18 @@ def render_sample_fast_chw(scene, camera, settings: RenderSettings,
     if settings.aa > 1:
         acc = acc * (1.0 / settings.aa)
     return acc.reshape(3, cfg.height, cfg.width)
+
+
+def _megakernel_eligible(scene, settings: RenderSettings) -> bool:
+    """Whether the whole-path tracer and its pullback serve this scene and
+    settings (``render.py:119``): pure Kajiya on every quadrant and a
+    scene without a BVH of at most 1,024 triangles.  No platform check:
+    the tracer picks the kernel or its plain version by the device."""
+    from .ops.pathkernel import MAX_BWD_TRIANGLES
+
+    if set(settings.modes()) != {KAJIYA}:
+        return False
+    return scene.bvh is None and scene.num_triangles <= MAX_BWD_TRIANGLES
 
 
 def render_frame(scene, camera, settings: RenderSettings, cfg: FilmConfig,

@@ -8,6 +8,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.device import resolve_device
+
 LAMBERT = 0
 MIRROR = 1
 DIELECTRIC = 2
@@ -28,6 +30,7 @@ class Materials:
 
     @staticmethod
     def empty(device=None) -> "Materials":
+        device = resolve_device(device)
         return Materials(
             albedo=torch.zeros((0, 3), dtype=torch.float32, device=device),
             emission=torch.zeros((0, 3), dtype=torch.float32, device=device),
@@ -38,6 +41,7 @@ class Materials:
     @staticmethod
     def from_list(mats: list[dict], device=None) -> "Materials":
         """Build from dicts with keys albedo, emission, kind, optional ior."""
+        device = resolve_device(device)
         if not mats:
             return Materials.empty(device)
         f32 = dict(dtype=torch.float32, device=device)

@@ -8,6 +8,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.device import resolve_device
 from .materials import Materials
 
 ARRAY_FIELDS = (
@@ -89,6 +90,8 @@ class SceneBuilder:
         return self
 
     def build(self, device=None) -> Scene:
+        """The scene's tensors on ``device`` (None: the card)."""
+        device = resolve_device(device)
         f32 = dict(dtype=torch.float32, device=device)
         i64 = dict(dtype=torch.int64, device=device)
 

@@ -1,12 +1,19 @@
-"""The CUDA path kernel of rvpt_tpu_torch against its plain PyTorch version,
-on the card.  Every test here needs an NVIDIA card and skips without one.
-This file imports no JAX, so it also runs on a machine without it:
+"""The CUDA kernels of rvpt_tpu_torch (K1 path_kernel, K2 bwd_kernel, B8
+closest_hit) against their plain PyTorch versions, on the card.  Every test
+here needs an NVIDIA card and skips without one.  This file imports no JAX,
+so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Bar: >= 99.5% of pixel channels within 1e-4 (the tests/test_megakernel.py
-bar); the kernel is built with --fmad=false and rounds like the plain
-version's unfused ops, so it usually agrees exactly.
+Bars: K1 >= 99.5% of pixel channels within 1e-4 (the
+tests/test_megakernel.py bar), its records (family, index) equal on
+>= 99.5% of ray-bounces and fields >= 99.5% within 1e-4; K2 per-ray o/d
+cotangents, in units of g's scale, >= 99.5% within rtol 1e-4, atol 1e-6
+over all entries and over the non-zero ones, and table columns within
+rtol 1e-3, atol 1e-7 (sums over rays in another order); B8 index equal on
+>= 99.9% of rays, t within rtol 1e-5 where they agree.  The kernels are
+built with --fmad=false and round like the plain versions' unfused ops, so
+they usually agree exactly.
 """
 
 import dataclasses
@@ -99,7 +106,7 @@ def test_fast_route_counts_launches_and_matches_cpu(dev):
     cfg = FilmConfig(width=64, height=32)
     st = RenderSettings(max_bounces=3, aa=2, style="standard")
     scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
-    cpu_scene, cpu_cam = builtin.cornell_box(aspect=cfg.aspect)
+    cpu_scene, cpu_cam = builtin.cornell_box(aspect=cfg.aspect, device="cpu")
     before = tpk.launch_path_kernel.launches
     got = render_sample_fast_chw(scene, cam, st, cfg, 4)
     assert tpk.launch_path_kernel.launches == before + 2
@@ -111,9 +118,9 @@ def test_kernel_rejects_bad_inputs(dev):
     cfg = FilmConfig(width=8, height=4)
     scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
     pt = tpk.PathTracer(scene)
-    big = torch.zeros(20_000, dtype=torch.float32, device=dev)
+    big = torch.zeros(8 * 7500, dtype=torch.float32, device=dev)
     with pytest.raises(ValueError, match="shared-memory"):
-        tpk.launch_path_kernel(big, (0, 0, 0, 2500), None, 32, 0, 16, 2,
+        tpk.launch_path_kernel(big, (0, 0, 0, 7500), None, 32, 0, 16, 2,
                                "standard", cam_params=tpk.camera_params(cam, cfg))
     with pytest.raises(ValueError, match="cam_params"):
         tpk.launch_path_kernel(pt.tables, pt.counts, None, 32, 0, 16, 2, "standard")
@@ -122,3 +129,202 @@ def test_kernel_rejects_bad_inputs(dev):
                                torch.arange(32, dtype=torch.int32, device=dev),
                                32, 0, 16, 2, "standard",
                                cam_params=tpk.camera_params(cam, cfg))
+
+
+# ---------------------------------------------------------------------------
+# The training path: K1 records, K2, B8
+# ---------------------------------------------------------------------------
+
+
+def _soup(dev, n_tri, seed=7):
+    """A seeded triangle soup in front of the camera, with a light, a glass
+    sphere and a floor plane (every family and material kind)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    b = SceneBuilder()
+    mats = [b.add_material(albedo=(0.7, 0.6, 0.5)),
+            b.add_material(albedo=(0.9, 0.9, 0.9), kind=1),
+            b.add_material(albedo=(0.95, 0.95, 0.95), kind=2, ior=1.4)]
+    light = b.add_material(albedo=(0.0, 0.0, 0.0), emission=(5.0, 5.0, 5.0))
+    size = 2.0 * (12.0 / n_tri) ** 0.5
+    for k in range(n_tri):
+        c = r.uniform(-2, 2, 3)
+        c[2] += 4.0
+        b.add_triangle(tuple(c), tuple(c + r.normal(0, size, 3)),
+                       tuple(c + r.normal(0, size, 3)), mats[k % 3])
+    b.add_sphere((0.0, 2.5, 4.0), 0.8, light)
+    b.add_sphere((0.5, -0.5, 3.5), 0.5, mats[2])
+    b.add_plane((0.0, 1.0, 0.0), -2.0, mats[0])
+    return b.build(dev)
+
+
+def _rays(scene, cam, cfg, dev):
+    pixel, xs, ys = _pixel_grid(cfg, dev)
+    ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, 0, 0)
+    return pixel, tuple(c.contiguous() for c in (
+        ray.origin[:, 0], ray.origin[:, 1], ray.origin[:, 2],
+        ray.direction[:, 0], ray.direction[:, 1], ray.direction[:, 2]))
+
+
+def _record_agreement(got, want):
+    hits = (got.hits == want.hits).all(dim=1).float().mean().item()
+    fields = torch.isclose(got.fields, want.fields, rtol=1e-4,
+                           atol=1e-4).float().mean().item()
+    return hits, fields
+
+
+@pytest.mark.parametrize("gen_rays", [False, True])
+@pytest.mark.parametrize("scene_name", ["cornell_box", "soup"])
+def test_collect_matches_plain(dev, scene_name, gen_rays):
+    """K1 with records: radiance equal to K1 without them, records against
+    trace_plain's."""
+    cfg = FilmConfig(width=320, height=180)
+    if scene_name == "soup":
+        scene = _soup(dev, 60)
+        cam = tcam.Camera.create(fov=90.0, aspect=cfg.aspect, device=dev)
+    else:
+        scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    pt = tpk.PathTracer(scene)
+    pixel, rays = _rays(scene, cam, cfg, dev)
+    kw = dict(rays=None if gen_rays else rays,
+              cam_params=tpk.camera_params(cam, cfg), cam_mode=cam.mode)
+    n = cfg.num_pixels
+    got, rec = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 3, 16, 4,
+                                      "standard", collect=True, **kw)
+    bare = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 3, 16, 4,
+                                  "standard", **kw)
+    want, wrec = tpk.trace_plain(pt.tables, pt.counts, pixel, 3, 16, 4,
+                                 "standard", collect=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bare)
+    assert _share(got, want) >= 0.995
+    hits, fields = _record_agreement(rec, wrec)
+    assert hits >= 0.995 and fields >= 0.995, (hits, fields)
+
+
+def _bwd_pair(scene, cam, cfg, dev, style, g_kind):
+    import numpy as np
+
+    pt = tpk.PathTracer(scene)
+    pixel, rays = _rays(scene, cam, cfg, dev)
+    n = cfg.num_pixels
+    _, rec = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 3, 16, 4,
+                                    style, rays=rays, collect=True)
+    scale = 1.0 / (3 * n)  # the mean loss's cotangent
+    if g_kind == "mean":
+        g = torch.full((n, 3), scale, device=dev)
+    else:  # seeded, at the mean loss's scale
+        g = torch.from_numpy(np.random.default_rng(1).normal(size=(n, 3))
+                             .astype(np.float32) * np.float32(scale)).to(dev)
+    tables, counts = tpk.pack_bwd(scene)
+    got = tpk.launch_bwd_kernel(tables, counts, rec, pixel, 3, 16, style, g)
+    want = tpk.bwd_plain(tables, counts, rec, pixel, 3, 16, style, g)
+    torch.cuda.synchronize()
+    return got, want, scale
+
+
+def _assert_bwd_close(got, want, scale):
+    (gf, go, gd), (wf, wo, wd) = got, want
+    for a, b in ((go, wo), (gd, wd)):
+        # In units of g's scale (the cotangents are linear in g), over all
+        # entries and over the ones the plain version makes non-zero: most
+        # are exactly 0, so zeros written by the kernel would pass the first.
+        a, b = a / scale, b / scale
+        close = torch.isclose(a, b, rtol=1e-4, atol=1e-6)
+        nz = b != 0
+        assert nz.sum().item() >= 3 * b.shape[0] // 1000, nz.sum().item()
+        assert close.float().mean().item() >= 0.995
+        assert close[nz].float().mean().item() >= 0.995
+    assert torch.isfinite(gf).all()
+    assert wf.abs().max() > 0
+    torch.testing.assert_close(gf, wf, rtol=1e-3, atol=1e-7)
+
+
+@pytest.mark.parametrize("g_kind", ["mean", "random"])
+@pytest.mark.parametrize("style", ["reference", "standard"])
+def test_bwd_kernel_matches_plain(dev, style, g_kind):
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    _assert_bwd_close(*_bwd_pair(scene, cam, cfg, dev, style, g_kind))
+
+
+def test_bwd_kernel_1024_triangles(dev):
+    """A seeded 1,024-triangle soup: K2 stages past the 48 KB default of
+    shared memory (and K1 too); a 1,025-triangle scene is refused."""
+    cfg = FilmConfig(width=320, height=180)
+    cam = tcam.Camera.create(fov=90.0, aspect=cfg.aspect, device=dev)
+    scene = _soup(dev, tpk.MAX_BWD_TRIANGLES)
+    _assert_bwd_close(*_bwd_pair(scene, cam, cfg, dev, "standard", "random"))
+
+    from rvpt_tpu_torch.ops.fast_grad import make_fast_kajiya
+
+    big = _soup(dev, tpk.MAX_BWD_TRIANGLES + 1)
+    tables, counts = tpk.pack_bwd(big)
+    n = 256
+    rec = tpk.PathRecord(torch.zeros((2, 13, n), device=dev),
+                         torch.full((2, 2, n), -1, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="1024"):
+        tpk.launch_bwd_kernel(tables, counts, rec, None, 0, 16, "standard",
+                              torch.zeros((n, 3), device=dev))
+    with pytest.raises(NotImplementedError, match="A12"):
+        make_fast_kajiya(big, 16, 2)
+
+
+@pytest.mark.parametrize("bounced", [False, True])
+def test_closest_hit_matches_plain(dev, bounced):
+    from rvpt_tpu_torch.ops import intersect as tint
+    from rvpt_tpu_torch.ops import intersect_pk as tipk
+
+    cfg = FilmConfig(width=320, height=180)
+    cam = tcam.Camera.create(fov=90.0, aspect=cfg.aspect, device=dev)
+    scene = _soup(dev, 300)
+    pixel, xs, ys = _pixel_grid(cfg, dev)
+    ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, 0, 0)
+    o, d = ray.origin.contiguous(), ray.direction.contiguous()
+    if bounced:
+        pt = tpk.PathTracer(scene)
+        _, rec = pt(pixel, o, d, 0, 16, 2, collect_states=True)
+        o = rec.fields[1, 0:3].T.contiguous()
+        d = rec.fields[1, 3:6].T.contiguous()
+    packed = tipk.pack_triangles(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    t, idx = tipk.launch_closest_hit(o, d, packed, 0.0, float("inf"))
+    wt, widx = tint.closest_hit_triangles(o, d, scene.tri_v0, scene.tri_v1,
+                                          scene.tri_v2, 0.0, float("inf"))
+    torch.cuda.synchronize()
+    same = idx == widx
+    assert same.float().mean().item() >= 0.999
+    assert (widx >= 0).float().mean().item() > 0.05
+    torch.testing.assert_close(t[same], wt[same], rtol=1e-5, atol=0.0)
+
+
+def test_cuda_scene_never_reaches_a_plain_version(dev, monkeypatch):
+    """The paired trace, the trainer step and the plain render path on the
+    card: every kernel's launch count rises and no plain version runs."""
+    from rvpt_tpu_torch.ops import intersect as tint
+    from rvpt_tpu_torch.ops import intersect_pk as tipk
+    from rvpt_tpu_torch.render import render_sample_chw
+    from rvpt_tpu_torch.train import inverse
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(tpk, "trace_plain", refuse)
+    monkeypatch.setattr(tpk, "bwd_plain", refuse)
+    monkeypatch.setattr(tint, "closest_hit_triangles", refuse)
+    cfg = FilmConfig(width=64, height=32)
+    st = RenderSettings(max_bounces=3, style="standard")
+    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    target = render_sample_chw(scene, cam, st, cfg, 0)
+    k1, k2, b8 = (tpk.launch_path_kernel.launches, tpk.launch_bwd_kernel.launches,
+                  tipk.launch_closest_hit.launches)
+    assert b8 > 0
+    step, opt = inverse.make_train_step(scene, cam, st, cfg, None, target)
+    params, opt, loss = step(inverse.trainable_params(scene), opt, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    # one K1 for the stop-gradient buffer, one K1 with records and one K2
+    assert tpk.launch_path_kernel.launches == k1 + 2
+    assert tpk.launch_bwd_kernel.launches == k2 + 1
+    assert tipk.launch_closest_hit.launches == b8
+    assert params["materials.albedo"].device.type == "cuda"

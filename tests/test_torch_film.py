@@ -14,7 +14,7 @@ def test_accumulate_with_dirty_reset_matches_jax():
     samples = r.uniform(0, 4, (5, 3, 6, 8)).astype(np.float32)
     dirty = [True, False, False, True, False]
     jf = jfilm.Film.create(6, 8)
-    tf = tfilm.Film.create(6, 8)
+    tf = tfilm.Film.create(6, 8, device="cpu")
     for s, dt in zip(samples, dirty):
         jf = jfilm.accumulate(jf, jnp.asarray(s), dt)
         tf = tfilm.accumulate(tf, torch.from_numpy(s), dt)

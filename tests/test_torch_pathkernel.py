@@ -36,9 +36,9 @@ def _close_share(got, want):
 def test_plain_trace_matches_jax_kernel(scene_name, style):
     """Rays passed in (gen_rays=False): both sides get identical rays."""
     cfg = FilmConfig(width=24, height=16)
-    ts, tc = getattr(tbuiltin, MAKERS[scene_name])(aspect=cfg.aspect)
+    ts, tc = getattr(tbuiltin, MAKERS[scene_name])(aspect=cfg.aspect, device="cpu")
     js, _ = getattr(jbuiltin, MAKERS[scene_name])(aspect=cfg.aspect)
-    pixel, xs, ys = _pixel_grid(cfg)
+    pixel, xs, ys = _pixel_grid(cfg, "cpu")
     ray = jittered_camera_rays(tc, cfg, pixel, xs, ys, 0, 0)
     o, d = ray.origin.numpy(), ray.direction.numpy()
 
@@ -69,7 +69,7 @@ def test_plain_gen_rays_matches_jax_fast_chw(mode, monkeypatch):
     monkeypatch.setattr(jint, "_BACKEND", "pallas")
     cfg = FilmConfig(width=32, height=16)
     st = RenderSettings(max_bounces=3, style="standard")
-    ts, tc = tbuiltin.cornell_box(aspect=cfg.aspect)
+    ts, tc = tbuiltin.cornell_box(aspect=cfg.aspect, device="cpu")
     js, jc = jbuiltin.cornell_box(aspect=cfg.aspect)
     tc = dataclasses.replace(tc, mode=mode)
     jc = dataclasses.replace(jc, mode=mode)
@@ -82,7 +82,7 @@ def test_plain_gen_rays_matches_jax_fast_chw(mode, monkeypatch):
 
 
 def test_pack_fwd_rows():
-    ts, _ = tbuiltin.cornell_box()
+    ts, _ = tbuiltin.cornell_box(device="cpu")
     tables, counts = tpk.pack_fwd(ts)
     assert counts == (12, 2, 0, 6)
     assert tables.shape == (12 * 17 + 2 * 5 + 6 * 8,)
@@ -96,7 +96,7 @@ def test_cpu_tensors_take_the_plain_version():
     """A CPU scene never reaches the CUDA library; the launcher refuses CPU
     tensors instead of falling back."""
     cfg = FilmConfig(width=8, height=4)
-    ts, tc = tbuiltin.cornell_box(aspect=cfg.aspect)
+    ts, tc = tbuiltin.cornell_box(aspect=cfg.aspect, device="cpu")
     before = tpk.launch_path_kernel.launches
     img = render_sample_fast_chw(ts, tc, RenderSettings(max_bounces=2), cfg, 0)
     assert img.shape == (3, 4, 8) and torch.isfinite(img).all()

@@ -36,14 +36,14 @@ def jax_camera_dict(cam):
 @pytest.mark.parametrize("name", ["cornell_box", "sphere_plane"])
 def test_scene_from_numpy_equals_builtin(name):
     js, jc = getattr(jbuiltin, name)(aspect=1.5)
-    ts, tc = getattr(tbuiltin, name)(aspect=1.5)
-    conv = convert.scene_from_numpy(jax_scene_dict(js))
+    ts, tc = getattr(tbuiltin, name)(aspect=1.5, device="cpu")
+    conv = convert.scene_from_numpy(jax_scene_dict(js), "cpu")
     for k in ARRAY_FIELDS:
         a, b = getattr(conv, k), getattr(ts, k)
         assert a.dtype == b.dtype and torch.equal(a, b), k
     for k in ("albedo", "emission", "ior", "kind"):
         assert torch.equal(getattr(conv.materials, k), getattr(ts.materials, k)), k
-    cc = convert.camera_from_numpy(jax_camera_dict(jc))
+    cc = convert.camera_from_numpy(jax_camera_dict(jc), "cpu")
     for k in ("translation", "rotation", "fov", "scale"):
         assert torch.equal(getattr(cc, k), getattr(tc, k)), k
     assert (cc.aspect, cc.mode) == (tc.aspect, tc.mode)
@@ -57,7 +57,7 @@ def test_generate_rays_matches_jax(mode):
     kw = dict(translation=(0.3, -0.2, 1.0), rotation=(20.0, -10.0, 5.0),
               fov=68.0, scale=2.0, aspect=1.5, mode=mode)
     jr = jcam.generate_rays(jcam.Camera.create(**kw), jnp.asarray(x), jnp.asarray(y))
-    tr = tcam.generate_rays(tcam.Camera.create(**kw), torch.from_numpy(x),
+    tr = tcam.generate_rays(tcam.Camera.create(**kw, device="cpu"), torch.from_numpy(x),
                             torch.from_numpy(y))
     np.testing.assert_allclose(tr.origin.numpy(), np.asarray(jr.origin), atol=1e-6)
     np.testing.assert_allclose(tr.direction.numpy(), np.asarray(jr.direction),
@@ -95,7 +95,7 @@ def test_closest_hit_scene_matches_jax():
     d["pln_mat"] = np.asarray([0], np.int32)
     js = dataclasses.replace(js, **{k: jnp.asarray(d[k]) for k in (
         "tri_v0", "tri_v1", "tri_v2", "tri_mat", "pln_normal", "pln_d", "pln_mat")})
-    ts = convert.scene_from_numpy(d)
+    ts = convert.scene_from_numpy(d, "cpu")
 
     r = np.random.default_rng(2)
     o = r.uniform(-0.9, 0.9, (4096, 3)).astype(np.float32)
