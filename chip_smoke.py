@@ -6,8 +6,9 @@ Needs one NVIDIA card (Hopper, sm_90a) and nvcc; there is no CPU path.
 Phases, each of which raises on failure:
 
 1. device: the card, its power limit, torch/CUDA/nvcc versions;
-2. build: the three kernels (path_kernel K1, bwd_kernel K2, closest_hit B8)
-   from rvpt_tpu_torch/csrc, one nvcc each, started together;
+2. build: the five kernels (path_kernel K1, bwd_kernel K2, closest_hit B8,
+   primary_kernel B3, hart_kernel B4) from rvpt_tpu_torch/csrc, one nvcc
+   each, started together;
 3. kernel vs plain: the CUDA kernel against its plain PyTorch version on
    the card, Cornell box at 1920x1080 (rays passed in: 3 bounces, both
    styles, >= 99.5% of pixel channels within 1e-4; rays made in the
@@ -44,9 +45,28 @@ Phases, each of which raises on failure:
    emission x 0.25, recover(steps=50, learning_rate=3e-2); the loss stays
    finite and the mean absolute albedo and emission errors fall.  This
    slice's main path: the launch counts are zeroed before it and read
-   after it, and each of the three kernels must have run.
+   after it, and each of the three kernels must have run;
+11. the other integrators' kernels against their plain versions on the
+   1080p Cornell box, camera rays made in the kernels: B3 in modes 0-6 (AO
+   with 4 probes) and K1's Whitted and Cook forms (4 bounces, standard),
+   >= 99.5% of pixel channels within 1e-4, and B4, >= 99%; each timed
+   with CUDA events (the plain version over 1-2 iterations) beside its
+   bound;
+12. goldens, for the record: the kernel route against the 10 analytic
+   goldens of the other integrators (printed, not asserted, as phase 4);
+13. this slice's main path: one split frame (AO, Whitted, Hart, Kajiya) of
+   render_sample_fast_chw at 1920x1080 against the plain versions of its
+   quadrants' kernels on the same pixel ids (B3 and K1 >= 99.5% of
+   channels within 1e-4, B4 >= 99%; the quadrants must reproduce
+   _mode_masks), then Renderer.draw x16 with that split-screen, 4
+   bounces, standard: the
+   launch counts are zeroed before it and read after it, and must show one
+   B3, one B4 and two K1 launches per frame; the film is finite and not
+   black and save_image writes it; then Renderer.draw x8 in each single
+   mode 0-8 and 10, each with its own zeroed counts and its ms/frame.
 
-Prints the kernel record as a JSON line (launches of the trainer run;
+Prints the kernel record as a JSON line (launches of the main paths:
+the trainer for K1, K2 and B8, the split-screen draws for B3 and B4;
 times, bounds and errors of this run), the card's name and power limit,
 then, last, one JSON line {"ok": true, "device": {...}}.
 """
@@ -90,6 +110,24 @@ def cuda_ms(fn, iters):
 OPS_TRI, OPS_SPH, OPS_PLN = 53, 40, 15
 OPS_SHADE, OPS_PCG, OPS_CAMERA = 120, 33, 69
 OPS_BWD_BOUNCE = 300
+# K1 per lane that does not scatter: a Whitted Lambert hit (emission 6,
+# hit point 6, normal and view normalized 20, facing 10, shadow origin 6,
+# the shadowed sum 3; its shadow search is counted as a search), and a
+# lane that ends on the sky or on Cook's emission (3 per channel, the
+# cheaper of the two).  trace_plain(work=...) counts each kind of lane.
+OPS_LAMBERT, OPS_END = 51, 9
+# B3 per pixel, each mode's finalize as its kernel instance runs it: the
+# hit test and normalized normal (11), then depth's rsqrt, max and divide
+# (9), normal's 3 x (mul, mul, add) (9), Utah's facing, light and sky
+# (22), AO's and Appel's view direction, facing and offset point (31),
+# AO's average (2) and Appel's light (7); per AO probe its cosine
+# direction and count (16, and a PCG3D draw).  B4 per live
+# ray-step-triangle: the iq distance on its cheaper face branch (edges 27,
+# cross product 9, three edge signs 48, their test 3, the face distance
+# 13, the min 1) and per live ray-step its square root, test and advance.
+OPS_FINALIZE = {0: 11, 1: 11, 2: 20, 3: 20, 4: 33, 5: 44, 6: 49}
+OPS_PROBE = 16
+OPS_HART_TRI, OPS_HART_STEP = 92, 8
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): FP32
 # outside the tensor cores and HBM3 bandwidth.
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
@@ -100,6 +138,16 @@ def bound(bytes_moved, ops):
     operations over the FP32 rate."""
     t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_ops(work, ops_search):
+    """K1's operations on one run's data, from trace_plain's ``work``
+    counts of the same inputs: every search of a live lane, the scatter
+    shading and draw of every hit that scatters, and the cheaper tails of
+    Whitted's Lambert hits and of the lanes that end."""
+    return (work["search"] * ops_search
+            + work.get("scatter", 0) * (OPS_SHADE + OPS_PCG)
+            + work.get("lambert", 0) * OPS_LAMBERT + work.get("end", 0) * OPS_END)
 
 
 def share_close(a, b, rtol, atol):
@@ -145,7 +193,7 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
     n, nb, inf = cfg.num_pixels, 4, float("inf")
     pt = pk.PathTracer(scene)
     t_, s_, p_, _ = pt.counts
-    ops_bounce = t_ * OPS_TRI + s_ * OPS_SPH + p_ * OPS_PLN + OPS_SHADE + OPS_PCG
+    ops_search = t_ * OPS_TRI + s_ * OPS_SPH + p_ * OPS_PLN
     out = {}
 
     # ---- 6. K1 records at 1080p x 4 bounces, rays passed in
@@ -153,14 +201,15 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
         return pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 1, 16, nb,
                                      "standard", rays=rays, collect=True)
 
-    def plain_collect():
+    def plain_collect(work=None):
         return pk.trace_plain(pt.tables, pt.counts, pixel, 1, 16, nb, "standard",
-                              rays=rays, collect=True)
+                              rays=rays, collect=True, work=work)
 
     got, rec = k1_collect()
     bare = pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 1, 16, nb,
                                  "standard", rays=rays)
-    want, wrec = plain_collect()
+    work = {}
+    want, wrec = plain_collect(work)
     torch.cuda.synchronize()
     same_rgb = torch.equal(got, bare)
     rgb_close = share_close(got, want, 1e-4, 1e-4)
@@ -183,9 +232,10 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
     k1c_plain_ms = cuda_ms(plain_collect, 2)
     live = int(rec.fields[:, 12].sum().item())
     # rays in (24 B) + pixel ids (8) + film (12) per ray, 60 B per record slot
-    k1c_bound, k1c_by = bound(n * (24 + 8 + 12 + 60 * nb), live * ops_bounce)
+    k1c_bound, k1c_by = bound(n * (24 + 8 + 12 + 60 * nb), k1_ops(work, ops_search))
     print(f"[time] K1 collect {k1c_ms:.4f} ms, plain {k1c_plain_ms:.4f} ms, bound "
-          f"{k1c_bound:.4f} ms by {k1c_by} ({live} live ray-bounces) [{smi}]")
+          f"{k1c_bound:.4f} ms by {k1c_by} ({live} live ray-bounces, work {work}) "
+          f"[{smi}]")
     out["k1c"] = dict(ms=k1c_ms, plain_ms=k1c_plain_ms, bound_ms=k1c_bound,
                       bound_by=k1c_by)
 
@@ -404,6 +454,294 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
     return out
 
 
+def equal_share(got, want):
+    """(share of channels within rtol/atol 1e-4, max |err|, bit-identical)
+    of a kernel's film against its plain version."""
+    import torch
+
+    close = torch.isclose(got, want, rtol=1e-4, atol=1e-4).float().mean().item()
+    return close, (got - want).abs().max().item(), bool(torch.equal(got, want))
+
+
+def split_frame_against_plain(smi, dev, cfg, scene, cam, split, nb):
+    """Phase 13's check: one split frame of render_sample_fast_chw at 1080p
+    against the plain versions of its quadrants' kernels, each on its
+    quadrant's pixel ids and placed into the film by those ids (not by the
+    rectangle the frame writes); the quadrants must cover the film as
+    _mode_masks selects it.  Bars: B3 and K1 >= 99.5% of channels within
+    1e-4, B4 >= 99%."""
+    import torch
+
+    from rvpt_tpu_torch.models.integrators import INTEGRATOR_NAMES
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.render import (_mode_masks, _pixel_grid, _rect_pixels,
+                                       _split_partition, render_sample_fast_chw)
+
+    names = {v: k for k, v in INTEGRATOR_NAMES.items()}
+    frame, salt_base = 5, 16  # AA sample 0: jitter salt 0, integrator salt 16
+    pt = pk.PathTracer(scene)
+    cp = pk.camera_params(cam, cfg)
+    got = render_sample_fast_chw(scene, cam, split, cfg, frame, tracer=pt,
+                                 cam_params=cp).reshape(3, -1)
+    _, xs, ys = _pixel_grid(cfg, dev)
+    part = torch.full((cfg.num_pixels,), -1, dtype=torch.int64, device=dev)
+    lines = []
+    for m, rect in _split_partition(cfg, split):
+        pix = _rect_pixels(*rect, cfg.width, dev)
+        part[pix] = m
+        if m == 10:
+            want, bar = pk.hart_plain(pt.hart_tables, pt.hart_count, pix, frame,
+                                      cp, cam.mode, 0), 0.99
+        elif m in pk.PRIMARY_MODES:
+            want, bar = pk.primary_plain(pt.tables, pt.counts, pix, frame,
+                                         salt_base, m, nb if m == 5 else 1, cp,
+                                         cam.mode, 0), 0.995
+        else:
+            integ = {7: "whitted", 8: "cook"}.get(m, "kajiya")
+            want, bar = pk.trace_plain(pt.tables, pt.counts, pix, frame, salt_base,
+                                       nb, "standard", cam_params=cp,
+                                       cam_mode=cam.mode, jitter_salt=0,
+                                       integ=integ), 0.995
+        close, err, same = equal_share(got[:, pix], want)
+        lines.append(f"{names[m]} {rect}: {close:.6f} within 1e-4 (bar {bar}), max "
+                     f"|err| {err:.3g}, bit-identical: {same}")
+        check(close >= bar, f"split quadrant {names[m]} {rect} disagrees with "
+              f"plain: {close:.6f}")
+    covered = torch.equal(part, _mode_masks(split, xs, ys, cfg).to(torch.int64))
+    print(f"[split-vs-plain] render_sample_fast_chw, {cfg.width}x{cfg.height}, "
+          f"frame {frame}, against the quadrants' plain versions on their pixel "
+          f"ids: {'; '.join(lines)}; quadrants reproduce _mode_masks: {covered} "
+          f"[{smi}]")
+    check(covered, "the split quadrants do not reproduce _mode_masks")
+    check(bool(torch.isfinite(got).all().item()), "split frame not finite")
+
+
+def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
+    """Phases 11-13 (the other integrators and split-screen); returns the
+    kernels' numbers."""
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig, RenderSettings
+    from rvpt_tpu_torch.models.integrators import INTEGRATOR_NAMES
+    from rvpt_tpu_torch.ops import intersect_pk as ipk
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops.film import chw_to_hwc, to_srgb_u8
+    from rvpt_tpu_torch.renderer import Renderer
+    from rvpt_tpu_torch.scene import builtin
+    from rvpt_tpu_torch.utils.image import read_png
+
+    n, nb = cfg.num_pixels, 4
+    pt = pk.PathTracer(scene)
+    cp = pk.camera_params(cam, cfg)
+    t_, s_, p_, _ = pt.counts
+    ops_search = t_ * OPS_TRI + s_ * OPS_SPH + p_ * OPS_PLN
+    names = {v: k for k, v in INTEGRATOR_NAMES.items()}
+    modes = ("top_left_render_mode", "top_right_render_mode",
+             "bottom_left_render_mode", "bottom_right_render_mode")
+    out = {"primary": {}, "bounce": {}}
+
+    # ---- 11. kernels against their plain versions, camera rays in kernel
+    hits = None
+    for mode in range(7):
+        nrays = 4 if mode == 5 else 1
+
+        def b3(mode=mode, nrays=nrays):
+            return pk.launch_primary_kernel(pt.tables, pt.counts, None, n, 1, 16,
+                                            mode, nrays, cp, cam.mode, 0)
+
+        def b3_plain(mode=mode, nrays=nrays):
+            return pk.primary_plain(pt.tables, pt.counts, pixel, 1, 16, mode,
+                                    nrays, cp, cam.mode, 0)
+
+        got, want = b3(), b3_plain()
+        torch.cuda.synchronize()
+        close, err, same = equal_share(got, want)
+        if mode == 0:
+            hits = int(want[0].sum().item())
+        ms = cuda_ms(b3, 20)
+        plain_ms = cuda_ms(b3_plain, 2)
+        # Per pixel: the camera ray, the search, the mode's finalize; AO
+        # adds nrays probes per hit pixel, Appel one shadow search per hit
+        # pixel.
+        ops = n * (OPS_CAMERA + ops_search + OPS_FINALIZE[mode])
+        if mode == 5:
+            ops += hits * nrays * (ops_search + OPS_PCG + OPS_PROBE)
+        elif mode == 6:
+            ops += hits * ops_search
+        bnd, by = bound(12 * n, ops)
+        print(f"[B3-vs-plain] mode {mode} ({names[mode]}"
+              f"{', 4 probes' if mode == 5 else ''}): {close:.6f} of channels "
+              f"within 1e-4 (bar 0.995), max |err| {err:.3g}, bit-identical: {same}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms by "
+              f"{by}, kernel at {bnd / ms:.1%} of it [{smi}]")
+        check(bool(torch.isfinite(got).all().item()), f"B3 mode {mode} not finite")
+        check(close >= 0.995, f"B3 mode {mode} disagrees with plain: {close:.6f}")
+        out["primary"][names[mode]] = dict(max_abs_err=err, within_1e_4=close,
+                                           bit_identical=same, ms=ms,
+                                           plain_ms=plain_ms, bound_ms=bnd,
+                                           bound_by=by)
+
+    for integ in ("whitted", "cook"):
+        kw = dict(cam_params=cp, cam_mode=cam.mode, jitter_salt=0, integ=integ)
+
+        def k1(kw=kw):
+            return pk.launch_path_kernel(pt.tables, pt.counts, None, n, 1, 16, nb,
+                                         "standard", **kw)
+
+        work = {}
+        got = k1()
+        want = pk.trace_plain(pt.tables, pt.counts, pixel, 1, 16, nb, "standard",
+                              work=work, **kw)
+        torch.cuda.synchronize()
+        close, err, same = equal_share(got, want)
+        ms = cuda_ms(k1, 20)
+        plain_ms = cuda_ms(lambda kw=kw: pk.trace_plain(
+            pt.tables, pt.counts, pixel, 1, 16, nb, "standard", **kw), 2)
+        # The work the plain version did on live lanes of the same inputs.
+        bnd, by = bound(12 * n, k1_ops(work, ops_search) + n * OPS_CAMERA)
+        print(f"[K1-vs-plain] {integ}, {nb} bounces, standard: {close:.6f} of "
+              f"channels within 1e-4 (bar 0.995), max |err| {err:.3g}, "
+              f"bit-identical: {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bnd:.4f} ms by {by} (work {work}), kernel at "
+              f"{bnd / ms:.1%} of it [{smi}]")
+        check(bool(torch.isfinite(got).all().item()), f"K1 {integ} not finite")
+        check(close >= 0.995, f"K1 {integ} disagrees with plain: {close:.6f}")
+        out["bounce"][integ] = dict(max_abs_err=err, within_1e_4=close,
+                                    bit_identical=same, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bnd, bound_by=by)
+
+    def b4():
+        return pk.launch_hart_kernel(pt.hart_tables, pt.hart_count, None, n, 1, cp,
+                                     cam.mode, 0)
+
+    def b4_plain():
+        return pk.hart_plain(pt.hart_tables, pt.hart_count, pixel, 1, cp, cam.mode, 0)
+
+    got, want = b4(), b4_plain()
+    torch.cuda.synchronize()
+    close, err, same = equal_share(got, want)
+    ms = cuda_ms(b4, 20)
+    plain_ms = cuda_ms(b4_plain, 1)
+    # Live ray-steps from the kernel's own output: a march that stopped at
+    # step k evaluated k + 1 distances, one that never stopped 32.
+    iters = torch.round(got[0] * (pk.MARCH_ITER - 1)).to(torch.int64)
+    steps = int(torch.clamp(iters + 1, max=pk.MARCH_ITER).sum().item())
+    tris = pt.hart_count
+    bnd, by = bound(12 * n, steps * (tris * OPS_HART_TRI + OPS_HART_STEP)
+                    + n * OPS_CAMERA)
+    print(f"[B4-vs-plain] Hart: {close:.6f} of channels within 1e-4 (bar 0.99), "
+          f"max |err| {err:.3g}, bit-identical: {same}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bnd:.4f} ms by {by} ({steps} live ray-steps x "
+          f"{tris} triangles), kernel at {bnd / ms:.1%} of it [{smi}]")
+    check(bool(torch.isfinite(got).all().item()), "B4 not finite")
+    check(close >= 0.99, f"B4 disagrees with plain: {close:.6f}")
+    sp_scene, sp_cam = builtin.sphere_plane(aspect=cfg.aspect, device=dev)
+    sp = pk.PathTracer(sp_scene)
+    flat = sp.trace_hart(n, 1, cam_params=pk.camera_params(sp_cam, cfg),
+                         cam_mode=sp_cam.mode, jitter_salt=0)
+    torch.cuda.synchronize()
+    check(bool((flat == 32.0 / 31.0).all().item()),
+          "B4 on the scene without triangles is not 32/31 everywhere")
+    print("[B4] sphere_plane (no triangles): 32/31 on every pixel")
+    out["hart"] = dict(max_abs_err=err, within_1e_4=close, bit_identical=same,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+
+    # ---- 12. goldens, for the record
+    goldens = {
+        "cornell_normal": ("cornell_box", 64, 1, 1, "normal"),
+        "cornell_color": ("cornell_box", 64, 1, 1, "color"),
+        "cornell_depth": ("cornell_box", 64, 1, 1, "depth"),
+        "cornell_binary": ("cornell_box", 64, 1, 1, "binary"),
+        "cornell_utah": ("cornell_box", 64, 1, 1, "utah"),
+        "cornell_ao": ("cornell_box", 64, 1, 8, "ao"),
+        "cornell_appel": ("cornell_box", 64, 1, 1, "appel"),
+        "cornell_whitted": ("cornell_box", 64, 2, 4, "whitted"),
+        "cornell_cook": ("cornell_box", 64, 2, 4, "cook"),
+        "sphere_plane_hart": ("sphere_plane", 32, 1, 1, "hart"),
+    }
+    for name, (scene_name, size, frames, bounces, integ) in goldens.items():
+        gcfg = FilmConfig(size, size)
+        gscene, gcam = getattr(builtin, scene_name)(aspect=gcfg.aspect, device=dev)
+        mode = INTEGRATOR_NAMES[integ]
+        gr = Renderer(gscene, gcam, RenderSettings(
+            max_bounces=bounces, **dict.fromkeys(modes, mode)), gcfg)
+        for _ in range(frames):
+            gr.draw()
+        gr.flush()
+        img = to_srgb_u8(chw_to_hwc(gr.film.accum)).cpu().numpy().astype(int)
+        golden = read_png(os.path.join(here, "tests", "goldens", f"{name}.png"))
+        off = (abs(img - golden.astype(int)) > 2).mean()
+        print(f"[goldens] {name} via the kernels: {off:.4%} of subpixels more than "
+              f"2 u8 steps off (recorded, not asserted; the CPU bar is 0.2%)")
+
+    # ---- 13. the slice: split-screen Renderer.draw at 1080p
+    kernels = {"path_kernel": pk.launch_path_kernel,
+               "bwd_kernel": pk.launch_bwd_kernel,
+               "closest_hit": ipk.launch_closest_hit,
+               "primary_kernel": pk.launch_primary_kernel,
+               "hart_kernel": pk.launch_hart_kernel}
+    split = RenderSettings(max_bounces=nb, style="standard",
+                           **dict(zip(modes, (5, 7, 10, 9))))
+    split_frame_against_plain(smi, dev, cfg, scene, cam, split, nb)
+    r = Renderer(scene, cam, split, cfg)
+    r.draw()  # the first draw of a Renderer builds its camera vector
+    r.flush()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        r.draw()
+    r.flush()
+    torch.cuda.synchronize()
+    split_ms = (time.perf_counter() - t0) / 16 * 1e3
+    launches = {name: k.launches for name, k in kernels.items()}
+    check(launches["primary_kernel"] == 16 and launches["hart_kernel"] == 16
+          and launches["path_kernel"] == 32,
+          f"16 split-screen draws launched {launches}: expected 16 B3, 16 B4 "
+          f"and 32 K1")
+    accum = r.film.accum
+    check(r.film.frame == 17, f"film accumulated {r.film.frame} frames, not 17")
+    check(bool(torch.isfinite(accum).all().item()), "split film has non-finite values")
+    check(accum.mean().item() > 0.01, "split film is black")
+    png = os.path.join(out_dir, "torch_cornell_split_1080p.png")
+    r.save_image(png)
+    check(read_png(png).shape == (cfg.height, cfg.width, 3),
+          "saved split image has the wrong shape")
+    print(f"[slice] Renderer.draw x16 split-screen (AO, Whitted, Hart, Kajiya), "
+          f"{cfg.width}x{cfg.height}, {nb} bounces, standard: {split_ms:.4f} ms/frame; "
+          f"launches {launches}; film mean {accum.mean().item():.6f}; saved {png} [{smi}]")
+    out["split"] = dict(ms=split_ms, launches=launches)
+
+    out["modes_ms"] = {}
+    for mode in (0, 1, 2, 3, 4, 5, 6, 7, 8, 10):
+        st = RenderSettings(max_bounces=nb, style="standard",
+                            **dict.fromkeys(modes, mode))
+        r = Renderer(scene, cam, st, cfg)
+        r.draw()
+        r.flush()
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            r.draw()
+        r.flush()
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) / 8 * 1e3
+        ran = {name: c for name, k in kernels.items() if (c := k.launches)}
+        want = ("hart_kernel" if mode == 10 else
+                "primary_kernel" if mode < 7 else "path_kernel")
+        check(ran == {want: 8}, f"8 draws of mode {mode} launched {ran}")
+        check(bool(torch.isfinite(r.film.accum).all().item()),
+              f"mode {mode} film has non-finite values")
+        print(f"[modes] Renderer.draw x8, mode {mode} ({names[mode]}), "
+              f"{cfg.width}x{cfg.height}, {nb} bounces, standard: {frame_ms:.4f} "
+              f"ms/frame; launches {ran} [{smi}]")
+        out["modes_ms"][names[mode]] = frame_ms
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -437,7 +775,8 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # ---- 2. build: one nvcc per source, all started together
-    kernels = ("path_kernel", "bwd_kernel", "closest_hit")
+    kernels = ("path_kernel", "bwd_kernel", "closest_hit", "primary_kernel",
+               "hart_kernel")
     t0 = time.perf_counter()
     build.build_all(kernels)
     for name in kernels:
@@ -447,7 +786,7 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[build] ptxas {name}: {line.strip()}")
-    print(f"[build] all three in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] all five in {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. kernel vs plain on the card
     cfg = FilmConfig(1920, 1080)
@@ -479,11 +818,12 @@ def main() -> int:
         return pk.launch_path_kernel(pt.tables, pt.counts, None, n, 1, 16, 4,
                                      "standard", **main_kw)
 
-    def plain_frame():
+    def plain_frame(work=None):
         return pk.trace_plain(pt.tables, pt.counts, pixel, 1, 16, 4, "standard",
-                              **main_kw)
+                              work=work, **main_kw)
 
-    got, want = kernel_frame(), plain_frame()
+    disp_work = {}
+    got, want = kernel_frame(), plain_frame(disp_work)
     torch.cuda.synchronize()
     close = torch.isclose(got, want, rtol=1e-4, atol=1e-4).float().mean().item()
     max_err = (got - want).abs().max().item()
@@ -505,20 +845,17 @@ def main() -> int:
     plain_frame()
     plain_ms = cuda_ms(plain_frame, 3)
     rays_per_frame = n * 4
-    # K1's bound for this frame: its live ray-bounces (dead lanes leave the
-    # loop) from the records of the same frame, and the film it writes.
-    _, disp_rec = pk.launch_path_kernel(pt.tables, pt.counts, None, n, 1, 16, 4,
-                                        "standard", collect=True, **main_kw)
-    live = int(disp_rec.fields[:, 12].sum().item())
-    del disp_rec
+    # K1's bound for this frame: the work of the same frame's data (dead
+    # lanes leave the loop; misses add the sky and end), the camera rays
+    # and the film it writes.
     t_, s_, p_, _ = pt.counts
-    ops_bounce = t_ * OPS_TRI + s_ * OPS_SPH + p_ * OPS_PLN + OPS_SHADE + OPS_PCG
-    k1_bound, k1_by = bound(12 * n, live * ops_bounce + n * OPS_CAMERA)
+    ops_search = t_ * OPS_TRI + s_ * OPS_SPH + p_ * OPS_PLN
+    k1_bound, k1_by = bound(12 * n, k1_ops(disp_work, ops_search) + n * OPS_CAMERA)
     print(f"[time] 1920x1080 x 4 bounces: kernel {ms:.4f} ms "
           f"({rays_per_frame / ms / 1e3:.1f} Mrays/s), plain {plain_ms:.4f} ms "
           f"({rays_per_frame / plain_ms / 1e3:.1f} Mrays/s); bound {k1_bound:.4f} ms "
-          f"by {k1_by} ({live} live ray-bounces x {ops_bounce} ops + camera rays), "
-          f"kernel at {k1_bound / ms:.1%} of it [{smi}]")
+          f"by {k1_by} (work {disp_work}, {ops_search} ops per search, + camera "
+          f"rays), kernel at {k1_bound / ms:.1%} of it [{smi}]")
 
     # ---- 4. goldens, for the record
     gcfg = FilmConfig(64, 64)
@@ -562,6 +899,8 @@ def main() -> int:
 
     display_launches = launches
     train = training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays)
+    integ = integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here)
+    split = integ["split"]["launches"]
 
     kernels = [{
         "name": "path_kernel", "route": "cuda",
@@ -569,12 +908,15 @@ def main() -> int:
         "replaces": "rvpt_tpu/ops/pathkernel.py:1115",
         "launches": train["launches"]["path_kernel"],
         "launches_display": display_launches,
+        "launches_split": split["path_kernel"],
         "max_abs_err": max_err, "within_1e-4": close,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
         "library_ms": None,
         "collect_ms": train["k1c"]["ms"], "collect_plain_ms": train["k1c"]["plain_ms"],
         "collect_bound_ms": train["k1c"]["bound_ms"],
         "collect_bound_by": train["k1c"]["bound_by"],
+        **{f"{integ_name}_{k}": v for integ_name, rec in integ["bounce"].items()
+           for k, v in rec.items()},
     }, {
         "name": "bwd_kernel", "route": "cuda",
         "source": "rvpt_tpu_torch/csrc/bwd_kernel.cu",
@@ -586,6 +928,21 @@ def main() -> int:
         "source": "rvpt_tpu_torch/csrc/closest_hit.cu",
         "replaces": "rvpt_tpu/ops/intersect_pk.py:89",
         "launches": train["launches"]["closest_hit"], **train["b8"],
+        "library_ms": None,
+    }, {
+        "name": "primary_kernel", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/primary_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:3390",
+        "launches": split["primary_kernel"],
+        # The headline numbers are AO's, the mode on the split-screen path.
+        **{k: v for k, v in integ["primary"]["ao"].items()},
+        "library_ms": None,
+        "modes": integ["primary"],
+    }, {
+        "name": "hart_kernel", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/hart_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:3564",
+        "launches": split["hart_kernel"], **integ["hart"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

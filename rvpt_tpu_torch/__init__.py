@@ -2,9 +2,9 @@
 
 A second package beside ``rvpt_tpu`` (the JAX reference, which it never
 imports).  Module paths and names mirror ``rvpt_tpu`` one to one.  Plain
-tensor code is PyTorch; the whole-path kernel (the Pallas kernel K1 of
-``rvpt_tpu.ops.pathkernel``) is hand-written CUDA C++ for Hopper under
-``csrc/``, built at first use.  A CPU tensor takes each kernel's plain
+tensor code is PyTorch; each Pallas kernel of ``rvpt_tpu`` that the port
+has reached (K1, K2, B3, B4 and B8 so far) is hand-written CUDA C++ for
+Hopper under ``csrc/``, built at first use.  A CPU tensor takes each kernel's plain
 PyTorch version; a CUDA tensor launches the kernel or raises.  Entry
 points build on the card unless the caller passes ``device="cpu"``.
 """

@@ -1,5 +1,5 @@
 """Core vector math on ``f32[..., 3]`` tensors (mirror of
-``rvpt_tpu/core/math.py``, the subset the Kajiya slice uses)."""
+``rvpt_tpu/core/math.py``, the subset the integrators use)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,10 @@ def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched cross product over the trailing xyz axis."""
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def length(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(vdot(v, v))
 
 
 def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:

@@ -1,18 +1,32 @@
-// Whole-path Kajiya kernel for Hopper (sm_90a): one thread per pixel, the
-// whole bounce loop in registers, one launch per frame and AA sample.
+// Whole-path kernel for Hopper (sm_90a): one thread per pixel, the whole
+// bounce loop in registers, one launch per frame and AA sample.
 //
 // Replaces the Pallas kernel K1 of rvpt_tpu/ops/pathkernel.py
-// (make_path_kernel :1115, launched by _path_call :1276) in its row form
-// with integ="kajiya": in-kernel camera rays (_gen_rays_inkernel :1059) or
-// rays passed in, closest hit over triangles, spheres and planes
-// (_search :715), Kajiya shading (_shade :925, _shade_geom :857), the
-// style="standard" tail (:1254-1257), and the collect records
-// (:1202-1215).  The TPU layout is not carried over: no [8,1024] tiles or
-// padded lanes, no MAX_GROUP bounce split with its 16-field carry, no
-// one-hot table fetches.
+// (make_path_kernel :1115, launched by _path_call :1276) in its row form:
+// in-kernel camera rays (_gen_rays_inkernel :1059) or rays passed in,
+// closest hit over triangles, spheres and planes (_search :715, shared with
+// the primary-hit kernel in scene_search.cuh), the style="standard" tail
+// (:1254-1257), the collect records (:1202-1215), and three bounce
+// integrators, each its own template instance (INTEG):
 //
-// Collect mode (the COLLECT instance, for the gradient): before each
-// bounce's search the thread writes its 13 bounce-input fields (o, d,
+// - Kajiya (_shade :925, _shade_geom :857): the sky with d.y shifted into
+//   [0,1], emission gathered along the path, Lambert/mirror/dielectric
+//   scatter;
+// - Whitted (_shade_whitted :961): the path color starts at the ambient
+//   term (:1183-1186), the sky uses raw d.y, and a Lambert hit casts one
+//   shadow ray toward the light from p + EPSILON n_f, adds the direct
+//   term unless shadowed, and ends the path;
+// - Cook (_shade_cook :1016): raw d.y sky; a lane whose previous bounce
+//   scattered off a Lambert surface ends on this hit's emission, and a
+//   Lambert scatter on the last bounce still gets one tail search
+//   (:1235-1253).
+//
+// The TPU layout is not carried over: no [8,1024] tiles or padded lanes,
+// no MAX_GROUP bounce split with its 16-field carry (so no 0/1/2 trit for
+// Cook's flag across groups: it is a register), no one-hot table fetches.
+//
+// Collect mode (the Kajiya COLLECT instance, for the gradient): before
+// each bounce's search the thread writes its 13 bounce-input fields (o, d,
 // throughput, gathered color, active as 0/1) to rec_f[B][13][N], and after
 // it the hit's (family, index) to rec_i[B][2][N], -1 where the lane missed.
 // Bounces after the lane ended get its frozen state, active 0 and -1 hits,
@@ -24,12 +38,12 @@
 // (Cornell: 12x17 + 2x5 + 6x8 floats, under 1 KB) and are staged into
 // shared memory at block start, where every lane of a warp reads the same
 // word (a broadcast).  Each ray-bounce runs 12 triangle and 2 sphere tests
-// plus shading; the only ray-sized device-memory traffic is the f32[3,N]
-// film write (24.9 MB at 1920x1080), or also the six f32[N] ray inputs
-// when rays are passed in.  Tables above the 48 KB default take the
-// opt-in shared memory (up to 227 KB on Hopper).  A lane that has
-// terminated leaves the bounce loop at once, which is exact: a dead lane
-// adds nothing.
+// plus shading (Whitted: and a shadow search per Lambert hit); the only
+// ray-sized device-memory traffic is the f32[3,N] film write (24.9 MB at
+// 1920x1080), or also the six f32[N] ray inputs when rays are passed in.
+// Tables above the 48 KB default take the opt-in shared memory (up to 227
+// KB on Hopper).  A lane that has terminated leaves the bounce loop at
+// once, which is exact: a dead lane adds nothing.
 //
 // Rounding: every expression keeps the operation order of the JAX kernel
 // and of the plain PyTorch version beside this wrapper
@@ -40,76 +54,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "kajiya_common.cuh"
+#include "scene_search.cuh"
 
 namespace {
 
-constexpr int TRI_STRIDE = 17;  // TRI_FIELDS
-constexpr int SPH_STRIDE = 5;   // SPH_FIELDS
-constexpr int PLN_STRIDE = 5;   // PLN_FIELDS
-constexpr int MAT_STRIDE = 8;   // MAT_FIELDS
-constexpr int CAM_LEN = 24;     // camera_params layout
-constexpr int CAM_ASPECT = 16, CAM_PROJ = 17, CAM_INV_W = 18, CAM_INV_H = 19;
-constexpr int CAM_W = 20;
-constexpr int PINHOLE = 0, ORTHO = 1;
+using namespace scene;
+
+constexpr int KAJIYA = 0, WHITTED = 1, COOK = 2;  // pathkernel.INTEGS
 constexpr int THREADS = 256;
 
-constexpr float BIG = 3.0e38f;
-constexpr float HALF_TURN = (float)(0.5 * 6.283185307179586);
-using namespace kajiya;
-
-__device__ __forceinline__ void camera_ray(
-    const float* cam, int mode, uint32_t pix, uint32_t frame,
-    uint32_t jitter_salt, float& ox, float& oy, float& oz, float& dx,
-    float& dy, float& dz) {
-  uint32_t a = pix, b = frame, c = jitter_salt;
-  pcg3d(a, b, c);
-  const float ju = unit(a), jv = unit(b);
-  const uint32_t width = (uint32_t)cam[CAM_W];
-  const float xs = (float)(pix % width), ys = (float)(pix / width);
-  const float cx = (xs + ju) * cam[CAM_INV_W];
-  const float cy = 1.0f - (ys + jv) * cam[CAM_INV_H];
-  const float* m = cam;  // row-major 4x4 camera matrix
-  if (mode == PINHOLE) {
-    const float u = cam[CAM_ASPECT] * (2.0f * cx - 1.0f);
-    const float v = 2.0f * cy - 1.0f;
-    const float w = cam[CAM_PROJ];
-    dx = m[0] * u + m[1] * v + m[2] * w;
-    dy = m[4] * u + m[5] * v + m[6] * w;
-    dz = m[8] * u + m[9] * v + m[10] * w;
-    const float inv = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
-    ox = m[3];
-    oy = m[7];
-    oz = m[11];
-    dx = dx * inv;
-    dy = dy * inv;
-    dz = dz * inv;
-  } else if (mode == ORTHO) {
-    const float u = cam[CAM_ASPECT] * (2.0f * cx - 1.0f) * cam[CAM_PROJ];
-    const float v = (2.0f * cy - 1.0f) * cam[CAM_PROJ];
-    ox = m[0] * u + m[1] * v + m[3];
-    oy = m[4] * u + m[5] * v + m[7];
-    oz = m[8] * u + m[9] * v + m[11];
-    dx = m[2];
-    dy = m[6];
-    dz = m[10];
-  } else {  // SPHERICAL, with the reference's .xzy swizzle
-    const float phi = cx * TWO_PI;
-    const float theta = cy * HALF_TURN;
-    const float sin_t = sinf(theta);
-    const float lx = sin_t * cosf(phi);
-    const float lz = sin_t * sinf(phi);
-    const float ly = cosf(theta);
-    ox = m[3];
-    oy = m[7];
-    oz = m[11];
-    dx = m[0] * lx + m[1] * ly + m[2] * lz;
-    dy = m[4] * lx + m[5] * ly + m[6] * lz;
-    dz = m[8] * lx + m[9] * ly + m[10] * lz;
-  }
-}
-
-template <bool COLLECT>
+template <int INTEG, bool COLLECT>
 __global__ void __launch_bounds__(THREADS) path_kernel(
     const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
     int n_mat, const float* __restrict__ cam_in,
@@ -121,19 +75,9 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
     int max_bounces, int standard, int cam_mode, float mint) {
   extern __shared__ float smem[];
-  const int n_tab = TRI_STRIDE * n_tri + SPH_STRIDE * n_sph +
-                    PLN_STRIDE * n_pln + MAT_STRIDE * n_mat;
-  float* cam = smem;
-  float* tab = smem + CAM_LEN;
-  if (cam_in) {  // null when the rays are passed in
-    for (int k = threadIdx.x; k < CAM_LEN; k += blockDim.x) cam[k] = cam_in[k];
-  }
-  for (int k = threadIdx.x; k < n_tab; k += blockDim.x) tab[k] = tables[k];
-  __syncthreads();
-  const float* tri = tab;
-  const float* sph = tri + TRI_STRIDE * n_tri;
-  const float* pln = sph + SPH_STRIDE * n_sph;
-  const float* mat = pln + PLN_STRIDE * n_pln;
+  // cam_in is null when the rays are passed in.
+  const Tables s = stage(smem, cam_in, tables, n_tri, n_sph, n_pln, n_mat);
+  const float* cam = smem;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -153,9 +97,12 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   }
 
   float tr = 1.0f, tg = 1.0f, tb = 1.0f;  // throughput
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f;  // emission gathered on the path
+  // Emission gathered on the path; Whitted starts at the ambient term.
+  const float c0 = INTEG == WHITTED ? AMBIENT : 0.0f;
+  float cr = c0, cg = c0, cb = c0;
   float rr = 0.0f, rg = 0.0f, rb = 0.0f;  // finished radiance
   bool active = true;
+  bool final_ = false;  // Cook: the previous bounce scattered off Lambert
   int recorded = 0;  // bounces written to the record so far
   // Record slot f of bounce b for this ray.
   auto slot = [&](int b, int f) { return ((int64_t)b * 13 + f) * n + i; };
@@ -166,107 +113,41 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
 
   for (int bounce = 0; bounce < max_bounces && active; ++bounce) {
     if (COLLECT) write_fields(bounce, 1.0f);
-    // ---- closest hit: triangles, spheres, planes; strict '<' keeps the
-    // first minimum within and across families.
-    float t_best = BIG, wnx = 0.0f, wny = 0.0f, wnz = 0.0f, wmat = 0.0f;
-    bool hit = false;
-    int wfam = -1, widx = -1;
-    for (int j = 0; j < n_tri; ++j) {
-      const float* T = tri + TRI_STRIDE * j;
-      const float nx = T[0], ny = T[1], nz = T[2];
-      const float dn = nx * dx + ny * dy + nz * dz;
-      const float on = nx * ox + ny * oy + nz * oz;
-      const float de0 = T[3] * dx + T[4] * dy + T[5] * dz;
-      const float de1 = T[6] * dx + T[7] * dy + T[8] * dz;
-      const float oe0 = T[3] * ox + T[4] * oy + T[5] * oz;
-      const float oe1 = T[6] * ox + T[7] * oy + T[8] * oz;
-      const float t = (T[9] - on) / safe_den(dn);
-      const float b0 = oe0 + t * de0 - T[10];
-      const float b1 = oe1 + t * de1 - T[11];
-      const float u = T[15] * (T[13] * b0 - T[14] * b1);
-      const float v = T[15] * (T[12] * b1 - T[14] * b0);
-      if (mint < t && t < t_best && u > 0.0f && v > 0.0f && u + v < 1.0f) {
-        t_best = t;
-        wnx = nx;
-        wny = ny;
-        wnz = nz;
-        wmat = T[16];
-        hit = true;
-        wfam = 0;
-        widx = j;
-      }
-    }
-    for (int j = 0; j < n_sph; ++j) {
-      const float* S = sph + SPH_STRIDE * j;
-      const float ocx = ox - S[0], ocy = oy - S[1], ocz = oz - S[2];
-      const float rad = S[3];
-      const float dd = dx * dx + dy * dy + dz * dz;
-      const float bh = dx * ocx + dy * ocy + dz * ocz;
-      const float ct = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-      const float disc = bh * bh - dd * ct;
-      const float sq = sqrtf(fmaxf(disc, 0.0f));
-      const float dds = safe_den(dd);
-      const float t0 = (-bh - sq) / dds;
-      const float t1 = (-bh + sq) / dds;
-      const float tn = (t0 > mint && t0 < t_best) ? t0 : BIG;
-      const float tf = (t1 > mint && t1 < t_best) ? t1 : BIG;
-      const float ts = (disc > 0.0f && rad > 0.0f) ? fminf(tn, tf) : BIG;
-      if (ts < t_best) {
-        t_best = ts;
-        // unnormalized normal pos - center, as the JAX kernel
-        wnx = ox + ts * dx - S[0];
-        wny = oy + ts * dy - S[1];
-        wnz = oz + ts * dz - S[2];
-        wmat = S[4];
-        hit = true;
-        wfam = 1;
-        widx = j;
-      }
-    }
-    for (int j = 0; j < n_pln; ++j) {
-      const float* P = pln + PLN_STRIDE * j;
-      const float nx = P[0], ny = P[1], nz = P[2];
-      const float dn = nx * dx + ny * dy + nz * dz;
-      const float on = nx * ox + ny * oy + nz * oz;
-      const float tp = (P[3] - on) / safe_den(dn);
-      const bool pvalid = (nx * nx + ny * ny + nz * nz) > 0.0f;
-      if (tp > mint && tp < t_best && pvalid) {
-        t_best = tp;
-        wnx = nx;
-        wny = ny;
-        wnz = nz;
-        wmat = P[4];
-        hit = true;
-        wfam = 2;
-        widx = j;
-      }
-    }
+    const Hit h = closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
     if (COLLECT) {
-      rec_i[((int64_t)bounce * 2) * n + i] = wfam;
-      rec_i[((int64_t)bounce * 2 + 1) * n + i] = widx;
+      rec_i[((int64_t)bounce * 2) * n + i] = h.fam;
+      rec_i[((int64_t)bounce * 2 + 1) * n + i] = h.idx;
       recorded = bounce + 1;
     }
 
-    // ---- Kajiya shading (_shade / _shade_geom)
-    if (!hit) {  // the lane is active here: sky with d.y shifted into [0,1]
-      const float st = dy * 0.5f + 0.5f;
+    if (h.fam < 0) {  // the lane is active here: add the sky and end
+      // Kajiya shifts d.y into [0,1]; Whitted and Cook use raw d.y.
+      const float st = INTEG == KAJIYA ? dy * 0.5f + 0.5f : dy;
       rr = rr + cr + tr * (1.0f + SKY_R * st);
       rg = rg + cg + tg * (1.0f + SKY_G * st);
       rb = rb + cb + tb * (1.0f + SKY_B * st);
       active = false;
       break;
     }
-    const int mi = min(max((int)wmat, 0), n_mat - 1);
-    const float* M = mat + MAT_STRIDE * mi;
+    const float* M = material(s, h.mat);
+    if (INTEG == COOK && final_) {  // end on this hit's emission
+      rr = rr + cr + tr * M[3];
+      rg = rg + cg + tg * M[4];
+      rb = rb + cb + tb * M[5];
+      active = false;
+      break;
+    }
     cr = cr + tr * M[3];
     cg = cg + tg * M[4];
     cb = cb + tb * M[5];
 
-    const float px = ox + t_best * dx;
-    const float py = oy + t_best * dy;
-    const float pz = oz + t_best * dz;
-    const float inv_nl = rsqrtf(fmaxf(wnx * wnx + wny * wny + wnz * wnz, 1e-30f));
-    float nX = wnx * inv_nl, nY = wny * inv_nl, nZ = wnz * inv_nl;
+    // ---- shading geometry (_shade_geom)
+    const float px = ox + h.t * dx;
+    const float py = oy + h.t * dy;
+    const float pz = oz + h.t * dz;
+    const float inv_nl =
+        rsqrtf(fmaxf(h.nx * h.nx + h.ny * h.ny + h.nz * h.nz, 1e-30f));
+    float nX = h.nx * inv_nl, nY = h.ny * inv_nl, nZ = h.nz * inv_nl;
     const float inv_dl = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
     const float iX = dx * inv_dl, iY = dy * inv_dl, iZ = dz * inv_dl;
 
@@ -277,6 +158,28 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
       nX = -nX;
       nY = -nY;
       nZ = -nZ;
+    }
+    const float kind = M[7];
+    if (INTEG == WHITTED && kind == 0.0f) {
+      // Lambert: a shadow ray toward the light, the direct term unless
+      // shadowed, and the path ends.
+      const Hit sh = closest_hit(s, px + EPSILON * nX, py + EPSILON * nY,
+                                 pz + EPSILON * nZ, LDIR_X, LDIR_Y, LDIR_Z,
+                                 mint);
+      if (sh.fam >= 0) {
+        rr = rr + cr;
+        rg = rg + cg;
+        rb = rb + cb;
+      } else {
+        const float cos_l =
+            fmaxf(0.0f, LDIR_X * nX + LDIR_Y * nY + LDIR_Z * nZ);
+        const float lit = LIGHT_I * cos_l;
+        rr = rr + (cr + tr * M[0] * lit);
+        rg = rg + (cg + tg * M[1] * lit);
+        rb = rb + (cb + tb * M[2] * lit);
+      }
+      active = false;
+      break;
     }
     const float ior = M[6];
     const float eta = flipped ? ior : 1.0f / fmaxf(ior, 1e-8f);
@@ -304,7 +207,6 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     const bool refl = (cos_out_sqr <= 0.0f) || (rw < f_refl);
     const float k = eta * cos_in - cos_out;
 
-    const float kind = M[7];
     float off, ndx, ndy, ndz;
     if (kind == 0.0f) {  // Lambert
       ndx = lamX;
@@ -327,6 +229,7 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
       ndz = eta * iZ + k * nZ;
       off = -EPSILON;
     }
+    if (INTEG == COOK) final_ = kind == 0.0f;
     ox = px + off * nX;
     oy = py + off * nY;
     oz = pz + off * nZ;
@@ -336,6 +239,22 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     tr = tr * M[0];
     tg = tg * M[1];
     tb = tb * M[2];
+  }
+  if (INTEG == COOK && active && final_) {
+    // A Lambert scatter on the last bounce still resolves: one more
+    // search, ending on its emission or the sky (raw d.y).
+    const Hit h = closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+    if (h.fam >= 0) {
+      const float* M = material(s, h.mat);
+      rr = rr + cr + tr * M[3];
+      rg = rg + cg + tg * M[4];
+      rb = rb + cb + tb * M[5];
+    } else {
+      rr = rr + cr + tr * (1.0f + SKY_R * dy);
+      rg = rg + cg + tg * (1.0f + SKY_G * dy);
+      rb = rb + cb + tb * (1.0f + SKY_B * dy);
+    }
+    active = false;
   }
   if (COLLECT) {  // the lane ended early: frozen state, no hits
     for (int b = recorded; b < max_bounces; ++b) {
@@ -354,7 +273,7 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   out[2 * (int64_t)n + i] = rb;
 }
 
-template <bool COLLECT>
+template <int INTEG, bool COLLECT>
 int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
            const float* cam, const int64_t* pix_ids, const float* ox,
            const float* oy, const float* oz, const float* dx, const float* dy,
@@ -362,17 +281,15 @@ int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
            uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
            int max_bounces, int standard, int cam_mode, float mint,
            void* stream) {
-  const int n_tab = TRI_STRIDE * n_tri + SPH_STRIDE * n_sph +
-                    PLN_STRIDE * n_pln + MAT_STRIDE * n_mat;
-  const size_t smem = sizeof(float) * (CAM_LEN + n_tab);
+  const size_t smem = sizeof(float) * staged_floats(n_tri, n_sph, n_pln, n_mat);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        path_kernel<COLLECT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        path_kernel<INTEG, COLLECT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (n + THREADS - 1) / THREADS;
-  path_kernel<COLLECT><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  path_kernel<INTEG, COLLECT><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, ox, oy, oz, dx, dy, dz,
       out, rec_f, rec_i, n, frame, salt_base, jitter_salt, max_bounces,
       standard, cam_mode, mint);
@@ -383,18 +300,12 @@ int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
 
 extern "C" {
 
-// Largest table (in floats) the kernel stages into the card's opt-in
-// shared memory per block, after the camera vector.
-int rvpt_path_max_table_floats() {
-  int dev = 0, bytes = 48 * 1024;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  return bytes / 4 - CAM_LEN;
-}
+int rvpt_max_table_floats() { return max_table_floats(); }
 
-// Launch on `stream`; returns cudaGetLastError() of the launch.  With
-// rec_f and rec_i non-null the collect instance writes the record.
+// Launch on `stream`; returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for an unknown integrator or records asked of
+// Whitted or Cook.  With rec_f and rec_i non-null the Kajiya collect
+// instance writes the record.
 int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
                     int n_mat, const float* cam, const int64_t* pix_ids,
                     const float* ox, const float* oy, const float* oz,
@@ -402,18 +313,21 @@ int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
                     float* out, float* rec_f, int32_t* rec_i, int n,
                     uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
                     int max_bounces, int standard, int cam_mode, float mint,
-                    void* stream) {
+                    int integ, void* stream) {
   if (n <= 0) return 0;
-  if (rec_f != nullptr && rec_i != nullptr) {
-    return launch<true>(tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, ox,
-                        oy, oz, dx, dy, dz, out, rec_f, rec_i, n, frame,
-                        salt_base, jitter_salt, max_bounces, standard,
-                        cam_mode, mint, stream);
+  const bool collect = rec_f != nullptr && rec_i != nullptr;
+#define RVPT_LAUNCH(I, C)                                                      \
+  launch<I, C>(tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, ox, oy, oz, \
+               dx, dy, dz, out, rec_f, rec_i, n, frame, salt_base,           \
+               jitter_salt, max_bounces, standard, cam_mode, mint, stream)
+  if (integ == KAJIYA) {
+    return collect ? RVPT_LAUNCH(KAJIYA, true) : RVPT_LAUNCH(KAJIYA, false);
   }
-  return launch<false>(tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, ox,
-                       oy, oz, dx, dy, dz, out, nullptr, nullptr, n, frame,
-                       salt_base, jitter_salt, max_bounces, standard, cam_mode,
-                       mint, stream);
+  if (collect) return (int)cudaErrorInvalidValue;
+  if (integ == WHITTED) return RVPT_LAUNCH(WHITTED, false);
+  if (integ == COOK) return RVPT_LAUNCH(COOK, false);
+#undef RVPT_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* rvpt_error_string(int code) {

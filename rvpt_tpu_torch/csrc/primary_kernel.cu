@@ -1,0 +1,187 @@
+// Primary-hit kernel for Hopper (sm_90a): the single-intersection debug
+// integrators (modes 0-6), one thread per pixel, one launch per frame and
+// AA sample.
+//
+// Replaces the Pallas kernel B3 of rvpt_tpu/ops/pathkernel.py
+// (make_primary_kernel :3390, launched by _primary_call :3445): an
+// in-kernel camera ray, one closest-hit search over triangles, spheres and
+// planes (scene_search.cuh, the search K1 runs), then the finalize of
+// _primary_finalize (:3289-3387), each mode its own template instance:
+// binary, color, depth (rsqrt(|d|^2)/max(t, 1e-30)), normal, Utah (raw d.y
+// sky), AO (nrays cosine probes with salts salt_base + 4i, each a search)
+// and Appel (one shadow search toward the light; a miss is white).  Hit
+// normals are normalized and zeroed on a miss, as isect_from_hit does.
+// The TPU layout is not carried over: no [8,1024] tiles, no one-hot table
+// fetches.  Pixel ids are optional: the raster 0..n-1, or a split-screen
+// rectangle's ids.
+//
+// What bounds it on this card: arithmetic.  The tables (under 1 KB for the
+// Cornell box) sit in shared memory, read as broadcasts; per pixel the
+// kernel writes f32[3] (24.9 MB at 1920x1080) and reads an int64 id when
+// given.  AO's probe searches (nrays per hit pixel) and Appel's shadow
+// search multiply the search work; a pixel that missed casts none.
+//
+// Rounding: every expression keeps the operation order of the plain
+// version (rvpt_tpu_torch/ops/pathkernel.py primary_plain and
+// _primary_finalize).  Build with --fmad=false and without fast math.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "scene_search.cuh"
+
+namespace {
+
+using namespace scene;
+
+constexpr int THREADS = 256;
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) primary_kernel(
+    const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
+    int n_mat, const float* __restrict__ cam_in,
+    const int64_t* __restrict__ pix_ids, float* __restrict__ out, int n,
+    uint32_t frame, uint32_t salt_base, uint32_t jitter_salt, int cam_mode,
+    float mint, int nrays, float inv_nrays) {
+  extern __shared__ float smem[];
+  const Tables s = stage(smem, cam_in, tables, n_tri, n_sph, n_pln, n_mat);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t pix = pix_ids ? (uint32_t)pix_ids[i] : (uint32_t)i;
+
+  float ox, oy, oz, dx, dy, dz;
+  camera_ray(smem, cam_mode, pix, frame, jitter_salt, ox, oy, oz, dx, dy, dz);
+  const Hit h = closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+  const bool hit = h.fam >= 0;
+  const float hit_f = hit ? 1.0f : 0.0f;
+  const float inv_nl =
+      rsqrtf(fmaxf(h.nx * h.nx + h.ny * h.ny + h.nz * h.nz, 1e-30f));
+  // Normalized, zeroed on a miss (isect_from_hit's convention).
+  const float nX = hit ? h.nx * inv_nl : 0.0f;
+  const float nY = hit ? h.ny * inv_nl : 0.0f;
+  const float nZ = hit ? h.nz * inv_nl : 0.0f;
+  const float* M = material(s, h.mat);
+
+  float r, g, b;
+  if (MODE == 0) {  // binary (integrators.glsl:24-38)
+    r = g = b = hit_f;
+  } else if (MODE == 1) {  // color (42-59)
+    r = hit ? M[0] : 0.0f;
+    g = hit ? M[1] : 0.0f;
+    b = hit ? M[2] : 0.0f;
+  } else if (MODE == 2) {  // depth (63-82): rsqrt(|d|^2)/t; a miss is 0
+    const float inv_d = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
+    r = g = b = hit ? inv_d / fmaxf(h.t, 1e-30f) : 0.0f;
+  } else if (MODE == 3) {  // normal (86-102)
+    r = 0.5f * nX + 0.5f * hit_f;
+    g = 0.5f * nY + 0.5f * hit_f;
+    b = 0.5f * nZ + 0.5f * hit_f;
+  } else if (MODE == 4) {  // Utah (106-148): raster shading, no shadows
+    const bool facing = (dx * nX + dy * nY + dz * nZ) < 0.0f;
+    const float fX = facing ? nX : -nX;
+    const float fY = facing ? nY : -nY;
+    const float fZ = facing ? nZ : -nZ;
+    const float cos_l = fmaxf(0.0f, LDIR_X * fX + LDIR_Y * fY + LDIR_Z * fZ);
+    // The sky uses RAW d.y (glsl mix extrapolates outside [0,1]).
+    r = hit ? AMBIENT + M[3] + M[0] * (LIGHT_I * cos_l) : 1.0f + SKY_R * dy;
+    g = hit ? AMBIENT + M[4] + M[1] * (LIGHT_I * cos_l) : 1.0f + SKY_G * dy;
+    b = hit ? AMBIENT + M[5] + M[2] * (LIGHT_I * cos_l) : 1.0f + SKY_B * dy;
+  } else {
+    const float inv_dl = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
+    const float iX = dx * inv_dl, iY = dy * inv_dl, iZ = dz * inv_dl;
+    const float cos_v = iX * nX + iY * nY + iZ * nZ;
+    // AO faces the normal against the ray (cos < 0 keeps it); Appel flips
+    // it where cos > 0: the two differ where cos is exactly 0.
+    const bool keep = MODE == 5 ? cos_v < 0.0f : !(cos_v > 0.0f);
+    const float fX = keep ? nX : -nX;
+    const float fY = keep ? nY : -nY;
+    const float fZ = keep ? nZ : -nZ;
+    const float px = ox + h.t * dx + EPSILON * fX;
+    const float py = oy + h.t * dy + EPSILON * fY;
+    const float pz = oz + h.t * dz + EPSILON * fZ;
+    if (MODE == 5) {  // AO (152-200): nrays cosine probes
+      float acc = 0.0f;
+      for (int k = 0; hit && k < nrays; ++k) {
+        uint32_t ra = pix, rb = frame, rc = salt_base + 4u * (uint32_t)k;
+        pcg3d(ra, rb, rc);
+        const float ru = unit(ra), rv = unit(rb);
+        const float phi = TWO_PI * ru;
+        const float cos_t = 1.0f - 2.0f * rv;
+        const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+        const Hit p = closest_hit(s, px, py, pz, fX + sin_t * cosf(phi),
+                                  fY + sin_t * sinf(phi), fZ + cos_t, mint);
+        acc = acc + (p.fam >= 0 ? 1.0f : 0.0f);
+      }
+      const float ao = 1.0f - acc * inv_nrays;
+      r = g = b = hit ? ao : 0.0f;
+    } else {  // Appel (204-250): a hard shadow; a miss is white
+      const bool shadow =
+          hit && closest_hit(s, px, py, pz, LDIR_X, LDIR_Y, LDIR_Z, mint).fam >= 0;
+      const float cos_l = fmaxf(0.0f, LDIR_X * fX + LDIR_Y * fY + LDIR_Z * fZ);
+      const float lit = shadow ? 0.0f : LIGHT_I * cos_l;
+      r = g = b = hit ? lit : 1.0f;
+    }
+  }
+  out[i] = r;
+  out[(int64_t)n + i] = g;
+  out[2 * (int64_t)n + i] = b;
+}
+
+template <int MODE>
+int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
+           const float* cam, const int64_t* pix_ids, float* out, int n,
+           uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
+           int cam_mode, float mint, int nrays, float inv_nrays,
+           void* stream) {
+  const size_t smem = sizeof(float) * staged_floats(n_tri, n_sph, n_pln, n_mat);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        primary_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (n + THREADS - 1) / THREADS;
+  primary_kernel<MODE><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, out, n, frame,
+      salt_base, jitter_salt, cam_mode, mint, nrays, inv_nrays);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int rvpt_max_table_floats() { return max_table_floats(); }
+
+// Launch debug mode `mode` (0-6) on `stream`; returns cudaGetLastError() of
+// the launch, or cudaErrorInvalidValue for another mode.
+int rvpt_primary(const float* tables, int n_tri, int n_sph, int n_pln,
+                 int n_mat, const float* cam, const int64_t* pix_ids,
+                 float* out, int n, uint32_t frame, uint32_t salt_base,
+                 uint32_t jitter_salt, int mode, int cam_mode, float mint,
+                 int nrays, float inv_nrays, void* stream) {
+  if (n <= 0) return 0;
+#define RVPT_CASE(M)                                                          \
+  case M:                                                                     \
+    return launch<M>(tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, out, \
+                     n, frame, salt_base, jitter_salt, cam_mode, mint, nrays, \
+                     inv_nrays, stream);
+  switch (mode) {
+    RVPT_CASE(0)
+    RVPT_CASE(1)
+    RVPT_CASE(2)
+    RVPT_CASE(3)
+    RVPT_CASE(4)
+    RVPT_CASE(5)
+    RVPT_CASE(6)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RVPT_CASE
+}
+
+const char* rvpt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

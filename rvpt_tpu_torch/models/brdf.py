@@ -24,6 +24,16 @@ def fresnel_reflectance(cos_in, cos_out, eta):
     return 0.5 * (r_perp * r_perp + r_par * r_par)
 
 
+def eval_lambert_cos(diffuse):
+    """brdf*cos / pdf for cosine-weighted sampling (material.glsl:78-92)."""
+    return diffuse * PI
+
+
+def scatter_lambert_cos(u, v, normal):
+    """Cosine-weighted scatter, unnormalized direction (material.glsl:96-108)."""
+    return map_cosine_hemisphere_simple(u, v, normal)
+
+
 def flip_normal_eta(dir_in, normal, ior):
     """Orient the normal against the incident ray and compute the relative
     index of refraction (integrators.glsl:591-612).  ``dir_in`` must be
@@ -48,8 +58,8 @@ def shade_and_scatter(pos, normal, dir_in, mat, rnd_u, rnd_v, rnd_fresnel):
 
     # Lambert (type 0): cosine-weighted scatter, factor = albedo.
     lam_pos = pos + EPSILON * normal
-    lam_dir = map_cosine_hemisphere_simple(rnd_u, rnd_v, normal)
-    lam_fac = (mat.albedo * INV_PI) * PI
+    lam_dir = scatter_lambert_cos(rnd_u, rnd_v, normal)
+    lam_fac = eval_lambert_cos(mat.albedo * INV_PI)
 
     # Mirror (type 1): deterministic reflection, factor = albedo.
     refl_dir = dir_in + (2.0 * cos_in)[..., None] * normal

@@ -117,6 +117,14 @@ def closest_hit_triangles(origin, direction, v0, v1, v2, mint, maxt,
     return t_run, i_run
 
 
+def any_hit_triangles(origin, direction, v0, v1, v2, mint, maxt,
+                      tri_chunk: int = 2048):
+    """Boolean occlusion test (shadow rays): any valid hit in (mint, maxt)."""
+    _, idx = closest_hit_triangles(origin, direction, v0, v1, v2, mint, maxt,
+                                   tri_chunk)
+    return idx >= 0
+
+
 def triangle_isect_single(o, d, v0, v1, v2):
     """t, u, v, normal for matched ray/triangle batches [N] (rebuilds the
     record of the winning triangle)."""
@@ -300,3 +308,10 @@ def intersect_scene(scene: Scene, ray: Ray, mint, maxt, tri_chunk: int = 2048) -
     """Search + record rebuild, the one-call scene intersector."""
     fam, idx, _ = closest_hit_scene(scene, ray, mint, maxt, tri_chunk)
     return isect_from_hit(scene, ray, fam, idx, mint)
+
+
+def occluded(scene: Scene, ray: Ray, mint, maxt, tri_chunk: int = 2048) -> torch.Tensor:
+    """Boolean shadow query across every family (intersect_scene_any,
+    intersection.glsl:467-485); rays on the card launch B8."""
+    fam, _, _ = closest_hit_scene(scene, ray, mint, maxt, tri_chunk)
+    return fam != FAM_NONE

@@ -1,22 +1,28 @@
-"""Whole-path Kajiya tracer and its whole-chain pullback: the ports of the
-Pallas kernels K1 and K2.
+"""Whole-path tracer, primary-hit and Hart kernels and the whole-chain
+pullback: the ports of the Pallas kernels K1, B3, B4 and K2.
 
-``rvpt_tpu/ops/pathkernel.py`` traces the whole Kajiya path in one Pallas
-launch per group of <= 8 bounces (make_path_kernel :1115, _path_call
-:1276), optionally writing per-bounce records, and pulls an image
-cotangent back through the whole chain from those records
-(make_bwd_kernel :1346, _bwd_call :1609, bwd_path :1801).  Here each
-function has two versions:
+``rvpt_tpu/ops/pathkernel.py`` traces whole paths in one Pallas launch per
+group of <= 8 bounces (make_path_kernel :1115, _path_call :1276) with the
+Kajiya, Whitted or Cook bounce integrator, optionally writing per-bounce
+records; runs the single-intersection debug integrators (modes 0-6) in one
+launch (make_primary_kernel :3390, _primary_call :3445); sphere-traces the
+triangle SDF for the Hart heat map (make_hart_kernel :3564, _hart_call
+:3632); and pulls an image cotangent back through the whole chain from the
+records (make_bwd_kernel :1346, _bwd_call :1609, bwd_path :1801).  Here
+each function has two versions:
 
-* ``csrc/path_kernel.cu`` (K1) and ``csrc/bwd_kernel.cu`` (K2):
-  hand-written CUDA for Hopper, one thread per ray, one launch per trace
-  or pullback (``launch_path_kernel``, ``launch_bwd_kernel``);
-* ``trace_plain`` and ``bwd_plain``: the same functions in plain PyTorch
-  on flat [N] tensors, the references the kernels are held against.
+* ``csrc/path_kernel.cu`` (K1), ``csrc/primary_kernel.cu`` (B3),
+  ``csrc/hart_kernel.cu`` (B4) and ``csrc/bwd_kernel.cu`` (K2):
+  hand-written CUDA for Hopper, one thread per ray or pixel, one launch
+  per trace or pullback (``launch_path_kernel``, ``launch_primary_kernel``,
+  ``launch_hart_kernel``, ``launch_bwd_kernel``);
+* ``trace_plain``, ``primary_plain``, ``hart_plain`` and ``bwd_plain``: the
+  same functions in plain PyTorch on flat [N] tensors, the references the
+  kernels are held against.
 
-``PathTracer.trace`` and ``bwd_path`` dispatch on the device of their
-tables: a CPU tensor takes the plain version, a CUDA tensor launches the
-kernel or raises.  Scene tables are packed in the row form (one f32 row per
+``PathTracer`` and ``bwd_path`` dispatch on the device of their tables: a
+CPU tensor takes the plain version, a CUDA tensor launches the kernel or
+raises.  Scene tables are packed in the row form (one f32 row per
 primitive) in the field orders below.  A trace's record (``PathRecord``)
 is flat and SoA: per bounce the 13 bounce-input fields and the
 (family, index) hit record, -1 where the lane was dead or missed.
@@ -43,6 +49,20 @@ _EPSILON = 5e-3  # surface offset (compute_pass.comp:9)
 _WHITE = (1.0, 1.0, 1.0)
 _BLUE = (0.2, 0.3, 0.7)  # sky gradient (integrators.glsl:570-571)
 _SKY = tuple(b - w for b, w in zip(_BLUE, _WHITE))  # in double, as the JAX kernel
+# Directional light of the debug integrators and Whitted, normalize(0.5,
+# 1.0, 0.3) in double as the JAX kernel's constants (pathkernel.py:3283).
+_LNORM = (0.5 * 0.5 + 1.0 * 1.0 + 0.3 * 0.3) ** 0.5
+_LDIR = (0.5 / _LNORM, 1.0 / _LNORM, 0.3 / _LNORM)
+_AMBIENT = 0.1
+_LIGHT_I = 1.0
+
+# Bounce integrators of the whole-path kernel, by their C++ template ids.
+INTEGS = {"kajiya": 0, "whitted": 1, "cook": 2}
+# The single-intersection debug modes of the primary-hit kernel (ids as
+# models.integrators.INTEGRATOR_NAMES).
+PRIMARY_MODES = frozenset((0, 1, 2, 3, 4, 5, 6))
+MARCH_ITER = 32  # compute_pass.comp:10
+MARCH_EPS = 0.1  # compute_pass.comp:11
 
 TRI_FIELDS = (
     "nx", "ny", "nz", "e0x", "e0y", "e0z", "e1x", "e1y", "e1z",
@@ -51,6 +71,8 @@ TRI_FIELDS = (
 SPH_FIELDS = ("cx", "cy", "cz", "rad", "mat")
 PLN_FIELDS = ("nx", "ny", "nz", "doff", "mat")
 MAT_FIELDS = ("ar", "ag", "ab", "er", "eg", "eb", "ior", "kind")
+# Raw vertex rows of the Hart march (pack_hart).
+HART_FIELDS = ("v0x", "v0y", "v0z", "v1x", "v1y", "v1z", "v2x", "v2y", "v2z")
 
 # Raw (vertex-level) differentiable tables of the backward, and its id
 # tables (pathkernel.py:75-81).
@@ -122,6 +144,29 @@ def pack_fwd(scene: Scene) -> tuple[torch.Tensor, tuple[int, int, int, int]]:
     return flat, (t, s, p, mat.shape[0])
 
 
+def stages_tables(scene: Scene) -> bool:
+    """Whether the search kernels (K1, B3) can stage ``pack_fwd``'s tables
+    of ``scene`` in shared memory: always for a scene on the CPU, whose
+    plain versions have no such limit; on the card, up to the kernels'
+    opt-in limit there (about 3,400 triangles in Hopper's 227 KB)."""
+    if scene.device.type != "cuda":
+        return True
+    floats = (len(TRI_FIELDS) * scene.num_triangles
+              + len(SPH_FIELDS) * scene.num_spheres
+              + len(PLN_FIELDS) * scene.num_planes
+              + len(MAT_FIELDS) * max(scene.materials.count, 1))
+    return floats <= _path_lib().rvpt_max_table_floats()
+
+
+def pack_hart(scene: Scene) -> tuple[torch.Tensor, int]:
+    """Raw vertex rows of the Hart march (``pack_hart`` :3498): one flat
+    f32 buffer of [T,9] rows (``HART_FIELDS``) and the count T.  No
+    padding: the kernel stages any count, zero included."""
+    t = scene.num_triangles
+    rows = torch.cat([scene.tri_v0, scene.tri_v1, scene.tri_v2], dim=-1)
+    return rows.reshape(t * 9).to(torch.float32).contiguous(), t
+
+
 def camera_params(cam, cfg) -> torch.Tensor:
     """f32[24] camera/film parameter vector for ray generation inside the
     trace (the layout of ``rvpt_tpu.ops.pathkernel.camera_params``), on the
@@ -151,7 +196,7 @@ def camera_params(cam, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The plain version
+# The plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -165,6 +210,29 @@ def _safe_den(d):
 
 def _rsqrt_safe(x):
     return torch.rsqrt(torch.clamp(x, min=1e-30))
+
+
+def _rng(pix, frame, salt):
+    return tuple(rng.u32_to_unit_float(x) for x in rng.pcg3d(pix, frame, salt))
+
+
+def _unpack_fwd(tables, counts):
+    """The row-form tables as Python rows (triangles, spheres, planes: the
+    plain search's scalars) and the [M,8] material tensor."""
+    t, s, p, nm = counts
+    flat = tables[:17 * t + 5 * s + 5 * p].tolist()
+    tri = [flat[17 * k:17 * (k + 1)] for k in range(t)]
+    o = 17 * t
+    sph = [flat[o + 5 * k:o + 5 * (k + 1)] for k in range(s)]
+    o += 5 * s
+    pln = [flat[o + 5 * k:o + 5 * (k + 1)] for k in range(p)]
+    o += 5 * p
+    return tri, sph, pln, tables[o:o + 8 * nm].reshape(nm, 8)
+
+
+def _mat_fetch(mat, wmat):
+    """The winner's material rows [N,8] (``MAT_FIELDS`` columns)."""
+    return mat[torch.clamp(wmat.to(torch.int64), 0, mat.shape[0] - 1)]
 
 
 def _camera_rays_plain(cam, mode, pix, frame, jitter_salt):
@@ -216,8 +284,8 @@ def _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint):
     """Closest hit over triangles, spheres, planes (``_search``): a
     candidate wins only with a strictly smaller t, so the first minimum
     wins within a family and the earlier family across families.
-    Returns (t_best, normal xyz, material id, hit, family, index); family
-    and index are int32, -1 on a miss."""
+    Returns the winner (t, normal xyz, material id, family, index) in the
+    JAX kernel's order; family and index are int32, -1 on a miss."""
     big = torch.full_like(ox, _BIG)
     t_best = big
     wnx = torch.zeros_like(ox)
@@ -281,31 +349,102 @@ def _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint):
         valid = (tp > mint) & (tp < t_best)
         take(valid, tp, nx, ny, nz, mat, 2, j)
 
-    return t_best, wnx, wny, wnz, wmat, wfam >= 0, wfam, widx
+    return t_best, wnx, wny, wnz, wmat, wfam, widx
+
+
+def _sky_add(rr, rg, rb, cr, cg, cb, tr, tg, tb, sky_t, mask):
+    """Add the gathered color and the sky behind ``mask``'s lanes."""
+    rr = torch.where(mask, rr + cr + tr * (_WHITE[0] + _SKY[0] * sky_t), rr)
+    rg = torch.where(mask, rg + cg + tg * (_WHITE[1] + _SKY[1] * sky_t), rg)
+    rb = torch.where(mask, rb + cb + tb * (_WHITE[2] + _SKY[2] * sky_t), rb)
+    return rr, rg, rb
+
+
+def _shade_geom_plain(pix, frame, salt, ox, oy, oz, dx, dy, dz, winner, ior,
+                      kind):
+    """Hit geometry and scatter directions shared by the bounce integrators
+    (``_shade_geom`` :857): hit point, flipped unit normal, the Lambert /
+    mirror / dielectric candidate directions and the stochastic Fresnel
+    choice.  Returns (px, py, pz, nX, nY, nZ, out dx, dy, dz, offset,
+    is_lam)."""
+    t_best, wnx, wny, wnz = winner[:4]
+    px = ox + t_best * dx
+    py = oy + t_best * dy
+    pz = oz + t_best * dz
+    inv_nl = _rsqrt_safe(wnx * wnx + wny * wny + wnz * wnz)
+    nX, nY, nZ = wnx * inv_nl, wny * inv_nl, wnz * inv_nl
+    inv_dl = _rsqrt_safe(dx * dx + dy * dy + dz * dz)
+    iX, iY, iZ = dx * inv_dl, dy * inv_dl, dz * inv_dl
+
+    cos_view = iX * nX + iY * nY + iZ * nZ
+    flipped = cos_view > 0.0
+    cos_in = torch.abs(cos_view)
+    nX = torch.where(flipped, -nX, nX)
+    nY = torch.where(flipped, -nY, nY)
+    nZ = torch.where(flipped, -nZ, nZ)
+    eta = torch.where(flipped, ior, 1.0 / torch.clamp(ior, min=1e-8))
+
+    ru, rv, rw = _rng(pix, frame, salt)
+
+    phi = _TWO_PI * ru
+    cos_t = 1.0 - 2.0 * rv
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    lamX = nX + sin_t * torch.cos(phi)
+    lamY = nY + sin_t * torch.sin(phi)
+    lamZ = nZ + cos_t
+
+    refX = iX + 2.0 * cos_in * nX
+    refY = iY + 2.0 * cos_in * nY
+    refZ = iZ + 2.0 * cos_in * nZ
+
+    cos_out_sqr = 1.0 - eta * eta * (1.0 - cos_in * cos_in)
+    cos_out = torch.sqrt(torch.clamp(cos_out_sqr, min=0.0))
+    r_perp = (eta * cos_in - cos_out) / (eta * cos_in + cos_out)
+    r_par = (cos_in - eta * cos_out) / (cos_in + eta * cos_out)
+    f_refl = 0.5 * (r_perp * r_perp + r_par * r_par)
+    refl = (cos_out_sqr <= 0.0) | (rw < f_refl)
+    k = eta * cos_in - cos_out
+    dieX = torch.where(refl, refX, eta * iX + k * nX)
+    dieY = torch.where(refl, refY, eta * iY + k * nY)
+    dieZ = torch.where(refl, refZ, eta * iZ + k * nZ)
+    die_off = torch.where(refl, _EPSILON, -_EPSILON)
+
+    is_lam = kind == 0.0
+    is_mir = kind == 1.0
+    out_dx = torch.where(is_lam, lamX, torch.where(is_mir, refX, dieX))
+    out_dy = torch.where(is_lam, lamY, torch.where(is_mir, refY, dieY))
+    out_dz = torch.where(is_lam, lamZ, torch.where(is_mir, refZ, dieZ))
+    off = torch.where(is_lam | is_mir, _EPSILON, die_off)
+    return px, py, pz, nX, nY, nZ, out_dx, out_dy, out_dz, off, is_lam
 
 
 def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
                 rays=None, cam_params=None, cam_mode=PINHOLE, jitter_salt=0,
-                mint=0.0, collect=False):
+                mint=0.0, collect=False, integ="kajiya", work=None):
     """The plain PyTorch version of the whole-path kernel -> f32[3, N], or
     (f32[3, N], ``PathRecord``) with ``collect``.
 
     ``tables``/``counts`` from ``pack_fwd``; ``pix`` int64[N] pixel ids;
     ``rays`` six f32[N] components (ox, oy, oz, dx, dy, dz) or None to
     generate camera rays from ``cam_params``.  The bounce-b RNG salt is
-    ``salt_base + 4 b``.  Mirrors ``_search``/``_shade``/``_shade_geom``
-    of the JAX kernel line for line, and its ``collect`` records
-    (pathkernel.py:1202-1215)."""
-    t, s, p, nm = counts
-    flat = tables.tolist()
-    o = 0
-    tri = [flat[o + 17 * k:o + 17 * (k + 1)] for k in range(t)]
-    o += 17 * t
-    sph = [flat[o + 5 * k:o + 5 * (k + 1)] for k in range(s)]
-    o += 5 * s
-    pln = [flat[o + 5 * k:o + 5 * (k + 1)] for k in range(p)]
-    o += 5 * p
-    mat = tables[o:o + 8 * nm].reshape(nm, 8)
+    ``salt_base + 4 b``.  ``integ`` is the bounce integrator: "kajiya",
+    "whitted" (a shadow search per Lambert hit, which ends the path) or
+    "cook" (a Lambert scatter ends on the next hit's emission or the sky,
+    with one tail search after the last bounce).  Mirrors ``_search``,
+    ``_shade``, ``_shade_whitted``, ``_shade_cook``, the Cook tail
+    (:1235-1253) and the ``collect`` records (:1202-1215) of the JAX
+    kernel line for line; records are a Kajiya-only path (:1718).  A dict
+    passed as ``work`` gets the lanes of the work the kernel does on this
+    data, for a bound: "search" every closest-hit search of a live lane
+    (bounce, Whitted shadow and Cook tail searches), "scatter" every hit
+    that runs the scatter shading and its random draw, "lambert" every
+    Whitted Lambert hit (shadow ray and direct term, no scatter) and "end"
+    every lane that ends on the sky or on Cook's emission."""
+    if integ not in INTEGS:
+        raise ValueError(f"unknown integrator {integ!r}")
+    if integ != "kajiya" and collect:
+        raise ValueError("hit records are a Kajiya-only path")
+    tri, sph, pln, mat = _unpack_fwd(tables, counts)
 
     if rays is None:
         ox, oy, oz, dx, dy, dz = _camera_rays_plain(
@@ -315,85 +454,78 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
     ones = torch.ones_like(ox)
     zeros = torch.zeros_like(ox)
     tr = tg = tb = ones
-    cr = cg = cb = zeros
+    # Whitted starts its path color at the ambient term (:1183-1186).
+    cr = cg = cb = torch.full_like(ox, _AMBIENT) if integ == "whitted" else zeros
     rr = rg = rb = zeros
     active = torch.ones_like(ox, dtype=torch.bool)
+    final = torch.zeros_like(active)
     rec_fields, rec_hits = [], []
+
+    def count(key, mask):
+        if work is not None:
+            work[key] = work.get(key, 0) + int(mask.sum())
 
     for b in range(int(max_bounces)):
         if collect:
             rec_fields.append(torch.stack([ox, oy, oz, dx, dy, dz, tr, tg, tb,
                                            cr, cg, cb, active.to(torch.float32)]))
-        t_best, wnx, wny, wnz, wmat, hit, wfam, widx = _search_plain(
-            tri, sph, pln, ox, oy, oz, dx, dy, dz, mint)
+        count("search", active)
+        winner = _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint)
+        wfam, widx = winner[5], winner[6]
+        hit = wfam >= 0
         if collect:
             live_hit = active & hit
             rec_hits.append(torch.stack([torch.where(live_hit, wfam, -1),
                                          torch.where(live_hit, widx, -1)]))
 
-        miss_now = active & ~hit
-        st = dy * 0.5 + 0.5
-        rr = torch.where(miss_now, rr + cr + tr * (_WHITE[0] + _SKY[0] * st), rr)
-        rg = torch.where(miss_now, rg + cg + tg * (_WHITE[1] + _SKY[1] * st), rg)
-        rb = torch.where(miss_now, rb + cb + tb * (_WHITE[2] + _SKY[2] * st), rb)
+        # Kajiya shifts d.y into [0,1] (integrators.glsl:579); Whitted and
+        # Cook use raw d.y.
+        sky_t = dy * 0.5 + 0.5 if integ == "kajiya" else dy
+        count("end", active & ~hit)
+        rr, rg, rb = _sky_add(rr, rg, rb, cr, cg, cb, tr, tg, tb, sky_t,
+                              active & ~hit)
         active = active & hit
 
-        m = mat[torch.clamp(wmat.to(torch.int64), 0, nm - 1)]
+        m = _mat_fetch(mat, winner[4])
+        if integ == "cook":
+            fin_now = active & final
+            count("end", fin_now)
+            rr = torch.where(fin_now, rr + cr + tr * m[:, 3], rr)
+            rg = torch.where(fin_now, rg + cg + tg * m[:, 4], rg)
+            rb = torch.where(fin_now, rb + cb + tb * m[:, 5], rb)
+            active = active & ~final
         cr = torch.where(active, cr + tr * m[:, 3], cr)
         cg = torch.where(active, cg + tg * m[:, 4], cg)
         cb = torch.where(active, cb + tb * m[:, 5], cb)
 
-        # _shade_geom
-        px = ox + t_best * dx
-        py = oy + t_best * dy
-        pz = oz + t_best * dz
-        inv_nl = _rsqrt_safe(wnx * wnx + wny * wny + wnz * wnz)
-        nX, nY, nZ = wnx * inv_nl, wny * inv_nl, wnz * inv_nl
-        inv_dl = _rsqrt_safe(dx * dx + dy * dy + dz * dz)
-        iX, iY, iZ = dx * inv_dl, dy * inv_dl, dz * inv_dl
+        (px, py, pz, nX, nY, nZ, out_dx, out_dy, out_dz, off,
+         lam) = _shade_geom_plain(pix, frame, salt_base + 4 * b, ox, oy, oz,
+                                  dx, dy, dz, winner, m[:, 6], m[:, 7])
 
-        cos_view = iX * nX + iY * nY + iZ * nZ
-        flipped = cos_view > 0.0
-        cos_in = torch.abs(cos_view)
-        nX = torch.where(flipped, -nX, nX)
-        nY = torch.where(flipped, -nY, nY)
-        nZ = torch.where(flipped, -nZ, nZ)
-        ior = m[:, 6]
-        eta = torch.where(flipped, ior, 1.0 / torch.clamp(ior, min=1e-8))
-
-        ru, rv, rw = (rng.u32_to_unit_float(x)
-                      for x in rng.pcg3d(pix, frame, salt_base + 4 * b))
-
-        phi = _TWO_PI * ru
-        cos_t = 1.0 - 2.0 * rv
-        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-        lamX = nX + sin_t * torch.cos(phi)
-        lamY = nY + sin_t * torch.sin(phi)
-        lamZ = nZ + cos_t
-
-        refX = iX + 2.0 * cos_in * nX
-        refY = iY + 2.0 * cos_in * nY
-        refZ = iZ + 2.0 * cos_in * nZ
-
-        cos_out_sqr = 1.0 - eta * eta * (1.0 - cos_in * cos_in)
-        cos_out = torch.sqrt(torch.clamp(cos_out_sqr, min=0.0))
-        r_perp = (eta * cos_in - cos_out) / (eta * cos_in + cos_out)
-        r_par = (cos_in - eta * cos_out) / (cos_in + eta * cos_out)
-        f_refl = 0.5 * (r_perp * r_perp + r_par * r_par)
-        refl = (cos_out_sqr <= 0.0) | (rw < f_refl)
-        k = eta * cos_in - cos_out
-        dieX = torch.where(refl, refX, eta * iX + k * nX)
-        dieY = torch.where(refl, refY, eta * iY + k * nY)
-        dieZ = torch.where(refl, refZ, eta * iZ + k * nZ)
-        die_off = torch.where(refl, _EPSILON, -_EPSILON)
-
-        kind = m[:, 7]
-        is_lam = kind == 0.0
-        is_mir = kind == 1.0
-        out_dx = torch.where(is_lam, lamX, torch.where(is_mir, refX, dieX))
-        out_dy = torch.where(is_lam, lamY, torch.where(is_mir, refY, dieY))
-        out_dz = torch.where(is_lam, lamZ, torch.where(is_mir, refZ, dieZ))
-        off = torch.where(is_lam | is_mir, _EPSILON, die_off)
+        if integ == "whitted":
+            # Lambert lanes: a shadow ray toward the directional light, then
+            # the path ends.
+            is_lam = active & lam
+            count("search", is_lam)
+            count("lambert", is_lam)
+            sw = _search_plain(tri, sph, pln, px + _EPSILON * nX,
+                               py + _EPSILON * nY, pz + _EPSILON * nZ,
+                               _LDIR[0] * ones, _LDIR[1] * ones,
+                               _LDIR[2] * ones, mint)
+            in_shadow = (sw[5] >= 0) & is_lam
+            cos_l = torch.clamp(_LDIR[0] * nX + _LDIR[1] * nY + _LDIR[2] * nZ,
+                                min=0.0)
+            lit = _LIGHT_I * cos_l
+            lam_r = torch.where(in_shadow, cr, cr + tr * m[:, 0] * lit)
+            lam_g = torch.where(in_shadow, cg, cg + tg * m[:, 1] * lit)
+            lam_b = torch.where(in_shadow, cb, cb + tb * m[:, 2] * lit)
+            rr = torch.where(is_lam, rr + lam_r, rr)
+            rg = torch.where(is_lam, rg + lam_g, rg)
+            rb = torch.where(is_lam, rb + lam_b, rb)
+            active = active & ~is_lam
+        elif integ == "cook":
+            final = active & lam
+        count("scatter", active)
 
         ox = torch.where(active, px + off * nX, ox)
         oy = torch.where(active, py + off * nY, oy)
@@ -405,6 +537,22 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
         tg = torch.where(active, tg * m[:, 1], tg)
         tb = torch.where(active, tb * m[:, 2], tb)
 
+    if integ == "cook" and int(max_bounces) > 0:
+        # A Lambert scatter on the last bounce still resolves: one more
+        # search, ending on emission or the sky (:1235-1253).
+        fin = active & final
+        count("search", fin)
+        count("end", fin)
+        tw = _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint)
+        m2 = _mat_fetch(mat, tw[4])
+        hit2 = tw[5] >= 0
+        rr = torch.where(fin, rr + cr + tr * torch.where(
+            hit2, m2[:, 3], _WHITE[0] + _SKY[0] * dy), rr)
+        rg = torch.where(fin, rg + cg + tg * torch.where(
+            hit2, m2[:, 4], _WHITE[1] + _SKY[1] * dy), rg)
+        rb = torch.where(fin, rb + cb + tb * torch.where(
+            hit2, m2[:, 5], _WHITE[2] + _SKY[2] * dy), rb)
+        active = active & ~final
     if style == "standard":
         rr = torch.where(active, rr + cr, rr)
         rg = torch.where(active, rg + cg, rg)
@@ -415,8 +563,190 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
     return out
 
 
+def _primary_finalize(mode, nrays, mat, pix, frame, salt_base, rays, winner,
+                      search):
+    """Debug-integrator finalize from a primary-hit winner (``_primary_
+    finalize`` :3289-3387; integrators.glsl:24-250).  Shape-generic plain
+    tensor code: ``rays`` the six ray components, ``winner`` the search's
+    (t, normal xyz, material id, family, index), ``mat`` the [M,8]
+    material rows, and ``search(o3, d3, mask) -> winner`` the AO probe and
+    Appel shadow searches.  Returns (r, g, b)."""
+    ox, oy, oz, dx, dy, dz = rays
+    t, wnx, wny, wnz, wmat, wfam, _ = winner
+    hit = wfam >= 0
+    hit_f = hit.to(torch.float32)
+    zeros = torch.zeros_like(dx)
+    inv_nl = _rsqrt_safe(wnx * wnx + wny * wny + wnz * wnz)
+    # Normalized, zeroed on a miss (isect_from_hit's convention).
+    nX = torch.where(hit, wnx * inv_nl, zeros)
+    nY = torch.where(hit, wny * inv_nl, zeros)
+    nZ = torch.where(hit, wnz * inv_nl, zeros)
+    m = _mat_fetch(mat, wmat)
+
+    if mode == 0:       # binary (integrators.glsl:24-38)
+        return hit_f, hit_f, hit_f
+    if mode == 1:       # color (42-59)
+        return tuple(torch.where(hit, m[:, k], zeros) for k in range(3))
+    if mode == 2:       # depth (63-82): rsqrt(|d|^2)/t; miss -> 0
+        inv_d = _rsqrt_safe(dx * dx + dy * dy + dz * dz)
+        v = torch.where(hit, inv_d / torch.clamp(t, min=1e-30), zeros)
+        return v, v, v
+    if mode == 3:       # normal (86-102)
+        return (0.5 * nX + 0.5 * hit_f, 0.5 * nY + 0.5 * hit_f,
+                0.5 * nZ + 0.5 * hit_f)
+    if mode == 4:       # Utah (106-148): raster shading, no shadows
+        facing = (dx * nX + dy * nY + dz * nZ) < 0.0
+        fX = torch.where(facing, nX, -nX)
+        fY = torch.where(facing, nY, -nY)
+        fZ = torch.where(facing, nZ, -nZ)
+        cos_l = torch.clamp(_LDIR[0] * fX + _LDIR[1] * fY + _LDIR[2] * fZ,
+                            min=0.0)
+        # The sky uses RAW d.y (glsl mix extrapolates outside [0,1]).
+        return tuple(
+            torch.where(hit, _AMBIENT + m[:, 3 + k] + m[:, k] * (_LIGHT_I * cos_l),
+                        _WHITE[k] + _SKY[k] * dy)
+            for k in range(3))
+
+    inv_dl = _rsqrt_safe(dx * dx + dy * dy + dz * dz)
+    iX, iY, iZ = dx * inv_dl, dy * inv_dl, dz * inv_dl
+    if mode == 5:       # AO (152-200): nrays cosine probes
+        facing = (iX * nX + iY * nY + iZ * nZ) < 0.0
+        fX = torch.where(facing, nX, -nX)
+        fY = torch.where(facing, nY, -nY)
+        fZ = torch.where(facing, nZ, -nZ)
+        px = ox + t * dx + _EPSILON * fX
+        py = oy + t * dy + _EPSILON * fY
+        pz = oz + t * dz + _EPSILON * fZ
+        acc = zeros
+        for i in range(nrays):
+            ru, rv, _ = _rng(pix, frame, salt_base + i * 4)
+            phi = _TWO_PI * ru
+            cos_t = 1.0 - 2.0 * rv
+            sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+            pw = search((px, py, pz), (fX + sin_t * torch.cos(phi),
+                                       fY + sin_t * torch.sin(phi), fZ + cos_t),
+                        hit)
+            acc = acc + ((pw[5] >= 0) & hit).to(torch.float32)
+        ao = 1.0 - acc * (1.0 / nrays)
+        v = torch.where(hit, ao, zeros)
+        return v, v, v
+    # Appel (204-250): a hard shadow; a miss is white.
+    flip = (iX * nX + iY * nY + iZ * nZ) > 0.0
+    fX = torch.where(flip, -nX, nX)
+    fY = torch.where(flip, -nY, nY)
+    fZ = torch.where(flip, -nZ, nZ)
+    px = ox + t * dx + _EPSILON * fX
+    py = oy + t * dy + _EPSILON * fY
+    pz = oz + t * dz + _EPSILON * fZ
+    ones = torch.ones_like(dx)
+    sw = search((px, py, pz), (_LDIR[0] * ones, _LDIR[1] * ones, _LDIR[2] * ones),
+                hit)
+    shadow = (sw[5] >= 0) & hit
+    cos_l = torch.clamp(_LDIR[0] * fX + _LDIR[1] * fY + _LDIR[2] * fZ, min=0.0)
+    lit = torch.where(shadow, zeros, _LIGHT_I * cos_l)
+    v = torch.where(hit, lit, ones)
+    return v, v, v
+
+
+def primary_plain(tables, counts, pix, frame, salt_base, mode, nrays,
+                  cam_params, cam_mode=PINHOLE, jitter_salt=0, mint=0.0):
+    """The plain PyTorch version of the primary-hit kernel -> f32[3, N]:
+    camera rays from ``pix`` (int64[N]), one closest hit, then the
+    finalize of debug ``mode`` (``PRIMARY_MODES``); AO casts ``nrays``
+    cosine probes with salts ``salt_base + 4 i``."""
+    if mode not in PRIMARY_MODES:
+        raise ValueError(f"mode {mode} is not a primary-hit mode")
+    tri, sph, pln, mat = _unpack_fwd(tables, counts)
+    rays = _camera_rays_plain(cam_params.tolist(), cam_mode, pix, frame,
+                              jitter_salt)
+
+    def search(o3, d3, mask):
+        return _search_plain(tri, sph, pln, *o3, *d3, mint)
+
+    winner = search(rays[:3], rays[3:], None)
+    return torch.stack(_primary_finalize(mode, int(nrays), mat, pix, frame,
+                                         salt_base, rays, winner, search))
+
+
+def _tri_dist2(px, py, pz, ax, ay, az, bx, by, bz, cx, cy, cz):
+    """Squared iq unsigned triangle distance (``_tri_dist2`` :3518,
+    distance_functions.glsl:28-61), broadcast-generic over the point and
+    vertex components."""
+    bax, bay, baz = bx - ax, by - ay, bz - az
+    cbx, cby, cbz = cx - bx, cy - by, cz - bz
+    acx, acy, acz = ax - cx, ay - cy, az - cz
+    # nor = cross(ba, ac)
+    nx = bay * acz - baz * acy
+    ny = baz * acx - bax * acz
+    nz = bax * acy - bay * acx
+    pax, pay, paz = px - ax, py - ay, pz - az
+    pbx, pby, pbz = px - bx, py - by, pz - bz
+    pcx, pcy, pcz = px - cx, py - cy, pz - cz
+
+    def edge_sign(ex, ey, ez, qx, qy, qz):
+        # sign(dot(cross(e, nor), q))
+        cxx = ey * nz - ez * ny
+        cyy = ez * nx - ex * nz
+        czz = ex * ny - ey * nx
+        return torch.sign(cxx * qx + cyy * qy + czz * qz)
+
+    edge_region = (
+        edge_sign(bax, bay, baz, pax, pay, paz)
+        + edge_sign(cbx, cby, cbz, pbx, pby, pbz)
+        + edge_sign(acx, acy, acz, pcx, pcy, pcz)
+    ) < 2.0
+
+    def edge_dist(ex, ey, ez, qx, qy, qz):
+        e2 = torch.clamp(ex * ex + ey * ey + ez * ez, min=1e-20)
+        h = torch.clamp((ex * qx + ey * qy + ez * qz) / e2, 0.0, 1.0)
+        rx, ry, rz = ex * h - qx, ey * h - qy, ez * h - qz
+        return rx * rx + ry * ry + rz * rz
+
+    d_edge = torch.minimum(
+        torch.minimum(edge_dist(bax, bay, baz, pax, pay, paz),
+                      edge_dist(cbx, cby, cbz, pbx, pby, pbz)),
+        edge_dist(acx, acy, acz, pcx, pcy, pcz))
+    dn = nx * pax + ny * pay + nz * paz
+    d_face = dn * dn / torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20)
+    return torch.where(edge_region, d_edge, d_face)
+
+
+def hart_plain(htables, n_tri, pix, frame, cam_params, cam_mode=PINHOLE,
+               jitter_salt=0, mint=0.0, tri_chunk=16):
+    """The plain PyTorch version of the Hart march kernel -> f32[3, N]:
+    camera rays from ``pix``, MARCH_ITER steps of the scene's minimum iq
+    distance (from 3e38 down, so a scene without triangles never stops),
+    stopping below MARCH_EPS (maxt = inf, :3615); the value is the step of
+    the stop times 1/(MARCH_ITER-1), 32/31 where the march never stopped.
+    ``htables``/``n_tri`` from ``pack_hart``; triangles in blocks of
+    ``tri_chunk`` bound the [N, block] temporaries."""
+    ox, oy, oz, dx, dy, dz = _camera_rays_plain(
+        cam_params.tolist(), cam_mode, pix, frame, jitter_salt)
+    cols = htables.reshape(n_tri, 9).unbind(1)
+    t0 = torch.full_like(ox, mint)
+    px, py, pz = ox + t0 * dx, oy + t0 * dy, oz + t0 * dz
+    iters = torch.full_like(ox, MARCH_ITER, dtype=torch.int32)
+    done = torch.zeros_like(ox, dtype=torch.bool)
+    for i in range(MARCH_ITER):
+        d2 = torch.full_like(ox, _BIG)
+        for base in range(0, n_tri, tri_chunk):
+            vs = [c[None, base:base + tri_chunk] for c in cols]
+            blk = _tri_dist2(px[:, None], py[:, None], pz[:, None], *vs)
+            d2 = torch.minimum(d2, torch.amin(blk, dim=1))
+        dist = torch.sqrt(d2)
+        stop = dist < MARCH_EPS
+        iters = torch.where(~done & stop, i, iters)
+        adv = ~done & ~stop
+        px = torch.where(adv, px + dist * dx, px)
+        py = torch.where(adv, py + dist * dy, py)
+        pz = torch.where(adv, pz + dist * dz, pz)
+        done = done | stop
+    val = iters.to(torch.float32) * (1.0 / (MARCH_ITER - 1))
+    return torch.stack([val, val, val])
+
+
 # ---------------------------------------------------------------------------
-# The CUDA kernel
+# The CUDA kernels
 # ---------------------------------------------------------------------------
 
 
@@ -427,41 +757,59 @@ def _path_lib():
         lib.rvpt_path_trace.argtypes = [
             ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
             ptr, ptr, ptr, i32, u32, u32, u32, i32, i32, i32, ctypes.c_float,
-            ptr,
+            i32, ptr,
         ]
         lib.rvpt_path_trace.restype = i32
-        lib.rvpt_path_max_table_floats.argtypes = []
-        lib.rvpt_path_max_table_floats.restype = i32
+        lib.rvpt_max_table_floats.argtypes = []
+        lib.rvpt_max_table_floats.restype = i32
         lib._rvpt_bound = True
     return lib
 
 
+def _scene_lib(load, tables, counts):
+    """Check the row-form tables (CUDA, sized by ``counts``), then load the
+    kernel's library and check they fit its shared-memory staging."""
+    t, s, p, nm = counts
+    check_cuda(tables, torch.float32, "tables", 17 * t + 5 * s + 5 * p + 8 * nm)
+    lib = load()
+    if tables.numel() > lib.rvpt_max_table_floats():
+        raise ValueError(
+            f"scene tables of {tables.numel()} floats exceed the kernel's "
+            f"shared-memory staging ({lib.rvpt_max_table_floats()})")
+    return lib
+
+
+def _check_camera(pix, n, cam_params, dev):
+    if pix is not None:
+        check_cuda(pix, torch.int64, "pixel", n, dev)
+    if cam_params is None:
+        raise ValueError("camera rays need cam_params")
+    check_cuda(cam_params, torch.float32, "cam_params", 24, dev)
+
+
 def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
                        style, rays=None, cam_params=None, cam_mode=PINHOLE,
-                       jitter_salt=0, mint=0.0, collect=False):
+                       jitter_salt=0, mint=0.0, collect=False, integ="kajiya"):
     """Launch the CUDA kernel -> f32[3, n] on the tables' card, or
     (f32[3, n], ``PathRecord``) with ``collect``.
 
     ``pix`` int64[n] pixel ids, or None for the ids 0..n-1 (the raster
     film).  Other arguments as ``trace_plain``.  Counts one launch in
     ``launch_path_kernel.launches``."""
+    if integ not in INTEGS:
+        raise ValueError(f"unknown integrator {integ!r}")
+    if integ != "kajiya" and collect:
+        raise ValueError("hit records are a Kajiya-only path")
     t, s, p, nm = counts
     dev = tables.device
-    check_cuda(tables, torch.float32, "tables", 17 * t + 5 * s + 5 * p + 8 * nm)
-    lib = _path_lib()
-    if tables.numel() > lib.rvpt_path_max_table_floats():
-        raise ValueError(
-            f"scene tables of {tables.numel()} floats exceed the kernel's "
-            f"shared-memory staging ({lib.rvpt_path_max_table_floats()})")
-    if pix is not None:
-        check_cuda(pix, torch.int64, "pixel", n, dev)
+    lib = _scene_lib(_path_lib, tables, counts)
     if rays is None:
-        if cam_params is None:
-            raise ValueError("camera rays need cam_params")
-        check_cuda(cam_params, torch.float32, "cam_params", 24, dev)
+        _check_camera(pix, n, cam_params, dev)
         ray_ptrs = [None] * 6
         cam_ptr = cam_params.data_ptr()
     else:
+        if pix is not None:
+            check_cuda(pix, torch.int64, "pixel", n, dev)
         for k, r in enumerate(rays):
             check_cuda(r, torch.float32, f"ray component {k}", n, dev)
         ray_ptrs = [r.data_ptr() for r in rays]
@@ -481,7 +829,8 @@ def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
         None if record is None else record.hits.data_ptr(), n,
         int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
         int(jitter_salt) & 0xFFFFFFFF, nb,
-        int(style == "standard"), int(cam_mode), float(mint), stream)
+        int(style == "standard"), int(cam_mode), float(mint), INTEGS[integ],
+        stream)
     check_launch(lib, err, "path kernel")
     launch_path_kernel.launches += 1
     return out if record is None else (out, record)
@@ -490,10 +839,113 @@ def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
 launch_path_kernel.launches = 0
 
 
+def _primary_lib():
+    lib = load_library("primary_kernel")
+    if not hasattr(lib, "_rvpt_bound"):
+        ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+        lib.rvpt_primary.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr,
+                                     i32, u32, u32, u32, i32, i32, f32, i32,
+                                     f32, ptr]
+        lib.rvpt_primary.restype = i32
+        lib.rvpt_max_table_floats.argtypes = []
+        lib.rvpt_max_table_floats.restype = i32
+        lib._rvpt_bound = True
+    return lib
+
+
+def launch_primary_kernel(tables, counts, pix, n, frame, salt_base, mode,
+                          nrays, cam_params, cam_mode=PINHOLE, jitter_salt=0,
+                          mint=0.0):
+    """Launch the CUDA primary-hit kernel B3 -> f32[3, n] on the tables'
+    card.  ``pix`` int64[n] pixel ids, or None for the ids 0..n-1.  Other
+    arguments as ``primary_plain``.  Counts one launch in
+    ``launch_primary_kernel.launches``."""
+    if mode not in PRIMARY_MODES:
+        raise ValueError(f"mode {mode} is not a primary-hit mode")
+    nrays = int(nrays)
+    if nrays < 1:
+        raise ValueError(f"nrays must be at least 1, got {nrays}")
+    t, s, p, nm = counts
+    dev = tables.device
+    lib = _scene_lib(_primary_lib, tables, counts)
+    _check_camera(pix, n, cam_params, dev)
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    err = lib.rvpt_primary(
+        tables.data_ptr(), t, s, p, nm, cam_params.data_ptr(),
+        None if pix is None else pix.data_ptr(), out.data_ptr(), n,
+        int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
+        int(jitter_salt) & 0xFFFFFFFF, int(mode), int(cam_mode), float(mint),
+        nrays, _f32(1.0 / nrays), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, err, "primary-hit kernel")
+    launch_primary_kernel.launches += 1
+    return out
+
+
+launch_primary_kernel.launches = 0
+
+
+def _hart_lib():
+    lib = load_library("hart_kernel")
+    if not hasattr(lib, "_rvpt_bound"):
+        ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+        lib.rvpt_hart.argtypes = [ptr, i32, ptr, ptr, ptr, i32, u32, u32, i32,
+                                  f32, ptr]
+        lib.rvpt_hart.restype = i32
+        lib._rvpt_bound = True
+    return lib
+
+
+def launch_hart_kernel(htables, n_tri, pix, n, frame, cam_params,
+                       cam_mode=PINHOLE, jitter_salt=0, mint=0.0):
+    """Launch the CUDA Hart march kernel B4 -> f32[3, n] on the tables'
+    card.  ``htables``/``n_tri`` from ``pack_hart`` (zero triangles
+    allowed); ``pix`` int64[n] pixel ids, or None for the ids 0..n-1.
+    Counts one launch in ``launch_hart_kernel.launches``."""
+    dev = htables.device
+    check_cuda(htables, torch.float32, "Hart tables", 9 * n_tri)
+    _check_camera(pix, n, cam_params, dev)
+    lib = _hart_lib()
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    err = lib.rvpt_hart(
+        htables.data_ptr() if n_tri else None, n_tri, cam_params.data_ptr(),
+        None if pix is None else pix.data_ptr(), out.data_ptr(), n,
+        int(frame) & 0xFFFFFFFF, int(jitter_salt) & 0xFFFFFFFF, int(cam_mode),
+        float(mint), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, err, "Hart kernel")
+    launch_hart_kernel.launches += 1
+    return out
+
+
+launch_hart_kernel.launches = 0
+
+
+def _pixels(pixel):
+    """(n, pixel ids or None) of a ``pixel`` argument: an int64[N] tensor,
+    or an int N meaning the raster ids 0..N-1."""
+    if isinstance(pixel, int):
+        return pixel, None
+    return pixel.shape[0], pixel
+
+
+def _raster(pix, n, dev):
+    return torch.arange(n, dtype=torch.int64, device=dev) if pix is None else pix
+
+
+def _on_device(dev, kernel, plain):
+    """Run ``kernel`` for tables on the card and ``plain`` for tables on
+    the CPU; no other device and no fallback."""
+    if dev.type == "cuda":
+        return kernel()
+    if dev.type == "cpu":
+        return plain()
+    raise ValueError(f"no tracer for device {dev}")
+
+
 class PathTracer(nn.Module):
-    """Whole-path tracer for one scene: the packed tables live as a buffer
-    on the scene's device.  ``trace`` runs the CUDA kernel for a scene on
-    the card and the plain version for a scene on the CPU."""
+    """Whole-path, primary-hit and Hart tracer for one scene: the packed
+    search tables and the Hart vertex rows live as buffers on the scene's
+    device.  Each entry runs its CUDA kernel for a scene on the card and
+    its plain version for a scene on the CPU."""
 
     def __init__(self, scene: Scene, mint: float = 0.0):
         super().__init__()
@@ -501,12 +953,15 @@ class PathTracer(nn.Module):
             raise NotImplementedError("BVH scenes wait for the BVH port")
         tables, self.counts = pack_fwd(scene)
         self.register_buffer("tables", tables)
+        htables, self.hart_count = pack_hart(scene)
+        self.register_buffer("hart_tables", htables)
         self.mint = float(mint)
 
     def trace(self, pixel, origin, direction, frame, salt_base, max_bounces,
               style="reference", gen_rays=False, cam_params=None,
-              cam_mode=PINHOLE, jitter_salt=0, collect_states=False):
-        """Trace full Kajiya paths -> (r, g, b), each f32[N] (the JAX
+              cam_mode=PINHOLE, jitter_salt=0, collect_states=False,
+              integ="kajiya"):
+        """Trace full paths -> (r, g, b), each f32[N] (the JAX
         ``PathTracer.trace`` interface), or ((r, g, b), ``PathRecord``)
         with ``collect_states``; ``forward`` returns the radiance as one
         f32[3, N] tensor.
@@ -515,22 +970,20 @@ class PathTracer(nn.Module):
         the raster ids 0..N-1.  With ``gen_rays`` the camera rays are made
         inside the trace from ``cam_params`` (``camera_params``) and
         ``origin``/``direction`` are ignored; otherwise they are f32[N,3]
-        tensors or (x, y, z) tuples of f32[N]."""
+        tensors or (x, y, z) tuples of f32[N].  ``integ`` selects the
+        bounce integrator (kajiya/whitted/cook); records are Kajiya-only."""
         out = self(pixel, origin, direction, frame, salt_base, max_bounces,
                    style, gen_rays, cam_params, cam_mode, jitter_salt,
-                   collect_states)
+                   collect_states, integ)
         if collect_states:
             return out[0].unbind(0), out[1]
         return out.unbind(0)
 
     def forward(self, pixel, origin, direction, frame, salt_base, max_bounces,
                 style="reference", gen_rays=False, cam_params=None,
-                cam_mode=PINHOLE, jitter_salt=0, collect_states=False):
-        dev = self.tables.device
-        if isinstance(pixel, int):
-            n, pix = pixel, None
-        else:
-            n, pix = pixel.shape[0], pixel
+                cam_mode=PINHOLE, jitter_salt=0, collect_states=False,
+                integ="kajiya"):
+        n, pix = _pixels(pixel)
         rays = None
         if not gen_rays:
             if isinstance(origin, tuple):
@@ -540,16 +993,45 @@ class PathTracer(nn.Module):
                          direction[:, 0], direction[:, 1], direction[:, 2])
             rays = tuple(c.contiguous() for c in comps)
         kw = dict(rays=rays, cam_params=cam_params, cam_mode=cam_mode,
-                  jitter_salt=jitter_salt, mint=self.mint, collect=collect_states)
-        if dev.type == "cuda":
-            return launch_path_kernel(self.tables, self.counts, pix, n, frame,
-                                      salt_base, max_bounces, style, **kw)
-        if dev.type == "cpu":
-            if pix is None:
-                pix = torch.arange(n, dtype=torch.int64)
-            return trace_plain(self.tables, self.counts, pix, frame, salt_base,
-                               max_bounces, style, **kw)
-        raise ValueError(f"no path tracer for device {dev}")
+                  jitter_salt=jitter_salt, mint=self.mint,
+                  collect=collect_states, integ=integ)
+        return _on_device(
+            self.tables.device,
+            lambda: launch_path_kernel(self.tables, self.counts, pix, n, frame,
+                                       salt_base, max_bounces, style, **kw),
+            lambda: trace_plain(self.tables, self.counts, _raster(pix, n, "cpu"),
+                                frame, salt_base, max_bounces, style, **kw))
+
+    def trace_primary(self, pixel, frame, mode, *, cam_params, cam_mode,
+                      salt_base, jitter_salt, nrays=1):
+        """Single-intersection debug integrator ``mode`` (``PRIMARY_MODES``)
+        with camera rays made in the trace -> f32[3, N], which unpacks as
+        the (r, g, b) of the JAX ``trace_primary`` (:1773).  ``pixel`` as
+        for ``trace``."""
+        n, pix = _pixels(pixel)
+        return _on_device(
+            self.tables.device,
+            lambda: launch_primary_kernel(
+                self.tables, self.counts, pix, n, frame, salt_base, mode,
+                nrays, cam_params, cam_mode, jitter_salt, self.mint),
+            lambda: primary_plain(
+                self.tables, self.counts, _raster(pix, n, "cpu"), frame,
+                salt_base, mode, nrays, cam_params, cam_mode, jitter_salt,
+                self.mint))
+
+    def trace_hart(self, pixel, frame, *, cam_params, cam_mode, jitter_salt):
+        """Hart heat map with camera rays made in the trace -> f32[3, N],
+        which unpacks as the (r, g, b) of the JAX ``trace_hart`` (:3653),
+        from the cached vertex rows.  ``pixel`` as for ``trace``."""
+        n, pix = _pixels(pixel)
+        return _on_device(
+            self.hart_tables.device,
+            lambda: launch_hart_kernel(
+                self.hart_tables, self.hart_count, pix, n, frame, cam_params,
+                cam_mode, jitter_salt, self.mint),
+            lambda: hart_plain(
+                self.hart_tables, self.hart_count, _raster(pix, n, "cpu"),
+                frame, cam_params, cam_mode, jitter_salt, self.mint))
 
     @staticmethod
     def hits_from_record(record: PathRecord):

@@ -1,26 +1,30 @@
-"""Frame rendering (mirror of ``rvpt_tpu/render.py``, its single-mode half).
+"""Frame rendering (mirror of ``rvpt_tpu/render.py``).
 
-Pixel grid, per-sample jitter, camera rays, the Kajiya integrator, AA
-averaging and the temporal EMA.  Two routes render a sample:
+Pixel grid, per-sample jitter, camera rays, integrator evaluation with the
+reference's up-to-4-way split-screen comparison, AA averaging and the
+temporal EMA.  Two routes render a sample:
 
 * ``render_sample_chw``: the plain integrator path (ops.intersect +
   models.integrators), the port of the JAX package's XLA path;
-* ``render_sample_fast_chw``: the whole-path tracer (ops.pathkernel), the
-  CUDA kernel for a scene on the card and its plain version on the CPU.
-
-Split-screen (several integrator modes at once) and the other integrators
-wait for later slices and raise ``NotImplementedError``.
+* ``render_sample_fast_chw``: the kernels of ``ops.pathkernel`` (the
+  whole-path tracer for Kajiya/Whitted/Cook, the primary-hit kernel for
+  modes 0-6, the Hart march for mode 10), CUDA for a scene on the card and
+  their plain versions on the CPU; a split-screen frame runs each
+  quadrant's kernel on exactly that quadrant's pixels.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 from .config import FilmConfig, RenderSettings
 from .core import rng
 from .core.device import resolve_device
 from .models import camera as camera_mod
-from .models.integrators import AA_STRIDE, KAJIYA, eval_integrator
+from .models.integrators import AA_STRIDE, INTEGRATORS, eval_integrator
 from .ops import film as film_ops
 
 _JITTER_SITE = 0
@@ -42,15 +46,18 @@ def _pixel_grid(cfg: FilmConfig, device=None):
     return xs + ys * cfg.width, xs, ys
 
 
-def _single_mode(settings: RenderSettings) -> int:
-    modes = set(settings.modes())
-    if len(modes) != 1:
-        raise NotImplementedError("split-screen rendering is not ported yet")
-    (mode,) = modes
-    if mode != KAJIYA:
-        raise NotImplementedError(
-            f"integrator {mode} is not ported yet; the port serves Kajiya (9)")
-    return mode
+def _mode_masks(settings: RenderSettings, xs, ys, cfg: FilmConfig):
+    """Split-screen quadrant selection (compute_pass.comp:134-144): the
+    integrator id of each pixel."""
+    sx, sy = settings.split_ratio
+    px = xs.to(torch.float32) / cfg.width
+    py = ys.to(torch.float32) / cfg.height
+    bottom = py > sy
+    right_t = px > sx
+    right_b = ~(px < sx)
+    tl, tr, bl, br = settings.modes()
+    return torch.where(bottom, torch.where(right_b, br, bl),
+                       torch.where(right_t, tr, tl))
 
 
 def jittered_camera_rays(camera, cfg: FilmConfig, pixel, xs, ys, frame, salt0):
@@ -67,15 +74,26 @@ def render_pixels(scene, camera, settings: RenderSettings, cfg: FilmConfig,
                   frame, pixel, xs, ys, aa_offset=0):
     """Render a batch of pixels -> f32[n,3] samples (plain path).  RNG
     streams depend only on the global pixel id; ``aa_offset`` offsets the
-    AA sample index."""
-    mode = _single_mode(settings)
-    sampled = torch.zeros((pixel.shape[0], 3), dtype=torch.float32,
-                          device=pixel.device)
+    AA sample index.  Split-screen evaluates every quadrant's integrator
+    on the batch and selects per pixel, as the JAX path does."""
+    unique_modes = sorted(set(settings.modes()))
+    n = pixel.shape[0]
+    sampled = torch.zeros((n, 3), dtype=torch.float32, device=pixel.device)
     for i in range(settings.aa):
         salt0 = ((i + int(aa_offset)) * AA_STRIDE) & 0xFFFFFFFF
         ray = jittered_camera_rays(camera, cfg, pixel, xs, ys, frame, salt0)
-        sampled = sampled + eval_integrator(
-            mode, scene, ray, pixel, frame, settings, salt0 + _INTEGRATOR_SITE)
+        salt_base = salt0 + _INTEGRATOR_SITE
+        if len(unique_modes) == 1:
+            col = eval_integrator(unique_modes[0], scene, ray, pixel, frame,
+                                  settings, salt_base)
+        else:
+            mode_of_pixel = _mode_masks(settings, xs, ys, cfg)
+            col = torch.zeros((n, 3), dtype=torch.float32, device=pixel.device)
+            for m in unique_modes:
+                cm = eval_integrator(m, scene, ray, pixel, frame, settings,
+                                     salt_base)
+                col = torch.where((mode_of_pixel == m)[:, None], cm, col)
+        sampled = sampled + col
     return sampled / settings.aa
 
 
@@ -88,43 +106,119 @@ def render_sample_chw(scene, camera, settings: RenderSettings, cfg: FilmConfig,
     return sampled.T.reshape(3, cfg.height, cfg.width)
 
 
+def _megakernel_eligible(scene, settings: RenderSettings) -> bool:
+    """Whether the kernels serve this scene and settings
+    (``render.py:119``, minus its platform sniffing): every quadrant's
+    integrator is one of the eleven, the scene has no BVH, and where a
+    quadrant searches (every mode but Hart, whose kernel stages triangles
+    in chunks) the search tables fit the kernels' shared-memory staging.
+    The backward kernel's 1,024-triangle limit is the trainer's
+    (``train.inverse._fast_eligible``), not the display's.  The tracer
+    picks each kernel or its plain version by the device."""
+    from .ops.pathkernel import stages_tables
+
+    modes = set(settings.modes())
+    if not modes <= set(INTEGRATORS) or scene.bvh is not None:
+        return False
+    return modes == {10} or stages_tables(scene)
+
+
+def _trace_mode_kernel(pt, camera, settings: RenderSettings, cam_params,
+                       pixel, frame, salt0, mode):
+    """One kernel pass of integrator ``mode`` over a pixel batch -> f32[3,
+    n] (``render.py:226``): the Hart march for 10, the primary-hit kernel
+    for 0-6, the whole-path tracer for 7-9.  Jitter and camera rays are
+    made inside the kernels; the film is the pass's only ray-sized output.
+    ``pixel`` is an int64[n] tensor or an int n (the raster ids)."""
+    from .ops.pathkernel import PRIMARY_MODES
+
+    kw = dict(cam_params=cam_params, cam_mode=camera.mode,
+              jitter_salt=salt0 + _JITTER_SITE)
+    if mode == 10:
+        return pt.trace_hart(pixel, frame, **kw)
+    if mode in PRIMARY_MODES:
+        # nrays matters only to AO's probe loop.
+        nrays = max(int(settings.max_bounces), 1) if mode == 5 else 1
+        return pt.trace_primary(pixel, frame, mode,
+                                salt_base=salt0 + _INTEGRATOR_SITE, nrays=nrays,
+                                **kw)
+    integ = {7: "whitted", 8: "cook"}.get(mode, "kajiya")
+    return pt(pixel, None, None, frame, salt_base=salt0 + _INTEGRATOR_SITE,
+              max_bounces=settings.max_bounces, style=settings.style,
+              gen_rays=True, integ=integ, **kw)
+
+
+@lru_cache(maxsize=8)
+def _split_partition(cfg: FilmConfig, settings: RenderSettings):
+    """The split-screen partition as quadrant rectangles (mode, (y0, y1,
+    x0, x1)) that reproduce ``_mode_masks`` exactly; empty quadrants are
+    dropped (``render.py:267``)."""
+    sx, sy = settings.split_ratio
+    py = np.arange(cfg.height, dtype=np.float32) / cfg.height
+    px = np.arange(cfg.width, dtype=np.float32) / cfg.width
+    rows_b = np.nonzero(py > sy)[0]
+    y_split = int(rows_b[0]) if len(rows_b) else cfg.height
+    cols_t = np.nonzero(px > sx)[0]
+    x_split_t = int(cols_t[0]) if len(cols_t) else cfg.width
+    cols_b = np.nonzero(~(px < sx))[0]
+    x_split_b = int(cols_b[0]) if len(cols_b) else cfg.width
+    tl, tr, bl, br = settings.modes()
+    rects = [
+        (int(tl), 0, y_split, 0, x_split_t),
+        (int(tr), 0, y_split, x_split_t, cfg.width),
+        (int(bl), y_split, cfg.height, 0, x_split_b),
+        (int(br), y_split, cfg.height, x_split_b, cfg.width),
+    ]
+    return tuple((m, (y0, y1, x0, x1)) for m, y0, y1, x0, x1 in rects
+                 if y1 > y0 and x1 > x0)
+
+
+def _rect_pixels(y0, y1, x0, x1, width, device):
+    """Raster pixel ids int64[(y1-y0)*(x1-x0)] of a rectangle, row-major."""
+    ys = torch.arange(y0, y1, dtype=torch.int64, device=device)
+    xs = torch.arange(x0, x1, dtype=torch.int64, device=device)
+    return (xs[None, :] + ys[:, None] * width).reshape(-1)
+
+
 def render_sample_fast_chw(scene, camera, settings: RenderSettings,
                            cfg: FilmConfig, frame, tracer=None, cam_params=None):
-    """One frame's sample image f32[3,H,W] through the whole-path tracer:
-    camera rays are made inside the trace and the film is its only
-    ray-sized output.  ``tracer`` is a ``PathTracer`` already built for
-    ``scene`` and ``cam_params`` the ``camera_params`` vector of
-    ``camera`` and ``cfg`` (each built here when None)."""
+    """One frame's sample image f32[3,H,W] through the kernels
+    (``_fast_chw_jit``, minus the TPU block layouts); settings or scenes
+    outside their scope (``_megakernel_eligible``) take the plain path.
+    ``tracer`` is a ``PathTracer`` already built for ``scene`` and
+    ``cam_params`` the ``camera_params`` vector of ``camera`` and ``cfg``
+    (each built here when None).  A split-screen frame runs each
+    quadrant's kernel on exactly its own pixels (the RNG keys by global
+    pixel id, so values match the plain path's evaluate-and-select) and
+    writes the quadrant into its rectangle of the film."""
     from .ops.pathkernel import PathTracer, camera_params
 
-    _single_mode(settings)
+    if not _megakernel_eligible(scene, settings):
+        return render_sample_chw(scene, camera, settings, cfg, frame)
     pt = tracer if tracer is not None else PathTracer(scene)
     if cam_params is None:
         cam_params = camera_params(camera, cfg)
-    n = cfg.num_pixels
-    acc = None
-    for i in range(settings.aa):
-        salt0 = i * AA_STRIDE
-        out = pt(n, None, None, frame, salt_base=salt0 + _INTEGRATOR_SITE,
-                 max_bounces=settings.max_bounces, style=settings.style,
-                 gen_rays=True, cam_params=cam_params, cam_mode=camera.mode,
-                 jitter_salt=salt0 + _JITTER_SITE)
-        acc = out if acc is None else acc + out
-    if settings.aa > 1:
-        acc = acc * (1.0 / settings.aa)
-    return acc.reshape(3, cfg.height, cfg.width)
+    modes = set(settings.modes())
 
+    def sample(pixel, mode):
+        acc = None
+        for i in range(settings.aa):
+            out = _trace_mode_kernel(pt, camera, settings, cam_params, pixel,
+                                     frame, i * AA_STRIDE, mode)
+            acc = out if acc is None else acc + out
+        if settings.aa > 1:
+            acc = acc * (1.0 / settings.aa)
+        return acc
 
-def _megakernel_eligible(scene, settings: RenderSettings) -> bool:
-    """Whether the whole-path tracer and its pullback serve this scene and
-    settings (``render.py:119``): pure Kajiya on every quadrant and a
-    scene without a BVH of at most 1,024 triangles.  No platform check:
-    the tracer picks the kernel or its plain version by the device."""
-    from .ops.pathkernel import MAX_BWD_TRIANGLES
-
-    if set(settings.modes()) != {KAJIYA}:
-        return False
-    return scene.bvh is None and scene.num_triangles <= MAX_BWD_TRIANGLES
+    if len(modes) == 1:
+        (mode,) = modes
+        return sample(cfg.num_pixels, mode).reshape(3, cfg.height, cfg.width)
+    out = torch.empty((3, cfg.height, cfg.width), dtype=torch.float32,
+                      device=scene.device)
+    for m, (y0, y1, x0, x1) in _split_partition(cfg, settings):
+        sub = _rect_pixels(y0, y1, x0, x1, cfg.width, scene.device)
+        out[:, y0:y1, x0:x1] = sample(sub, m).reshape(3, y1 - y0, x1 - x0)
+    return out
 
 
 def render_frame(scene, camera, settings: RenderSettings, cfg: FilmConfig,
@@ -132,8 +226,8 @@ def render_frame(scene, camera, settings: RenderSettings, cfg: FilmConfig,
                  tracer=None, cam_params=None):
     """Sample + temporal EMA; returns (new_film, image f32[3,H,W]).
 
-    ``fast=True`` (display) takes the whole-path tracer, ``fast=False`` the
-    plain integrator path."""
+    ``fast=True`` (display) takes the kernels, ``fast=False`` the plain
+    integrator path."""
     frame = 0 if dirty else int(film.frame)
     if fast:
         sample = render_sample_fast_chw(scene, camera, settings, cfg, frame,

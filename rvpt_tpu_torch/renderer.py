@@ -3,8 +3,9 @@
 Owns the scene, camera, settings and the temporal film; resets
 accumulation on any camera or settings change (rvpt.cpp:21-29, 102-111);
 keeps up to ``frames_in_flight - 1`` frames outstanding on the card
-(rvpt.h:25); reports frame statistics.  Frames go through the whole-path
-tracer, built once per scene.
+(rvpt.h:25); reports frame statistics.  Frames of any integrator, or of
+the 4-way split-screen, go through the kernels of ``ops.pathkernel``; the
+``PathTracer`` that holds their tables is built once per scene.
 """
 
 from __future__ import annotations

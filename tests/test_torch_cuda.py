@@ -1,7 +1,8 @@
-"""The CUDA kernels of rvpt_tpu_torch (K1 path_kernel, K2 bwd_kernel, B8
-closest_hit) against their plain PyTorch versions, on the card.  Every test
-here needs an NVIDIA card and skips without one.  This file imports no JAX,
-so it also runs on a machine without it:
+"""The CUDA kernels of rvpt_tpu_torch (K1 path_kernel with its Kajiya,
+Whitted and Cook forms, K2 bwd_kernel, B8 closest_hit, B3 primary_kernel,
+B4 hart_kernel) against their plain PyTorch versions, on the card.  Every
+test here needs an NVIDIA card and skips without one.  This file imports
+no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
@@ -11,7 +12,9 @@ tests/test_megakernel.py bar), its records (family, index) equal on
 cotangents, in units of g's scale, >= 99.5% within rtol 1e-4, atol 1e-6
 over all entries and over the non-zero ones, and table columns within
 rtol 1e-3, atol 1e-7 (sums over rays in another order); B8 index equal on
->= 99.9% of rays, t within rtol 1e-5 where they agree.  The kernels are
+>= 99.9% of rays, t within rtol 1e-5 where they agree; B3 (every mode) and
+K1's Whitted/Cook forms >= 99.5% of pixel channels within 1e-4, B4 >= 99%
+(the tests/test_megakernel.py bars).  The kernels are
 built with --fmad=false and round like the plain versions' unfused ops, so
 they usually agree exactly.
 """
@@ -299,8 +302,9 @@ def test_closest_hit_matches_plain(dev, bounced):
 
 
 def test_cuda_scene_never_reaches_a_plain_version(dev, monkeypatch):
-    """The paired trace, the trainer step and the plain render path on the
-    card: every kernel's launch count rises and no plain version runs."""
+    """The paired trace, the trainer step, the plain render path and every
+    integrator mode on the card, single and split-screen: every kernel's
+    launch count rises and no plain version runs."""
     from rvpt_tpu_torch.ops import intersect as tint
     from rvpt_tpu_torch.ops import intersect_pk as tipk
     from rvpt_tpu_torch.render import render_sample_chw
@@ -311,6 +315,8 @@ def test_cuda_scene_never_reaches_a_plain_version(dev, monkeypatch):
 
     monkeypatch.setattr(tpk, "trace_plain", refuse)
     monkeypatch.setattr(tpk, "bwd_plain", refuse)
+    monkeypatch.setattr(tpk, "primary_plain", refuse)
+    monkeypatch.setattr(tpk, "hart_plain", refuse)
     monkeypatch.setattr(tint, "closest_hit_triangles", refuse)
     cfg = FilmConfig(width=64, height=32)
     st = RenderSettings(max_bounces=3, style="standard")
@@ -328,3 +334,186 @@ def test_cuda_scene_never_reaches_a_plain_version(dev, monkeypatch):
     assert tpk.launch_bwd_kernel.launches == k2 + 1
     assert tipk.launch_closest_hit.launches == b8
     assert params["materials.albedo"].device.type == "cuda"
+
+    from rvpt_tpu_torch.renderer import Renderer
+
+    split = st.replace(top_left_render_mode=5, top_right_render_mode=7,
+                       bottom_left_render_mode=10, bottom_right_render_mode=8)
+    kernels = (tpk.launch_path_kernel, tpk.launch_primary_kernel,
+               tpk.launch_hart_kernel)
+    for settings in [st.replace(**dict.fromkeys(
+            ("top_left_render_mode", "top_right_render_mode",
+             "bottom_left_render_mode", "bottom_right_render_mode"), m))
+            for m in range(11)] + [split]:
+        before = [k.launches for k in kernels]
+        img = Renderer(scene, cam, settings, cfg).draw()
+        torch.cuda.synchronize()
+        assert torch.isfinite(img).all()
+        assert sum(k.launches for k in kernels) > sum(before)
+    # The plain integrators (fast=False) on the card search with B8.
+    b8 = tipk.launch_closest_hit.launches
+    render_sample_chw(scene, cam, split, cfg, 0)
+    torch.cuda.synchronize()
+    assert tipk.launch_closest_hit.launches > b8
+
+
+# ---------------------------------------------------------------------------
+# The other integrators: B3, B4, K1's Whitted/Cook forms, split-screen
+# ---------------------------------------------------------------------------
+
+
+def _tracer_and_camera(scene_name, cfg, dev):
+    scene, cam = getattr(builtin, scene_name)(aspect=cfg.aspect, device=dev)
+    return tpk.PathTracer(scene), cam, tpk.camera_params(cam, cfg)
+
+
+@pytest.mark.parametrize("mode", range(7))
+@pytest.mark.parametrize("scene_name", ["cornell_box", "sphere_plane"])
+def test_primary_kernel_matches_plain(dev, scene_name, mode):
+    cfg = FilmConfig(width=320, height=180)
+    pt, cam, cp = _tracer_and_camera(scene_name, cfg, dev)
+    n = cfg.num_pixels
+    got = tpk.launch_primary_kernel(pt.tables, pt.counts, None, n, 3, 16, mode,
+                                    4, cp, cam.mode, 0)
+    want = tpk.primary_plain(pt.tables, pt.counts,
+                             torch.arange(n, device=dev), 3, 16, mode, 4, cp,
+                             cam.mode, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    share = _share(got, want)
+    assert share >= 0.995, f"mode {mode}: only {share:.4%} of channels match"
+
+
+def test_primary_kernel_pixel_ids(dev):
+    """A split-screen rectangle's pixel ids (the AO probes key their RNG by
+    the global id)."""
+    from rvpt_tpu_torch.render import _rect_pixels
+
+    cfg = FilmConfig(width=320, height=180)
+    pt, cam, cp = _tracer_and_camera("cornell_box", cfg, dev)
+    pix = _rect_pixels(40, 130, 100, 300, cfg.width, dev)
+    got = tpk.launch_primary_kernel(pt.tables, pt.counts, pix, pix.numel(), 3,
+                                    16, 5, 4, cp, cam.mode, 0)
+    full = tpk.launch_primary_kernel(pt.tables, pt.counts, None, cfg.num_pixels,
+                                     3, 16, 5, 4, cp, cam.mode, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, full[:, pix])
+
+
+@pytest.mark.parametrize("bounces", [3, 10])
+@pytest.mark.parametrize("integ", ["whitted", "cook"])
+@pytest.mark.parametrize("scene_name", ["cornell_box", "sphere_plane"])
+def test_bounce_integ_kernel_matches_plain(dev, scene_name, integ, bounces):
+    cfg = FilmConfig(width=320, height=180)
+    pt, cam, cp = _tracer_and_camera(scene_name, cfg, dev)
+    n = cfg.num_pixels
+    kw = dict(cam_params=cp, cam_mode=cam.mode, jitter_salt=0, integ=integ)
+    for style in ("reference", "standard"):
+        got = tpk.launch_path_kernel(pt.tables, pt.counts, None, n, 4, 16,
+                                     bounces, style, **kw)
+        want = tpk.trace_plain(pt.tables, pt.counts,
+                               torch.arange(n, device=dev), 4, 16, bounces,
+                               style, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        share = _share(got, want)
+        assert share >= 0.995, f"{integ} {style}: only {share:.4%} match"
+
+
+@pytest.mark.parametrize("scene_name", ["cornell_box", "sphere_plane", "soup"])
+def test_hart_kernel_matches_plain(dev, scene_name):
+    """Cornell, the scene without triangles (32/31 everywhere, T = 0) and a
+    600-triangle soup (two staged chunks per step)."""
+    cfg = FilmConfig(width=320, height=180)
+    if scene_name == "soup":
+        scene = _soup(dev, 600)
+        cam = tcam.Camera.create(fov=90.0, aspect=cfg.aspect, device=dev)
+        pt, cp = tpk.PathTracer(scene), tpk.camera_params(cam, cfg)
+    else:
+        pt, cam, cp = _tracer_and_camera(scene_name, cfg, dev)
+    n = cfg.num_pixels
+    got = tpk.launch_hart_kernel(pt.hart_tables, pt.hart_count, None, n, 1, cp,
+                                 cam.mode, 0)
+    want = tpk.hart_plain(pt.hart_tables, pt.hart_count,
+                          torch.arange(n, device=dev), 1, cp, cam.mode, 0)
+    torch.cuda.synchronize()
+    share = _share(got, want)
+    assert share >= 0.99, f"only {share:.4%} of channels match"
+    if pt.hart_count == 0:
+        assert (got == 32.0 / 31.0).all()
+    else:
+        assert got.min() < 1.0  # some marches stopped
+
+
+@pytest.mark.parametrize("mode", [5, 7])
+def test_kernels_stage_big_tables(dev, mode):
+    """A 1,024-triangle soup: B3 (AO) and K1 (Whitted) stage their tables
+    past the 48 KB default of shared memory."""
+    from rvpt_tpu_torch.render import _trace_mode_kernel
+
+    cfg = FilmConfig(width=160, height=90)
+    cam = tcam.Camera.create(fov=90.0, aspect=cfg.aspect, device=dev)
+    pt = tpk.PathTracer(_soup(dev, tpk.MAX_BWD_TRIANGLES))
+    st = RenderSettings(max_bounces=3, style="standard")
+    args = (cam, st, tpk.camera_params(cam, cfg))
+    got = _trace_mode_kernel(pt, *args, cfg.num_pixels, 2, 0, mode)
+    cpu = tpk.PathTracer(_soup("cpu", tpk.MAX_BWD_TRIANGLES))
+    cpu_cam = tcam.Camera.create(fov=90.0, aspect=cfg.aspect, device="cpu")
+    want = _trace_mode_kernel(cpu, cpu_cam, st, tpk.camera_params(cpu_cam, cfg),
+                              cfg.num_pixels, 2, 0, mode)
+    torch.cuda.synchronize()
+    share = _share(got.cpu(), want)
+    assert share >= 0.995, f"mode {mode}: only {share:.4%} of channels match"
+
+
+@pytest.mark.parametrize("mode", [9, 5, 10])
+def test_display_draws_big_scenes_through_the_kernels(dev, mode):
+    """A 1,500-triangle scene, past the backward kernel's 1,024 but within
+    the search kernels' shared-memory staging: Renderer.draw launches its
+    mode's kernel once (K1 for Kajiya, B3 for AO, B4 for Hart) and agrees
+    with the CPU's plain version of the same frame; a scene whose tables
+    exceed the staging takes the plain integrator path."""
+    from rvpt_tpu_torch.render import _megakernel_eligible
+    from rvpt_tpu_torch.renderer import Renderer
+
+    cfg = FilmConfig(width=64, height=36)
+    quads = ("top_left_render_mode", "top_right_render_mode",
+             "bottom_left_render_mode", "bottom_right_render_mode")
+    st = RenderSettings(max_bounces=3, style="standard", **dict.fromkeys(quads, mode))
+    cam = tcam.Camera.create(fov=90.0, aspect=cfg.aspect, device=dev)
+    scene = _soup(dev, 1500)
+    kernel = {9: tpk.launch_path_kernel, 5: tpk.launch_primary_kernel,
+              10: tpk.launch_hart_kernel}[mode]
+    before = kernel.launches
+    img = Renderer(scene, cam, st, cfg).draw()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    cpu_cam = tcam.Camera.create(fov=90.0, aspect=cfg.aspect, device="cpu")
+    want = render_sample_fast_chw(_soup("cpu", 1500), cpu_cam, st, cfg, 0)
+    assert _share(img.cpu(), want) >= (0.99 if mode == 10 else 0.995)
+    assert not _megakernel_eligible(_soup(dev, 4000), st.replace(
+        **dict.fromkeys(quads, 9)))
+
+
+def test_split_screen_draw_launches_each_kernel(dev):
+    """Renderer.draw with (AO, Whitted, Hart, Kajiya) quadrants: one B3, one
+    B4 and two K1 launches per frame, and the film agrees with the CPU's
+    plain versions of the same frame."""
+    from rvpt_tpu_torch.renderer import Renderer
+
+    cfg = FilmConfig(width=64, height=32)
+    st = RenderSettings(max_bounces=4, style="standard", top_left_render_mode=5,
+                        top_right_render_mode=7, bottom_left_render_mode=10,
+                        bottom_right_render_mode=9)
+    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    r = Renderer(scene, cam, st, cfg)
+    counts = (tpk.launch_primary_kernel.launches, tpk.launch_hart_kernel.launches,
+              tpk.launch_path_kernel.launches)
+    img = r.draw()
+    r.flush()
+    assert (tpk.launch_primary_kernel.launches - counts[0],
+            tpk.launch_hart_kernel.launches - counts[1],
+            tpk.launch_path_kernel.launches - counts[2]) == (1, 1, 2)
+    cpu_scene, cpu_cam = builtin.cornell_box(aspect=cfg.aspect, device="cpu")
+    want = render_sample_fast_chw(cpu_scene, cpu_cam, st, cfg, 0)
+    assert _share(img.cpu(), want) >= 0.995
