@@ -6,9 +6,10 @@ Needs one NVIDIA card (Hopper, sm_90a) and nvcc; there is no CPU path.
 Phases, each of which raises on failure:
 
 1. device: the card, its power limit, torch/CUDA/nvcc versions;
-2. build: the five kernels (path_kernel K1, bwd_kernel K2, closest_hit B8,
-   primary_kernel B3, hart_kernel B4) from rvpt_tpu_torch/csrc, one nvcc
-   each, started together;
+2. build: the seven kernels (path_kernel K1, bwd_kernel K2, closest_hit
+   B8, primary_kernel B3, hart_kernel B4, bigmesh_kernel B5, bigmesh_hart
+   B6) from rvpt_tpu_torch/csrc, one nvcc each, started together, and the
+   native scene-ingest library (g++);
 3. kernel vs plain: the CUDA kernel against its plain PyTorch version on
    the card, Cornell box at 1920x1080 (rays passed in: 3 bounces, both
    styles, >= 99.5% of pixel channels within 1e-4; rays made in the
@@ -63,12 +64,38 @@ Phases, each of which raises on failure:
    launch counts are zeroed before it and read after it, and must show one
    B3, one B4 and two K1 launches per frame; the film is finite and not
    black and save_image writes it; then Renderer.draw x8 in each single
-   mode 0-8 and 10, each with its own zeroed counts and its ms/frame.
+   mode 0-8 and 10, each with its own zeroed counts and its ms/frame;
+14. BVH ingest: rabbit, mesh_demo(3), mesh_demo(5) and terrain_demo(225)
+   built on the card's host, with the builder that ran, the build time,
+   the node count and max_depth; validate holds for each tree;
+15. the mesh kernels against their plain versions on the card: K1's BVH
+   form on rabbit at 1024x512 x 8 bounces and B3's in modes 0-6 (AO with 4
+   probes), B5's bounce (8 bounces) and search-only instances on
+   mesh_demo(3) at 1920x1080, and on mesh_demo(5) and terrain_demo(225)
+   with the plain version on every 8th (16th) row of pixel ids (the RNG
+   keys by the global id, so the subsample is an exact check), one B6
+   march step on mesh_demo(5) (live lanes, every 8th row): >= 99.5% of
+   channels within 1e-4, B6 >= 99%; each timed with CUDA events beside its
+   bound, which counts the walks' node and triangle tests on this run's
+   data with the kernels' counting instances (count_bvh_walk,
+   count_hart_walk);
+16. this slice's main path: Renderer.draw x8 at 1920x1080, 8 bounces,
+   standard, Kajiya on mesh_demo(5) and mesh_demo(3) (8 B5 launches per
+   frame), rabbit at 1024x512 x 8 (one K1 launch per frame) and in modes
+   0-6 (one B3 launch per frame), on mesh_demo(5) each single mode 0-8 and
+   10 (Hart: 32 B6 launches per frame) and the split-screen (AO, Whitted,
+   Hart, Kajiya), terrain_demo(225) x2; every loop with zeroed counts,
+   a finite film that is not black, and its ms/frame; then the
+   rabbit_kajiya and mesh2_kajiya goldens through the kernels (printed,
+   not asserted, as phase 4).
 
 Prints the kernel record as a JSON line (launches of the main paths:
-the trainer for K1, K2 and B8, the split-screen draws for B3 and B4;
-times, bounds and errors of this run), the card's name and power limit,
-then, last, one JSON line {"ok": true, "device": {...}}.
+the trainer for K1, K2 and B8, the split-screen draws for B3 and B4, the
+rabbit draws for K1's and B3's BVH forms, the mesh_demo(3) Kajiya and
+mesh_demo(5) Hart draws for B5 and B6; times, bounds and errors of this
+run), the card's
+name and power limit, then, last, one JSON line {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -128,6 +155,14 @@ OPS_LAMBERT, OPS_END = 51, 9
 OPS_FINALIZE = {0: 11, 1: 11, 2: 20, 3: 20, 4: 33, 5: 44, 6: 49}
 OPS_PROBE = 16
 OPS_HART_TRI, OPS_HART_STEP = 92, 8
+# The BVH walk (csrc/bvh_search.cuh) per search: the reciprocal direction
+# (9); per node slab test: 6 differences, 6 products, the entry's 6 and the
+# exit's 5 min/max, the two tests (25); per triangle the metric-tensor test
+# and its (t, index) tie rule (56).  B6 per node: the box distance (6
+# differences, 6 max, 3 products, 2 sums, the test: 18); per triangle the
+# iq distance and the min (93); per live point its square root and store.
+OPS_INV, OPS_BOX, OPS_WALK_TRI = 9, 25, 56
+OPS_HBOX, OPS_HTRI, OPS_HPOINT = 18, OPS_HART_TRI + 1, 2
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): FP32
 # outside the tensor cores and HBM3 bandwidth.
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
@@ -148,6 +183,32 @@ def k1_ops(work, ops_search):
     return (work["search"] * ops_search
             + work.get("scatter", 0) * (OPS_SHADE + OPS_PCG)
             + work.get("lambert", 0) * OPS_LAMBERT + work.get("end", 0) * OPS_END)
+
+
+def walk_ops(work):
+    """Operations of the BVH walks counted in ``work`` (count_bvh_walk's
+    "box"/"tri", count_hart_walk's "hart_box"/"hart_tri")."""
+    return (work.get("box", 0) * OPS_BOX + work.get("tri", 0) * OPS_WALK_TRI
+            + work.get("hart_box", 0) * OPS_HBOX + work.get("hart_tri", 0) * OPS_HTRI)
+
+
+def walk_counter(tables, counts, nodes, work):
+    """An ``on_search`` hook for the plain versions (or a call per search):
+    counts the BVH walk's node and triangle tests on the search's rays with
+    the kernels' counting instance, into ``work["box"]`` and
+    ``work["tri"]``."""
+    import torch
+
+    from rvpt_tpu_torch.ops import pathkernel as pk
+
+    def on_search(o3, d3, live=None):
+        if live is None:
+            live = torch.ones_like(o3[0], dtype=torch.bool)
+        box, tri = pk.count_bvh_walk(tables, counts, nodes, (*o3, *d3), live)
+        work["box"] = work.get("box", 0) + box
+        work["tri"] = work.get("tri", 0) + tri
+
+    return on_search
 
 
 def share_close(a, b, rtol, atol):
@@ -742,6 +803,405 @@ def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
     return out
 
 
+def bigmesh_check(smi, dev, name, scene, cam, cfg, nb, every):
+    """Phase 15's B5 check on one mesh: one 1080p frame of ``nb`` bounce
+    launches (standard), the kernel's states against bigmesh_bounce_plain's
+    on the pixel ids of every ``every``-th row, then the search-only
+    instance on the camera rays; each timed beside its bound."""
+    import torch
+
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
+
+    bt = pk.BigMeshTracer(scene)
+    n = cfg.num_pixels
+    pixel, xs, ys = _pixel_grid(cfg, dev)
+    ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, 1, 0)
+    start = pk._start_state(bt._rays(ray.origin, ray.direction), "kajiya")
+    states = [torch.stack([*start[:15], start[15].to(torch.float32)])]
+    for b in range(nb):
+        states.append(pk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, pixel,
+                                               states[-1], 1, 16 + 4 * b))
+    sub = torch.nonzero(ys % every == 0).squeeze(1)
+    plain = states[0][:, sub]
+    worst = 1.0
+    err = 0.0
+    for b in range(nb):
+        plain = pk.bigmesh_bounce_plain(bt.tables, bt.counts, pixel[sub], plain, 1,
+                                        16 + 4 * b)
+        close, e, _ = equal_share(states[b + 1][:, sub], plain)
+        worst, err = min(worst, close), max(err, e)
+    torch.cuda.synchronize()
+    print(f"[B5-vs-plain] {name} ({scene.num_triangles} triangles, {bt.nodes.shape[0]} "
+          f"nodes), {cfg.width}x{cfg.height} x {nb} bounces: bounce states on "
+          f"{sub.numel()} pixel ids (every {every}th row) within 1e-4 on "
+          f"{worst:.6f} of entries at worst (bar 0.995), max |err| {err:.3g}")
+    check(worst >= 0.995, f"B5 on {name} disagrees with plain: {worst:.6f}")
+    check(bool(torch.isfinite(states[-1]).all().item()), f"B5 state on {name} not finite")
+
+    # Search-only on the camera rays.
+    packed = torch.stack([*states[0][:6], states[0][15]]).contiguous()
+    w, i = pk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, None, packed, 0,
+                                    0, search_only=True)
+    ww, wi = pk.bigmesh_search_plain(bt.tables, bt.counts,
+                                     tuple(c[sub] for c in states[0][:6]),
+                                     states[0][15][sub] > 0)
+    torch.cuda.synchronize()
+    s_close, s_err, _ = equal_share(w[:, sub], ww)
+    idx_eq = (i[:, sub] == wi).all(dim=0).float().mean().item()
+    print(f"[B5-vs-plain] {name} search-only, camera rays: winner within 1e-4 on "
+          f"{s_close:.6f}, (family, index) equal on {idx_eq:.6f} (bars 0.995), max "
+          f"|err| {s_err:.3g}; {(i[0] >= 0).float().mean().item():.4f} of rays hit")
+    check(s_close >= 0.995 and idx_eq >= 0.995, f"B5 search on {name} disagrees")
+
+    # Times: each bounce launch on its own input state, summed per frame.
+    iters = 10 if scene.num_triangles < 5000 else 4
+    frame_ms = sum(cuda_ms(lambda st=st, b=b: pk.launch_bigmesh_kernel(
+        bt.tables, bt.counts, bt.nodes, pixel, st, 1, 16 + 4 * b), iters)
+        for b, st in enumerate(states[:-1]))
+    search_ms = cuda_ms(lambda: pk.launch_bigmesh_kernel(
+        bt.tables, bt.counts, bt.nodes, None, packed, 0, 0, search_only=True), iters)
+
+    def plain_frame():
+        st = states[0][:, sub]
+        for b in range(nb):
+            st = pk.bigmesh_bounce_plain(bt.tables, bt.counts, pixel[sub], st, 1,
+                                         16 + 4 * b)
+        return st
+
+    plain_ms = cuda_ms(plain_frame, 1)
+    # The bound counts this frame's work: per bounce the live lanes' seed
+    # search and walk (the counting instance on the kernel's own input
+    # state), the shading of each hit that scatters and the end of each
+    # that does not; per launch the state in and out (128 B) of every lane
+    # and the tables and nodes once, and the pixel id (8 B) of each lane
+    # that scatters, the only lanes that read it.
+    t_, s_, p_, _ = bt.counts
+    seed = s_ * OPS_SPH + p_ * OPS_PLN + OPS_INV
+    work = {}
+    count = walk_counter(bt.tables, bt.counts, bt.nodes, work)
+    ops = 0
+    scattered = 0
+    for b in range(nb):
+        live = states[b][15] > 0
+        count(states[b][:3].unbind(0), states[b][3:6].unbind(0), live)
+        n_live = int(live.sum().item())
+        scatter = int((states[b + 1][15] > 0).sum().item())
+        scattered += scatter
+        ops += n_live * seed + scatter * (OPS_SHADE + OPS_PCG) + (n_live - scatter) * OPS_END
+    ops += walk_ops(work)
+    table_bytes = 4 * (bt.tables.numel() + bt.nodes.numel())
+    bnd, by = bound(nb * (n * 128 + table_bytes) + 8 * scattered, ops)
+    live0 = int(states[0][15].sum().item())
+    s_work = {}
+    walk_counter(bt.tables, bt.counts, bt.nodes, s_work)(
+        states[0][:3].unbind(0), states[0][3:6].unbind(0), states[0][15] > 0)
+    s_bnd, s_by = bound(n * 56 + table_bytes, live0 * seed + walk_ops(s_work))
+    print(f"[time] B5 {name}: {frame_ms:.4f} ms per {cfg.width}x{cfg.height} frame of "
+          f"{nb} bounce launches, plain {plain_ms:.4f} ms on its {sub.numel()} rays; "
+          f"bound {bnd:.4f} ms by {by} (walk {work}), kernel at {bnd / frame_ms:.1%} of "
+          f"it; search-only {search_ms:.4f} ms, bound {s_bnd:.4f} ms by {s_by} "
+          f"({s_work}), at {s_bnd / search_ms:.1%} [{smi}]")
+    return dict(max_abs_err=max(err, s_err), within_1e_4=worst, ms=frame_ms,
+                plain_ms=plain_ms, plain_rays=sub.numel(), bound_ms=bnd, bound_by=by,
+                search_ms=search_ms, search_bound_ms=s_bnd, search_bound_by=s_by,
+                walk=work)
+
+
+def mesh_phases(smi, dev, out_dir, here):
+    """Phases 14-16 (the BVH mesh display path); returns the kernels'
+    numbers and the main path's launches."""
+    import numpy as np
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig, RenderSettings
+    from rvpt_tpu_torch.models.integrators import INTEGRATOR_NAMES
+    from rvpt_tpu_torch.ops import intersect_pk as ipk
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops.film import chw_to_hwc, to_srgb_u8
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
+    from rvpt_tpu_torch.renderer import Renderer
+    from rvpt_tpu_torch.scene import builtin
+    from rvpt_tpu_torch.scene.bvh import triangle_bounds, validate
+    from rvpt_tpu_torch.utils.image import read_png
+
+    names = {v: k for k, v in INTEGRATOR_NAMES.items()}
+    quads = ("top_left_render_mode", "top_right_render_mode",
+             "bottom_left_render_mode", "bottom_right_render_mode")
+    hd = FilmConfig(1920, 1080)
+    rcfg = FilmConfig(1024, 512)
+    out = {}
+
+    # ---- 14. BVH ingest
+    makers = {
+        "rabbit": lambda: builtin.rabbit(aspect=rcfg.aspect, device=dev),
+        "mesh_demo(3)": lambda: builtin.mesh_demo(3, aspect=hd.aspect, device=dev),
+        "mesh_demo(5)": lambda: builtin.mesh_demo(5, aspect=hd.aspect, device=dev),
+        "terrain_demo(225)": lambda: builtin.terrain_demo(225, aspect=hd.aspect,
+                                                          device=dev),
+    }
+    scenes = {}
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        scene, cam = make()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        bvh = scene.bvh
+        v = [x.cpu().numpy() for x in (scene.tri_v0, scene.tri_v1, scene.tri_v2)]
+        _, bmin, bmax = triangle_bounds(*v)
+        t0 = time.perf_counter()
+        validate(bvh.host_view(), bmin, bmax)
+        vsecs = time.perf_counter() - t0
+        print(f"[bvh] {name}: {scene.num_triangles} triangles, builder {bvh.builder}, "
+              f"scene and BVH built in {secs:.3f} s, {bvh.num_nodes} nodes, max_depth "
+              f"{bvh.depth} (stack {pk.BVH_STACK}), largest leaf {bvh.max_leaf}; "
+              f"validate passed in {vsecs:.2f} s; big mesh: {pk.is_bigmesh(scene)}")
+        check(bvh.depth < pk.BVH_STACK, f"{name}: BVH deeper than the walk's stack")
+        scenes[name] = (scene, cam)
+
+    # ---- 15. the mesh kernels against their plain versions on the card
+    rscene, rcam = scenes["rabbit"]
+    rpt = pk.PathTracer(rscene)
+    check(rpt.bvh_form, "rabbit does not take the BVH form")
+    rn = rcfg.num_pixels
+    rpix = torch.arange(rn, device=dev)
+    rcp = pk.camera_params(rcam, rcfg)
+    t_, s_, p_, _ = rpt.counts
+    seed = s_ * OPS_SPH + p_ * OPS_PLN + OPS_INV
+    table_bytes = 4 * (rpt.tables.numel() + rpt.nodes.numel())
+    kw = dict(cam_params=rcp, cam_mode=rcam.mode, jitter_salt=0)
+
+    def k1b():
+        return pk.launch_path_kernel(rpt.tables, rpt.counts, None, rn, 1, 16, 8,
+                                     "reference", nodes=rpt.nodes, **kw)
+
+    def k1b_plain(work=None):
+        return pk.trace_plain(rpt.tables, rpt.counts, rpix, 1, 16, 8, "reference",
+                              tris_last=True, work=work, on_search=None if work is None
+                              else walk_counter(rpt.tables, rpt.counts, rpt.nodes, work),
+                              **kw)
+
+    work = {}
+    got, want = k1b(), k1b_plain(work)
+    torch.cuda.synchronize()
+    close, err, same = equal_share(got, want)
+    ms = cuda_ms(k1b, 20)
+    plain_ms = cuda_ms(k1b_plain, 1)
+    bnd, by = bound(12 * rn + table_bytes,
+                    k1_ops(work, seed) + walk_ops(work) + rn * OPS_CAMERA)
+    print(f"[K1-vs-plain] BVH form, rabbit {rcfg.width}x{rcfg.height} x 8 bounces, Kajiya: "
+          f"{close:.6f} of channels within 1e-4 (bar 0.995), max |err| {err:.3g}, "
+          f"bit-identical: {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bnd:.4f} ms by {by} (work {work}), kernel at {bnd / ms:.1%} of it [{smi}]")
+    check(bool(torch.isfinite(got).all().item()), "K1 BVH form not finite")
+    check(close >= 0.995, f"K1 BVH form disagrees with plain: {close:.6f}")
+    out["k1_bvh"] = dict(max_abs_err=err, within_1e_4=close, bit_identical=same,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+
+    out["b3_bvh"] = {}
+    hits = None
+    for mode in range(7):
+        nrays = 4 if mode == 5 else 1
+
+        def b3(mode=mode, nrays=nrays):
+            return pk.launch_primary_kernel(rpt.tables, rpt.counts, None, rn, 1, 16,
+                                            mode, nrays, rcp, rcam.mode, 0,
+                                            nodes=rpt.nodes)
+
+        def b3_plain(mode=mode, nrays=nrays, work=None):
+            return pk.primary_plain(rpt.tables, rpt.counts, rpix, 1, 16, mode, nrays,
+                                    rcp, rcam.mode, 0, tris_last=True,
+                                    on_search=None if work is None else walk_counter(
+                                        rpt.tables, rpt.counts, rpt.nodes, work))
+
+        work = {}
+        got, want = b3(), b3_plain(work=work)
+        torch.cuda.synchronize()
+        close, err, same = equal_share(got, want)
+        if mode == 0:
+            hits = int(want[0].sum().item())
+        ms = cuda_ms(b3, 20)
+        plain_ms = cuda_ms(b3_plain, 1)
+        searches = rn + (hits * nrays if mode == 5 else hits if mode == 6 else 0)
+        ops = (rn * (OPS_CAMERA + OPS_FINALIZE[mode]) + searches * seed
+               + walk_ops(work))
+        if mode == 5:
+            ops += hits * nrays * (OPS_PCG + OPS_PROBE)
+        bnd, by = bound(12 * rn + table_bytes, ops)
+        print(f"[B3-vs-plain] BVH form, rabbit, mode {mode} ({names[mode]}"
+              f"{', 4 probes' if mode == 5 else ''}): {close:.6f} of channels within "
+              f"1e-4 (bar 0.995), max |err| {err:.3g}, bit-identical: {same}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms by {by} "
+              f"(walk {work}), kernel at {bnd / ms:.1%} of it [{smi}]")
+        check(bool(torch.isfinite(got).all().item()), f"B3 BVH mode {mode} not finite")
+        check(close >= 0.995, f"B3 BVH mode {mode} disagrees with plain: {close:.6f}")
+        out["b3_bvh"][names[mode]] = dict(max_abs_err=err, within_1e_4=close,
+                                          bit_identical=same, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bnd, bound_by=by)
+
+    out["b5"] = {}
+    for name, every in (("mesh_demo(3)", 1), ("mesh_demo(5)", 8),
+                        ("terrain_demo(225)", 16)):
+        scene, cam = scenes[name]
+        out["b5"][name] = bigmesh_check(smi, dev, name, scene, cam, hd, 8, every)
+
+    # One B6 step on mesh_demo(5): the march's points after 3 steps.
+    scene, cam = scenes["mesh_demo(5)"]
+    bt = pk.BigMeshTracer(scene)
+    pixel, xs, ys = _pixel_grid(hd, dev)
+    ray = jittered_camera_rays(cam, hd, pixel, xs, ys, 1, 0)
+    d = ray.direction.T.contiguous()
+    p = ray.origin.T.contiguous()
+    done = torch.zeros(hd.num_pixels, dtype=torch.bool, device=dev)
+    for _ in range(3):
+        dist = bt.distance(p, ~done)
+        stop = dist < pk.MARCH_EPS
+        p = torch.where(~done & ~stop, p + dist * d, p)
+        done = done | stop
+    p = p.contiguous()
+    live = (~done).to(torch.float32)
+
+    def b6():
+        return pk.launch_bigmesh_hart(bt.hart_tables, bt.hart_count, bt.nodes, p, live)
+
+    sub = torch.nonzero((ys % 8 == 0) & ~done).squeeze(1)
+    got = b6()
+    want = pk.bigmesh_distance_plain(bt.hart_tables, bt.hart_count, p[:, sub],
+                                     torch.ones_like(sub, dtype=torch.bool))
+    torch.cuda.synchronize()
+    close, err, same = equal_share(got[sub], want)
+    ms = cuda_ms(b6, 20)
+    plain_ms = cuda_ms(lambda: pk.bigmesh_distance_plain(
+        bt.hart_tables, bt.hart_count, p[:, sub], torch.ones_like(sub, dtype=torch.bool)), 1)
+    box, tri = pk.count_hart_walk(bt.hart_tables, bt.hart_count, bt.nodes, p, ~done)
+    work = {"hart_box": box, "hart_tri": tri}
+    n_live = int((~done).sum().item())
+    bnd, by = bound(hd.num_pixels * 20 + 4 * (bt.hart_tables.numel() + bt.nodes.numel()),
+                    walk_ops(work) + n_live * OPS_HPOINT)
+    print(f"[B6-vs-plain] mesh_demo(5), march step 4, {hd.width}x{hd.height}: "
+          f"{n_live} live points, {sub.numel()} of them checked (every 8th row): "
+          f"{close:.6f} within 1e-4 (bar 0.99), max |err| {err:.3g}, bit-identical: "
+          f"{same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on the {sub.numel()}, "
+          f"bound {bnd:.4f} ms by {by} ({work}), kernel at {bnd / ms:.1%} of it [{smi}]")
+    check(close >= 0.99, f"B6 disagrees with plain: {close:.6f}")
+    check(bool(torch.isinf(got[done]).all().item()), "B6 wrote a distance on a dead lane")
+    out["b6"] = dict(max_abs_err=err, within_1e_4=close, bit_identical=same, ms=ms,
+                     plain_ms=plain_ms, plain_points=sub.numel(), bound_ms=bnd,
+                     bound_by=by)
+    del bt, p, d, done, live, ray, pixel, xs, ys
+
+    # ---- 16. the slice: Renderer.draw on the mesh scenes
+    kernels = {"path_kernel": pk.launch_path_kernel,
+               "bwd_kernel": pk.launch_bwd_kernel,
+               "closest_hit": ipk.launch_closest_hit,
+               "primary_kernel": pk.launch_primary_kernel,
+               "hart_kernel": pk.launch_hart_kernel,
+               "bigmesh_kernel": pk.launch_bigmesh_kernel,
+               "bigmesh_hart": pk.launch_bigmesh_hart}
+
+    def draw_loop(label, scene, cam, cfg, st, frames, per_frame, png=None):
+        r = Renderer(scene, cam, st, cfg)
+        r.draw()  # the first draw builds the camera vector and the kernels' state
+        r.flush()
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            r.draw()
+        r.flush()
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) / frames * 1e3
+        ran = {name: c for name, k in kernels.items() if (c := k.launches)}
+        want = {k: v * frames for k, v in per_frame.items()}
+        check(ran == want, f"{label}: {frames} draws launched {ran}, expected {want}")
+        accum = r.film.accum
+        check(bool(torch.isfinite(accum).all().item()), f"{label}: film not finite")
+        # Not black: the rabbit covers about 2% of its film, so a debug view
+        # of it has a small mean; a lit pixel is enough.
+        check(accum.max().item() > 0.01, f"{label}: film is black")
+        saved = ""
+        if png:
+            path = os.path.join(out_dir, png)
+            r.save_image(path)
+            check(read_png(path).shape == (cfg.height, cfg.width, 3),
+                  f"{label}: saved image has the wrong shape")
+            saved = f"; saved {path}"
+        print(f"[mesh-slice] {label}, {cfg.width}x{cfg.height}, {st.max_bounces} bounces, "
+              f"{st.style}: Renderer.draw x{frames} {frame_ms:.4f} ms/frame; launches "
+              f"{ran}; film mean {accum.mean().item():.6f}{saved} [{smi}]")
+        return frame_ms, ran
+
+    hd8 = RenderSettings(max_bounces=8, style="standard")
+    launches = {}
+    out["draw_ms"] = {}
+    for name in ("mesh_demo(5)", "mesh_demo(3)"):
+        scene, cam = scenes[name]
+        png = f"torch_{name.replace('(', '').replace(')', '')}_1080p.png"
+        ms, ran = draw_loop(f"{name} Kajiya", scene, cam, hd, hd8, 8,
+                            {"bigmesh_kernel": 8}, png)
+        out["draw_ms"][f"{name} kajiya"] = ms
+        if name == "mesh_demo(3)":
+            launches["bigmesh_kernel"] = ran["bigmesh_kernel"]
+    rst = RenderSettings(max_bounces=8)
+    ms, ran = draw_loop("rabbit Kajiya", rscene, rcam, rcfg, rst, 8,
+                        {"path_kernel": 1}, "torch_rabbit_1024x512.png")
+    out["draw_ms"]["rabbit kajiya"] = ms
+    launches["path_kernel_bvh"] = ran["path_kernel"]
+    launches["primary_kernel_bvh"] = 0
+    for mode in range(7):
+        st = rst.replace(**dict.fromkeys(quads, mode))
+        ms, ran = draw_loop(f"rabbit mode {mode} ({names[mode]})", rscene, rcam, rcfg,
+                            st, 2, {"primary_kernel": 1})
+        launches["primary_kernel_bvh"] += ran["primary_kernel"]
+        out["draw_ms"][f"rabbit {names[mode]}"] = ms
+    # Launches per frame on a big mesh at 8 bounces: a search per debug
+    # frame, plus AO's 8 probes or Appel's shadow; Whitted a search and a
+    # shadow search per bounce, Cook a search per bounce and the tail;
+    # Kajiya a bounce launch per bounce; Hart a distance launch per step.
+    per_mode = {0: 1, 1: 1, 2: 1, 3: 1, 4: 1, 5: 9, 6: 2, 7: 16, 8: 9, 9: 8}
+    scene, cam = scenes["mesh_demo(5)"]
+    for mode in (0, 1, 2, 3, 4, 5, 6, 7, 8, 10):
+        st = hd8.replace(**dict.fromkeys(quads, mode))
+        per = ({"bigmesh_hart": pk.MARCH_ITER} if mode == 10
+               else {"bigmesh_kernel": per_mode[mode]})
+        ms, ran = draw_loop(f"mesh_demo(5) mode {mode} ({names[mode]})", scene, cam, hd,
+                            st, 2, per)
+        out["draw_ms"][f"mesh_demo(5) {names[mode]}"] = ms
+        if mode == 10:
+            launches["bigmesh_hart"] = ran["bigmesh_hart"]
+    split = hd8.replace(**dict(zip(quads, (5, 7, 10, 9))))
+    ms, _ = draw_loop("mesh_demo(5) split-screen (AO, Whitted, Hart, Kajiya)", scene,
+                      cam, hd, split, 2,
+                      {"bigmesh_kernel": per_mode[5] + per_mode[7] + per_mode[9],
+                       "bigmesh_hart": pk.MARCH_ITER},
+                      "torch_mesh_demo5_split_1080p.png")
+    out["draw_ms"]["mesh_demo(5) split"] = ms
+    scene, cam = scenes["terrain_demo(225)"]
+    ms, _ = draw_loop("terrain_demo(225) Kajiya", scene, cam, hd, hd8, 2,
+                      {"bigmesh_kernel": 8}, "torch_terrain_1080p.png")
+    out["draw_ms"]["terrain_demo(225) kajiya"] = ms
+    out["launches"] = launches
+
+    for gname, make, size in (
+            ("rabbit_kajiya", lambda c: builtin.rabbit(aspect=c.aspect, device=dev),
+             (256, 128)),
+            ("mesh2_kajiya", lambda c: builtin.mesh_demo(2, aspect=c.aspect, device=dev),
+             (128, 128))):
+        gcfg = FilmConfig(*size)
+        gscene, gcam = make(gcfg)
+        gr = Renderer(gscene, gcam, RenderSettings(max_bounces=8), gcfg)
+        for _ in range(2):
+            gr.draw()
+        gr.flush()
+        img = to_srgb_u8(chw_to_hwc(gr.film.accum)).cpu().numpy().astype(int)
+        golden = read_png(os.path.join(here, "tests", "goldens", f"{gname}.png"))
+        off = (np.abs(img - golden.astype(int)) > 2).mean()
+        print(f"[goldens] {gname} via the kernels: {off:.4%} of subpixels more than "
+              f"2 u8 steps off (recorded, not asserted; the CPU bar is 0.2%)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -775,18 +1235,23 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # ---- 2. build: one nvcc per source, all started together
-    kernels = ("path_kernel", "bwd_kernel", "closest_hit", "primary_kernel",
-               "hart_kernel")
     t0 = time.perf_counter()
-    build.build_all(kernels)
-    for name in kernels:
+    build.build_all(build.KERNELS)
+    for name in build.KERNELS:
         build.load_library(name)
         info = build.BUILD_INFO[name]
         print(f"[build] {name} built in {info['seconds']:.2f} s: {info['path']}")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[build] ptxas {name}: {line.strip()}")
-    print(f"[build] all five in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] all {len(build.KERNELS)} in {time.perf_counter() - t0:.2f} s")
+    from rvpt_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native_ok = native.get_lib() is not None
+    print(f"[build] native scene-ingest library (g++): "
+          f"{native.BUILD['path'] if native_ok else 'FAILED: ' + str(native.BUILD['error'])} "
+          f"({time.perf_counter() - t0:.2f} s); the NumPy builder serves if it failed")
 
     # ---- 3. kernel vs plain on the card
     cfg = FilmConfig(1920, 1080)
@@ -901,6 +1366,7 @@ def main() -> int:
     train = training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays)
     integ = integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here)
     split = integ["split"]["launches"]
+    mesh = mesh_phases(smi, dev, out_dir, here)
 
     kernels = [{
         "name": "path_kernel", "route": "cuda",
@@ -943,6 +1409,34 @@ def main() -> int:
         "source": "rvpt_tpu_torch/csrc/hart_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:3564",
         "launches": split["hart_kernel"], **integ["hart"],
+        "library_ms": None,
+    }, {
+        "name": "path_kernel_bvh", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:311",
+        "launches": mesh["launches"]["path_kernel_bvh"], **mesh["k1_bvh"],
+        "library_ms": None,
+    }, {
+        "name": "primary_kernel_bvh", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/primary_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:3390",
+        "launches": mesh["launches"]["primary_kernel_bvh"],
+        # The headline numbers are AO's, as for the row form.
+        **mesh["b3_bvh"]["ao"], "library_ms": None, "modes": mesh["b3_bvh"],
+    }, {
+        "name": "bigmesh_kernel", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/bigmesh_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:2366",
+        "launches": mesh["launches"]["bigmesh_kernel"],
+        # ms, plain_ms and bound_ms are for one 1080p frame of 8 bounce
+        # launches on mesh_demo(3), where the plain version runs on every
+        # ray; the other meshes and the search-only instance beside them.
+        **mesh["b5"]["mesh_demo(3)"], "library_ms": None, "b5": mesh["b5"],
+    }, {
+        "name": "bigmesh_hart", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/bigmesh_hart.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:2820",
+        "launches": mesh["launches"]["bigmesh_hart"], **mesh["b6"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

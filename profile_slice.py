@@ -3,9 +3,13 @@ training step.
 
     python3 profile_slice.py [--fwd-bwd] [--width 1920] [--height 1080]
                              [--bounces 4] [--frames 20] [--repeats 3]
+                             [--scene cornell|rabbit|mesh3|mesh5|terrain]
+                             [--mode 9]
 
-Default mode drives ``Renderer.draw`` of the Cornell box (style standard)
-through the CUDA path kernel.  ``--fwd-bwd`` drives the headline training
+Default mode drives ``Renderer.draw`` (style standard) of ``--scene`` (the
+Cornell box by default; rabbit, mesh_demo(3), mesh_demo(5) or
+terrain_demo(225)) in integrator ``--mode`` (Kajiya by default) through
+the kernels.  ``--fwd-bwd`` drives the headline training
 step instead (bench.py:63-90 on the port, chip_smoke.py phase 9): value and
 gradient of the mean image over ``trainable_params`` (albedo, emission)
 through ``make_fast_kajiya``, i.e. camera rays, K1 with records, K2 and its
@@ -14,7 +18,8 @@ table sum, and the autograd glue.  Prints:
 * wall ms per frame or step without the profiler, timed with CUDA events
   over ``--frames`` iterations, ``--repeats`` times;
 * from one torch.profiler trace of ``--frames`` iterations: device time
-  per iteration, split by kernel (display: the path kernel and the rest;
+  per iteration, split by kernel (display: each kernel of the route and
+  the rest;
   fwd+bwd: K1 with records, K2, K2's table sum and the glue), device
   operations and host-to-device copies per iteration by name, the device's
   idle share of the traced window (1 - union of device intervals /
@@ -47,18 +52,35 @@ def _union_us(intervals):
     return total
 
 
+SCENES = {
+    "cornell": lambda b, aspect, dev: b.cornell_box(aspect=aspect, device=dev),
+    "rabbit": lambda b, aspect, dev: b.rabbit(aspect=aspect, device=dev),
+    "mesh3": lambda b, aspect, dev: b.mesh_demo(3, aspect=aspect, device=dev),
+    "mesh5": lambda b, aspect, dev: b.mesh_demo(5, aspect=aspect, device=dev),
+    "terrain": lambda b, aspect, dev: b.terrain_demo(225, aspect=aspect, device=dev),
+}
+
+
 def _display(a, dev):
-    """One display frame: ``Renderer.draw``; parts by kernel name."""
+    """One display frame: ``Renderer.draw``; parts by kernel name (the
+    first part whose key an event's name holds takes it)."""
     from rvpt_tpu_torch import FilmConfig, RenderSettings
     from rvpt_tpu_torch.renderer import Renderer
     from rvpt_tpu_torch.scene import builtin
 
     cfg = FilmConfig(a.width, a.height)
-    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
-    r = Renderer(scene, cam, RenderSettings(max_bounces=a.bounces, style="standard"),
-                 cfg)
-    parts = {"path_kernel": ("path_kernel",)}
-    return r.draw, r.flush, parts, "profile_slice_trace.json"
+    scene, cam = SCENES[a.scene](builtin, cfg.aspect, dev)
+    quads = ("top_left_render_mode", "top_right_render_mode",
+             "bottom_left_render_mode", "bottom_right_render_mode")
+    st = RenderSettings(max_bounces=a.bounces, style="standard",
+                        **dict.fromkeys(quads, a.mode))
+    r = Renderer(scene, cam, st, cfg)
+    parts = {"path_kernel": ("path_kernel",), "primary_kernel": ("primary_kernel",),
+             "bigmesh_hart": ("bigmesh_hart",), "hart_kernel": ("hart_kernel",),
+             "bigmesh_kernel": ("bigmesh_kernel",)}
+    name = ("profile_slice_trace.json" if a.scene == "cornell" and a.mode == 9
+            else f"profile_slice_{a.scene}_mode{a.mode}_trace.json")
+    return r.draw, r.flush, parts, name
 
 
 def _fwd_bwd(a, dev):
@@ -105,6 +127,10 @@ def main() -> int:
     ap.add_argument("--bounces", type=int, default=4)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--scene", choices=sorted(SCENES), default="cornell",
+                    help="the display frame's scene")
+    ap.add_argument("--mode", type=int, default=9,
+                    help="the display frame's integrator mode (9: Kajiya)")
     a = ap.parse_args()
 
     import torch
@@ -137,7 +163,7 @@ def main() -> int:
         flush()
         stop.synchronize()
         wall_ms.append(start.elapsed_time(stop) / a.frames)
-    print(f"[wall] {mode} {a.width}x{a.height} x {a.bounces} bounces: "
+    print(f"[wall] {mode} {a.scene} mode {a.mode} {a.width}x{a.height} x {a.bounces} bounces: "
           f"{[round(v, 4) for v in wall_ms]} ms/{unit} over {a.repeats} x {a.frames} "
           f"iterations, unprofiled [{smi}]")
 
@@ -166,18 +192,21 @@ def main() -> int:
     span_end = max(w1, max(e["ts"] + e["dur"] for e in dev_ev))
     dev_us = sum(e["dur"] for e in dev_ev)
     per = a.frames
-    part_us = {}
-    part_n = {}
-    for part, keys in parts.items():
-        ev = [e for e in dev_ev if any(k in e["name"] for k in keys)]
-        part_us[part] = sum(e["dur"] for e in ev)
-        part_n[part] = len(ev)
+    part_us = dict.fromkeys(parts, 0.0)
+    part_n = dict.fromkeys(parts, 0)
+    for e in dev_ev:
+        part = next((p for p, keys in parts.items()
+                     if any(k in e["name"] for k in keys)), None)
+        if part is not None:
+            part_us[part] += e["dur"]
+            part_n[part] += 1
     glue_us = dev_us - sum(part_us.values())
     by_name = Counter(e["name"] for e in dev_ev)
     h2d = sum(1 for e in dev_ev if "HtoD" in e["name"])
 
     rec = {
         "mode": mode, "shape": [a.width, a.height, a.bounces], "iterations": per,
+        "scene": a.scene, "integrator_mode": a.mode,
         "card": smi, f"wall_ms_per_{unit}": wall_ms,
         f"traced_window_ms_per_{unit}": (span_end - w0) / 1e3 / per,
         f"device_ms_per_{unit}": dev_us / 1e3 / per,
@@ -197,7 +226,8 @@ def main() -> int:
         "device_ops": {k: v / per for k, v in by_name.most_common()},
     }
     for k, v in rec.items():
-        if k not in ("device_ops", "card", "shape", "iterations", "mode"):
+        if k not in ("device_ops", "card", "shape", "iterations", "mode", "scene",
+                     "integrator_mode"):
             print(f"[profile] {k}: {v}")
     for name, n in rec["device_ops"].items():
         print(f"[profile] per {unit} {n:g} x {name[:100]}")

@@ -63,3 +63,20 @@ class FilmConfig:
     @property
     def num_pixels(self) -> int:
         return self.width * self.height
+
+
+def get_asset_path(relative: str) -> str:
+    """Resolve a path under the project's assets directory (``config.py:71``
+    of the JAX package): ``$RVPT_TPU_ASSETS`` first, then ``assets/`` at the
+    checkout root beside this package, else the path as given."""
+    import os
+
+    override = os.environ.get("RVPT_TPU_ASSETS")
+    roots = [override] if override else []
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    roots.append(os.path.join(pkg_root, "assets"))
+    for root in roots:
+        cand = os.path.join(root, relative)
+        if os.path.exists(cand):
+            return cand
+    return relative

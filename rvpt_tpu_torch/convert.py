@@ -13,6 +13,7 @@ import torch
 from .core.device import resolve_device
 from .models.camera import Camera
 from .ops.film import Film
+from .scene.bvh import Bvh, node_depths
 from .scene.materials import Materials
 from .scene.scene import ARRAY_FIELDS, Scene
 
@@ -24,15 +25,34 @@ def _tensor(name, value, device):
     return torch.as_tensor(np.array(value), device=resolve_device(device)).to(dtype)
 
 
+def bvh_from_numpy(d: dict, device=None) -> Bvh:
+    """``d`` holds the JAX ``Bvh`` arrays ``bvh.first``, ``bvh.count``,
+    ``bvh.bmin``, ``bvh.bmax`` and the plain ``bvh.max_leaf``."""
+    first = np.asarray(d["bvh.first"]).astype(np.int64)
+    count = np.asarray(d["bvh.count"]).astype(np.int64)
+    dev = resolve_device(device)
+    return Bvh(
+        first=torch.as_tensor(first, dtype=torch.int32, device=dev),
+        count=torch.as_tensor(count, dtype=torch.int32, device=dev),
+        bmin=torch.as_tensor(np.array(d["bvh.bmin"], np.float32), device=dev),
+        bmax=torch.as_tensor(np.array(d["bvh.bmax"], np.float32), device=dev),
+        max_leaf=int(d["bvh.max_leaf"]),
+        depth=int(node_depths(first, count).max()),
+        builder="converted")
+
+
 def scene_from_numpy(d: dict, device=None) -> Scene:
     """``d`` maps the JAX ``Scene`` fields (``tri_v0`` ... ``pln_mat``) and
-    ``materials.albedo`` / ``.emission`` / ``.ior`` / ``.kind`` to arrays."""
+    ``materials.albedo`` / ``.emission`` / ``.ior`` / ``.kind`` to arrays;
+    a BVH scene's dict also holds the ``bvh.*`` entries of
+    ``bvh_from_numpy`` (its triangles are then in the tree's leaf order)."""
     mats = Materials(**{
         k: _tensor(f"materials.{k}", d[f"materials.{k}"], device)
         for k in ("albedo", "emission", "ior", "kind")
     })
+    bvh = bvh_from_numpy(d, device) if "bvh.first" in d else None
     return Scene(**{k: _tensor(k, d[k], device) for k in ARRAY_FIELDS},
-                 materials=mats)
+                 materials=mats, bvh=bvh)
 
 
 def camera_from_numpy(d: dict, device=None) -> Camera:

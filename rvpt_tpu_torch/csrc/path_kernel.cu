@@ -2,12 +2,17 @@
 // bounce loop in registers, one launch per frame and AA sample.
 //
 // Replaces the Pallas kernel K1 of rvpt_tpu/ops/pathkernel.py
-// (make_path_kernel :1115, launched by _path_call :1276) in its row form:
-// in-kernel camera rays (_gen_rays_inkernel :1059) or rays passed in,
+// (make_path_kernel :1115, launched by _path_call :1276) in its row and
+// culled forms: in-kernel camera rays (_gen_rays_inkernel :1059) or rays passed in,
 // closest hit over triangles, spheres and planes (_search :715, shared with
 // the primary-hit kernel in scene_search.cuh), the style="standard" tail
 // (:1254-1257), the collect records (:1202-1215), and three bounce
-// integrators, each its own template instance (INTEG):
+// integrators, each its own template instance (INTEG).  Each also has two
+// search forms (BVH): the row form, with every table staged in shared
+// memory and triangles searched first, and the BVH form, the port of K1's
+// culled form (meta["culled"], _culled_tris :311), which stages only the
+// spheres, planes and materials and walks the tree for the triangles last
+// (bvh_search.cuh):
 //
 // - Kajiya (_shade :925, _shade_geom :857): the sky with d.y shifted into
 //   [0,1], emission gathered along the path, Lambert/mirror/dielectric
@@ -43,7 +48,11 @@
 // 1920x1080), or also the six f32[N] ray inputs when rays are passed in.
 // Tables above the 48 KB default take the opt-in shared memory (up to 227
 // KB on Hopper).  A lane that has terminated leaves the bounce loop at
-// once, which is exact: a dead lane adds nothing.
+// once, which is exact: a dead lane adds nothing.  The BVH form instead
+// reads 32-byte nodes and 68-byte triangle rows from device memory along
+// each ray's own walk (mostly from L2: rabbit's tree and rows are 19 KB);
+// neighbouring rays walk similar paths, but the warp diverges where they
+// part.
 //
 // Rounding: every expression keeps the operation order of the JAX kernel
 // and of the plain PyTorch version beside this wrapper
@@ -54,6 +63,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bvh_search.cuh"
+#include "kajiya_shade.cuh"
 #include "scene_search.cuh"
 
 namespace {
@@ -63,10 +74,11 @@ using namespace scene;
 constexpr int KAJIYA = 0, WHITTED = 1, COOK = 2;  // pathkernel.INTEGS
 constexpr int THREADS = 256;
 
-template <int INTEG, bool COLLECT>
+template <int INTEG, bool COLLECT, bool BVH>
 __global__ void __launch_bounds__(THREADS) path_kernel(
     const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
-    int n_mat, const float* __restrict__ cam_in,
+    int n_mat, const float* __restrict__ nodes,
+    const float* __restrict__ cam_in,
     const int64_t* __restrict__ pix_ids, const float* __restrict__ ox_in,
     const float* __restrict__ oy_in, const float* __restrict__ oz_in,
     const float* __restrict__ dx_in, const float* __restrict__ dy_in,
@@ -75,9 +87,22 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
     int max_bounces, int standard, int cam_mode, float mint) {
   extern __shared__ float smem[];
-  // cam_in is null when the rays are passed in.
-  const Tables s = stage(smem, cam_in, tables, n_tri, n_sph, n_pln, n_mat);
+  // cam_in is null when the rays are passed in.  The BVH form stages all
+  // but the triangles, which its walk reads from device memory.
+  const Tables s =
+      BVH ? stage(smem, cam_in, tables + TRI_STRIDE * n_tri, 0, n_sph, n_pln,
+                  n_mat)
+          : stage(smem, cam_in, tables, n_tri, n_sph, n_pln, n_mat);
+  const bvh::Mesh mesh{tables, nodes, n_tri};
   const float* cam = smem;
+  auto search = [&](float ox, float oy, float oz, float dx, float dy,
+                    float dz) -> Hit {
+    if constexpr (BVH) {
+      return bvh::closest_hit_mesh(s, mesh, ox, oy, oz, dx, dy, dz, mint);
+    } else {
+      return closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+    }
+  };
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -113,7 +138,7 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
 
   for (int bounce = 0; bounce < max_bounces && active; ++bounce) {
     if (COLLECT) write_fields(bounce, 1.0f);
-    const Hit h = closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+    const Hit h = search(ox, oy, oz, dx, dy, dz);
     if (COLLECT) {
       rec_i[((int64_t)bounce * 2) * n + i] = h.fam;
       rec_i[((int64_t)bounce * 2 + 1) * n + i] = h.idx;
@@ -142,37 +167,20 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     cb = cb + tb * M[5];
 
     // ---- shading geometry (_shade_geom)
-    const float px = ox + h.t * dx;
-    const float py = oy + h.t * dy;
-    const float pz = oz + h.t * dz;
-    const float inv_nl =
-        rsqrtf(fmaxf(h.nx * h.nx + h.ny * h.ny + h.nz * h.nz, 1e-30f));
-    float nX = h.nx * inv_nl, nY = h.ny * inv_nl, nZ = h.nz * inv_nl;
-    const float inv_dl = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
-    const float iX = dx * inv_dl, iY = dy * inv_dl, iZ = dz * inv_dl;
-
-    const float cos_view = iX * nX + iY * nY + iZ * nZ;
-    const bool flipped = cos_view > 0.0f;
-    const float cos_in = fabsf(cos_view);
-    if (flipped) {
-      nX = -nX;
-      nY = -nY;
-      nZ = -nZ;
-    }
+    const shade::Frame f = shade::hit_frame(h, ox, oy, oz, dx, dy, dz);
     const float kind = M[7];
     if (INTEG == WHITTED && kind == 0.0f) {
       // Lambert: a shadow ray toward the light, the direct term unless
       // shadowed, and the path ends.
-      const Hit sh = closest_hit(s, px + EPSILON * nX, py + EPSILON * nY,
-                                 pz + EPSILON * nZ, LDIR_X, LDIR_Y, LDIR_Z,
-                                 mint);
+      const Hit sh = search(f.px + EPSILON * f.nX, f.py + EPSILON * f.nY,
+                            f.pz + EPSILON * f.nZ, LDIR_X, LDIR_Y, LDIR_Z);
       if (sh.fam >= 0) {
         rr = rr + cr;
         rg = rg + cg;
         rb = rb + cb;
       } else {
         const float cos_l =
-            fmaxf(0.0f, LDIR_X * nX + LDIR_Y * nY + LDIR_Z * nZ);
+            fmaxf(0.0f, LDIR_X * f.nX + LDIR_Y * f.nY + LDIR_Z * f.nZ);
         const float lit = LIGHT_I * cos_l;
         rr = rr + (cr + tr * M[0] * lit);
         rg = rg + (cg + tg * M[1] * lit);
@@ -181,61 +189,9 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
       active = false;
       break;
     }
-    const float ior = M[6];
-    const float eta = flipped ? ior : 1.0f / fmaxf(ior, 1e-8f);
-
-    uint32_t ra = pix, rb_ = frame, rc = salt_base + 4u * (uint32_t)bounce;
-    pcg3d(ra, rb_, rc);
-    const float ru = unit(ra), rv = unit(rb_), rw = unit(rc);
-
-    const float phi = TWO_PI * ru;
-    const float cos_t = 1.0f - 2.0f * rv;
-    const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-    const float lamX = nX + sin_t * cosf(phi);
-    const float lamY = nY + sin_t * sinf(phi);
-    const float lamZ = nZ + cos_t;
-
-    const float refX = iX + 2.0f * cos_in * nX;
-    const float refY = iY + 2.0f * cos_in * nY;
-    const float refZ = iZ + 2.0f * cos_in * nZ;
-
-    const float cos_out_sqr = 1.0f - eta * eta * (1.0f - cos_in * cos_in);
-    const float cos_out = sqrtf(fmaxf(0.0f, cos_out_sqr));
-    const float r_perp = (eta * cos_in - cos_out) / (eta * cos_in + cos_out);
-    const float r_par = (cos_in - eta * cos_out) / (cos_in + eta * cos_out);
-    const float f_refl = 0.5f * (r_perp * r_perp + r_par * r_par);
-    const bool refl = (cos_out_sqr <= 0.0f) || (rw < f_refl);
-    const float k = eta * cos_in - cos_out;
-
-    float off, ndx, ndy, ndz;
-    if (kind == 0.0f) {  // Lambert
-      ndx = lamX;
-      ndy = lamY;
-      ndz = lamZ;
-      off = EPSILON;
-    } else if (kind == 1.0f) {  // mirror
-      ndx = refX;
-      ndy = refY;
-      ndz = refZ;
-      off = EPSILON;
-    } else if (refl) {  // dielectric, reflected
-      ndx = refX;
-      ndy = refY;
-      ndz = refZ;
-      off = EPSILON;
-    } else {  // dielectric, refracted
-      ndx = eta * iX + k * nX;
-      ndy = eta * iY + k * nY;
-      ndz = eta * iZ + k * nZ;
-      off = -EPSILON;
-    }
+    shade::scatter(f, M, pix, frame, salt_base + 4u * (uint32_t)bounce, ox,
+                   oy, oz, dx, dy, dz);
     if (INTEG == COOK) final_ = kind == 0.0f;
-    ox = px + off * nX;
-    oy = py + off * nY;
-    oz = pz + off * nZ;
-    dx = ndx;
-    dy = ndy;
-    dz = ndz;
     tr = tr * M[0];
     tg = tg * M[1];
     tb = tb * M[2];
@@ -243,7 +199,7 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   if (INTEG == COOK && active && final_) {
     // A Lambert scatter on the last bounce still resolves: one more
     // search, ending on its emission or the sky (raw d.y).
-    const Hit h = closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+    const Hit h = search(ox, oy, oz, dx, dy, dz);
     if (h.fam >= 0) {
       const float* M = material(s, h.mat);
       rr = rr + cr + tr * M[3];
@@ -273,26 +229,28 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   out[2 * (int64_t)n + i] = rb;
 }
 
-template <int INTEG, bool COLLECT>
+template <int INTEG, bool COLLECT, bool BVH>
 int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
-           const float* cam, const int64_t* pix_ids, const float* ox,
-           const float* oy, const float* oz, const float* dx, const float* dy,
-           const float* dz, float* out, float* rec_f, int32_t* rec_i, int n,
+           const float* nodes, const float* cam, const int64_t* pix_ids,
+           const float* ox, const float* oy, const float* oz, const float* dx,
+           const float* dy, const float* dz, float* out, float* rec_f, int32_t* rec_i, int n,
            uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
            int max_bounces, int standard, int cam_mode, float mint,
            void* stream) {
-  const size_t smem = sizeof(float) * staged_floats(n_tri, n_sph, n_pln, n_mat);
+  const size_t smem =
+      sizeof(float) * staged_floats(BVH ? 0 : n_tri, n_sph, n_pln, n_mat);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        path_kernel<INTEG, COLLECT>,
+        path_kernel<INTEG, COLLECT, BVH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (n + THREADS - 1) / THREADS;
-  path_kernel<INTEG, COLLECT><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, ox, oy, oz, dx, dy, dz,
-      out, rec_f, rec_i, n, frame, salt_base, jitter_salt, max_bounces,
-      standard, cam_mode, mint);
+  path_kernel<INTEG, COLLECT, BVH>
+      <<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      tables, n_tri, n_sph, n_pln, n_mat, nodes, cam, pix_ids, ox, oy, oz, dx,
+      dy, dz, out, rec_f, rec_i, n, frame, salt_base, jitter_salt,
+      max_bounces, standard, cam_mode, mint);
   return (int)cudaGetLastError();
 }
 
@@ -304,10 +262,12 @@ int rvpt_max_table_floats() { return max_table_floats(); }
 
 // Launch on `stream`; returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for an unknown integrator or records asked of
-// Whitted or Cook.  With rec_f and rec_i non-null the Kajiya collect
-// instance writes the record.
+// Whitted, Cook or the BVH form.  With rec_f and rec_i non-null the Kajiya
+// collect instance writes the record; with `nodes` non-null (pack_bvh's
+// rows) the BVH form runs.
 int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
-                    int n_mat, const float* cam, const int64_t* pix_ids,
+                    int n_mat, const float* nodes, const float* cam,
+                    const int64_t* pix_ids,
                     const float* ox, const float* oy, const float* oz,
                     const float* dx, const float* dy, const float* dz,
                     float* out, float* rec_f, int32_t* rec_i, int n,
@@ -316,16 +276,28 @@ int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
                     int integ, void* stream) {
   if (n <= 0) return 0;
   const bool collect = rec_f != nullptr && rec_i != nullptr;
-#define RVPT_LAUNCH(I, C)                                                      \
-  launch<I, C>(tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, ox, oy, oz, \
-               dx, dy, dz, out, rec_f, rec_i, n, frame, salt_base,           \
-               jitter_salt, max_bounces, standard, cam_mode, mint, stream)
-  if (integ == KAJIYA) {
-    return collect ? RVPT_LAUNCH(KAJIYA, true) : RVPT_LAUNCH(KAJIYA, false);
+  const bool bvh_form = nodes != nullptr;
+#define RVPT_LAUNCH(I, C, B)                                                  \
+  launch<I, C, B>(tables, n_tri, n_sph, n_pln, n_mat, nodes, cam, pix_ids,  \
+                  ox, oy, oz, dx, dy, dz, out, rec_f, rec_i, n, frame,      \
+                  salt_base, jitter_salt, max_bounces, standard, cam_mode,  \
+                  mint, stream)
+  if (collect) {
+    if (integ != KAJIYA || bvh_form) return (int)cudaErrorInvalidValue;
+    return RVPT_LAUNCH(KAJIYA, true, false);
   }
-  if (collect) return (int)cudaErrorInvalidValue;
-  if (integ == WHITTED) return RVPT_LAUNCH(WHITTED, false);
-  if (integ == COOK) return RVPT_LAUNCH(COOK, false);
+  if (integ == KAJIYA) {
+    return bvh_form ? RVPT_LAUNCH(KAJIYA, false, true)
+                    : RVPT_LAUNCH(KAJIYA, false, false);
+  }
+  if (integ == WHITTED) {
+    return bvh_form ? RVPT_LAUNCH(WHITTED, false, true)
+                    : RVPT_LAUNCH(WHITTED, false, false);
+  }
+  if (integ == COOK) {
+    return bvh_form ? RVPT_LAUNCH(COOK, false, true)
+                    : RVPT_LAUNCH(COOK, false, false);
+  }
 #undef RVPT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

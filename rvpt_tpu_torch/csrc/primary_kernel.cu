@@ -11,6 +11,10 @@
 // sky), AO (nrays cosine probes with salts salt_base + 4i, each a search)
 // and Appel (one shadow search toward the light; a miss is white).  Hit
 // normals are normalized and zeroed on a miss, as isect_from_hit does.
+// Each mode has two search forms (BVH), as the whole-path kernel: the row
+// form and the BVH form, the port of B3's culled form (_primary_call's
+// cull_tables), which walks the tree for the triangles after the spheres
+// and planes (bvh_search.cuh).
 // The TPU layout is not carried over: no [8,1024] tiles, no one-hot table
 // fetches.  Pixel ids are optional: the raster 0..n-1, or a split-screen
 // rectangle's ids.
@@ -19,7 +23,9 @@
 // Cornell box) sit in shared memory, read as broadcasts; per pixel the
 // kernel writes f32[3] (24.9 MB at 1920x1080) and reads an int64 id when
 // given.  AO's probe searches (nrays per hit pixel) and Appel's shadow
-// search multiply the search work; a pixel that missed casts none.
+// search multiply the search work; a pixel that missed casts none.  The
+// BVH form reads the nodes and triangle rows along each ray's walk from
+// device memory.
 //
 // Rounding: every expression keeps the operation order of the plain
 // version (rvpt_tpu_torch/ops/pathkernel.py primary_plain and
@@ -28,6 +34,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bvh_search.cuh"
 #include "scene_search.cuh"
 
 namespace {
@@ -36,22 +43,37 @@ using namespace scene;
 
 constexpr int THREADS = 256;
 
-template <int MODE>
+template <int MODE, bool BVH>
 __global__ void __launch_bounds__(THREADS) primary_kernel(
     const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
-    int n_mat, const float* __restrict__ cam_in,
+    int n_mat, const float* __restrict__ nodes,
+    const float* __restrict__ cam_in,
     const int64_t* __restrict__ pix_ids, float* __restrict__ out, int n,
     uint32_t frame, uint32_t salt_base, uint32_t jitter_salt, int cam_mode,
     float mint, int nrays, float inv_nrays) {
   extern __shared__ float smem[];
-  const Tables s = stage(smem, cam_in, tables, n_tri, n_sph, n_pln, n_mat);
+  // The BVH form stages all but the triangles, which its walk reads from
+  // device memory.
+  const Tables s =
+      BVH ? stage(smem, cam_in, tables + TRI_STRIDE * n_tri, 0, n_sph, n_pln,
+                  n_mat)
+          : stage(smem, cam_in, tables, n_tri, n_sph, n_pln, n_mat);
+  const bvh::Mesh mesh{tables, nodes, n_tri};
+  auto search = [&](float ox, float oy, float oz, float dx, float dy,
+                    float dz) -> Hit {
+    if constexpr (BVH) {
+      return bvh::closest_hit_mesh(s, mesh, ox, oy, oz, dx, dy, dz, mint);
+    } else {
+      return closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+    }
+  };
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint32_t pix = pix_ids ? (uint32_t)pix_ids[i] : (uint32_t)i;
 
   float ox, oy, oz, dx, dy, dz;
   camera_ray(smem, cam_mode, pix, frame, jitter_salt, ox, oy, oz, dx, dy, dz);
-  const Hit h = closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+  const Hit h = search(ox, oy, oz, dx, dy, dz);
   const bool hit = h.fam >= 0;
   const float hit_f = hit ? 1.0f : 0.0f;
   const float inv_nl =
@@ -108,15 +130,15 @@ __global__ void __launch_bounds__(THREADS) primary_kernel(
         const float phi = TWO_PI * ru;
         const float cos_t = 1.0f - 2.0f * rv;
         const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-        const Hit p = closest_hit(s, px, py, pz, fX + sin_t * cosf(phi),
-                                  fY + sin_t * sinf(phi), fZ + cos_t, mint);
+        const Hit p = search(px, py, pz, fX + sin_t * cosf(phi),
+                             fY + sin_t * sinf(phi), fZ + cos_t);
         acc = acc + (p.fam >= 0 ? 1.0f : 0.0f);
       }
       const float ao = 1.0f - acc * inv_nrays;
       r = g = b = hit ? ao : 0.0f;
     } else {  // Appel (204-250): a hard shadow; a miss is white
       const bool shadow =
-          hit && closest_hit(s, px, py, pz, LDIR_X, LDIR_Y, LDIR_Z, mint).fam >= 0;
+          hit && search(px, py, pz, LDIR_X, LDIR_Y, LDIR_Z).fam >= 0;
       const float cos_l = fmaxf(0.0f, LDIR_X * fX + LDIR_Y * fY + LDIR_Z * fZ);
       const float lit = shadow ? 0.0f : LIGHT_I * cos_l;
       r = g = b = hit ? lit : 1.0f;
@@ -127,22 +149,23 @@ __global__ void __launch_bounds__(THREADS) primary_kernel(
   out[2 * (int64_t)n + i] = b;
 }
 
-template <int MODE>
+template <int MODE, bool BVH>
 int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
-           const float* cam, const int64_t* pix_ids, float* out, int n,
-           uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
-           int cam_mode, float mint, int nrays, float inv_nrays,
-           void* stream) {
-  const size_t smem = sizeof(float) * staged_floats(n_tri, n_sph, n_pln, n_mat);
+           const float* nodes, const float* cam, const int64_t* pix_ids,
+           float* out, int n, uint32_t frame, uint32_t salt_base,
+           uint32_t jitter_salt, int cam_mode, float mint, int nrays,
+           float inv_nrays, void* stream) {
+  const size_t smem =
+      sizeof(float) * staged_floats(BVH ? 0 : n_tri, n_sph, n_pln, n_mat);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        primary_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        primary_kernel<MODE, BVH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (n + THREADS - 1) / THREADS;
-  primary_kernel<MODE><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, out, n, frame,
+  primary_kernel<MODE, BVH><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      tables, n_tri, n_sph, n_pln, n_mat, nodes, cam, pix_ids, out, n, frame,
       salt_base, jitter_salt, cam_mode, mint, nrays, inv_nrays);
   return (int)cudaGetLastError();
 }
@@ -153,19 +176,26 @@ extern "C" {
 
 int rvpt_max_table_floats() { return max_table_floats(); }
 
-// Launch debug mode `mode` (0-6) on `stream`; returns cudaGetLastError() of
-// the launch, or cudaErrorInvalidValue for another mode.
+// Launch debug mode `mode` (0-6) on `stream`, in the BVH form when
+// `nodes` (pack_bvh's rows) is non-null; returns cudaGetLastError() of the
+// launch, or cudaErrorInvalidValue for another mode.
 int rvpt_primary(const float* tables, int n_tri, int n_sph, int n_pln,
-                 int n_mat, const float* cam, const int64_t* pix_ids,
-                 float* out, int n, uint32_t frame, uint32_t salt_base,
-                 uint32_t jitter_salt, int mode, int cam_mode, float mint,
-                 int nrays, float inv_nrays, void* stream) {
+                 int n_mat, const float* nodes, const float* cam,
+                 const int64_t* pix_ids, float* out, int n, uint32_t frame,
+                 uint32_t salt_base, uint32_t jitter_salt, int mode,
+                 int cam_mode, float mint, int nrays, float inv_nrays,
+                 void* stream) {
   if (n <= 0) return 0;
-#define RVPT_CASE(M)                                                          \
-  case M:                                                                     \
-    return launch<M>(tables, n_tri, n_sph, n_pln, n_mat, cam, pix_ids, out, \
-                     n, frame, salt_base, jitter_salt, cam_mode, mint, nrays, \
-                     inv_nrays, stream);
+#define RVPT_CASE(M)                                                         \
+  case M:                                                                    \
+    return nodes ? launch<M, true>(tables, n_tri, n_sph, n_pln, n_mat,     \
+                                   nodes, cam, pix_ids, out, n, frame,     \
+                                   salt_base, jitter_salt, cam_mode, mint, \
+                                   nrays, inv_nrays, stream)               \
+                 : launch<M, false>(tables, n_tri, n_sph, n_pln, n_mat,    \
+                                    nodes, cam, pix_ids, out, n, frame,    \
+                                    salt_base, jitter_salt, cam_mode,      \
+                                    mint, nrays, inv_nrays, stream);
   switch (mode) {
     RVPT_CASE(0)
     RVPT_CASE(1)

@@ -1,7 +1,8 @@
 // The scene staging, camera rays and closest-hit search shared by the
 // whole-path kernel (path_kernel.cu, K1) and the primary-hit kernel
 // (primary_kernel.cu, B3); the camera rays also serve the Hart march
-// (hart_kernel.cu, B4).  They mirror, in one thread per ray,
+// (hart_kernel.cu, B4), and the sphere and plane searches the BVH forms of
+// the search (bvh_search.cuh).  They mirror, in one thread per ray,
 // _gen_rays_inkernel (:1059) and _search (:715) of
 // rvpt_tpu/ops/pathkernel.py, and their plain versions in
 // rvpt_tpu_torch/ops/pathkernel.py (_camera_rays_plain, _search_plain).
@@ -156,16 +157,13 @@ __device__ __forceinline__ void camera_ray(
   }
 }
 
-// Closest hit over triangles, spheres and planes (_search :715): a
-// candidate wins only with a strictly smaller t, which keeps the first
+// The three families of the search, each folding its candidates into `h`:
+// a candidate wins only with a strictly smaller t, which keeps the first
 // minimum within a family and the earlier family across families.
-__device__ __forceinline__ Hit closest_hit(const Tables& s, float ox, float oy,
-                                           float oz, float dx, float dy,
-                                           float dz, float mint) {
-  Hit h;
-  h.t = BIG;
-  h.nx = h.ny = h.nz = h.mat = 0.0f;
-  h.fam = h.idx = -1;
+__device__ __forceinline__ void search_tri_rows(const Tables& s, float ox,
+                                                float oy, float oz, float dx,
+                                                float dy, float dz, float mint,
+                                                Hit& h) {
   for (int j = 0; j < s.n_tri; ++j) {
     const float* T = s.tri + TRI_STRIDE * j;
     const float nx = T[0], ny = T[1], nz = T[2];
@@ -190,6 +188,12 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, float ox, float oy,
       h.idx = j;
     }
   }
+}
+
+__device__ __forceinline__ void search_spheres(const Tables& s, float ox,
+                                               float oy, float oz, float dx,
+                                               float dy, float dz, float mint,
+                                               Hit& h) {
   for (int j = 0; j < s.n_sph; ++j) {
     const float* S = s.sph + SPH_STRIDE * j;
     const float ocx = ox - S[0], ocy = oy - S[1], ocz = oz - S[2];
@@ -216,6 +220,12 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, float ox, float oy,
       h.idx = j;
     }
   }
+}
+
+__device__ __forceinline__ void search_planes(const Tables& s, float ox,
+                                              float oy, float oz, float dx,
+                                              float dy, float dz, float mint,
+                                              Hit& h) {
   for (int j = 0; j < s.n_pln; ++j) {
     const float* P = s.pln + PLN_STRIDE * j;
     const float nx = P[0], ny = P[1], nz = P[2];
@@ -233,6 +243,26 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, float ox, float oy,
       h.idx = j;
     }
   }
+}
+
+// The winner before any candidate: t 3e38, family and index -1.
+__device__ __forceinline__ Hit miss() {
+  Hit h;
+  h.t = BIG;
+  h.nx = h.ny = h.nz = h.mat = 0.0f;
+  h.fam = h.idx = -1;
+  return h;
+}
+
+// Closest hit over triangles, spheres and planes (_search :715), in the
+// row form's order: triangles first.
+__device__ __forceinline__ Hit closest_hit(const Tables& s, float ox, float oy,
+                                           float oz, float dx, float dy,
+                                           float dz, float mint) {
+  Hit h = miss();
+  search_tri_rows(s, ox, oy, oz, dx, dy, dz, mint, h);
+  search_spheres(s, ox, oy, oz, dx, dy, dz, mint, h);
+  search_planes(s, ox, oy, oz, dx, dy, dz, mint, h);
   return h;
 }
 

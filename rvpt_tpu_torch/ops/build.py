@@ -1,4 +1,5 @@
-"""Build and load the package's CUDA kernels as a plain-C shared library.
+"""Build and load the package's CUDA kernels as a plain-C shared library,
+and build the native C++ scene-ingest library.
 
 ``nvcc`` compiles ``rvpt_tpu_torch/csrc/<name>.cu`` for Hopper (sm_90a)
 into ``build/rvpt_tpu_torch/`` at the checkout root, at first use; the file
@@ -8,7 +9,9 @@ library is loaded with ``ctypes``: no PyTorch headers are compiled, which
 keeps a build to seconds.  ``build_all`` starts one ``nvcc`` per source at
 once.  Nothing here runs at import time.  Every library exports
 ``int rvpt_error_string(int)``: the CUDA error name of a launch's return
-code.
+code.  ``build_native`` compiles ``native/rvpt_native.cpp`` (the BVH
+builder and OBJ parser, beside both packages) with ``g++`` into the same
+directory; it runs on the host and needs no card.
 """
 
 from __future__ import annotations
@@ -23,6 +26,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rvpt_tpu_torch"
+NATIVE_SOURCE = Path(__file__).resolve().parents[2] / "native" / "rvpt_native.cpp"
+# Every kernel source under csrc/: K1, K2, B8, B3, B4, B5 and B6.
+KERNELS = ("path_kernel", "bwd_kernel", "closest_hit", "primary_kernel",
+           "hart_kernel", "bigmesh_kernel", "bigmesh_hart")
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 # No fast math: IEEE division, sqrt and sin/cos, and no fused multiply-add,
 # so the kernel rounds like the plain PyTorch version's unfused ops.
@@ -119,3 +127,30 @@ def check_cuda(x, dtype, name: str, n: int | None = None, device=None) -> None:
         raise ValueError(f"{name}: need {n} elements, got {x.numel()}")
     if device is not None and x.device != device:
         raise ValueError(f"{name}: on {x.device}, need {device}")
+
+
+def build_native() -> Path:
+    """Build (if needed) the native library from ``native/rvpt_native.cpp``
+    with ``g++`` (``$CXX`` overrides) and return its path; the name carries
+    a hash of the source and the flags.  Raises ``RuntimeError`` with the
+    compiler's output when it cannot be built."""
+    digest = hashlib.sha256(NATIVE_SOURCE.read_bytes())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    path = BUILD_DIR / f"librvpt_native_{digest.hexdigest()[:16]}.so"
+    if path.exists():
+        return path
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++, or $CXX) on PATH")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(NATIVE_SOURCE)],
+                              capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"{cxx} failed: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed to build {NATIVE_SOURCE.name} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path

@@ -6,7 +6,8 @@ broadcasts, with the metric-tensor triangle test of the reference
 (intersection.glsl:267-323).  Ties keep the first minimum: the lowest
 index within a family, and the earlier family (triangles, then spheres,
 then planes) across families.  On the card the triangle search runs the
-CUDA kernel of ``intersect_pk``.  BVH traversal waits for the BVH port.
+CUDA kernel of ``intersect_pk``; on the CPU a BVH scene walks its tree
+(``ops.traverse``), as the JAX package does there.
 """
 
 from __future__ import annotations
@@ -209,6 +210,23 @@ def plane_isect_single(o, d, normal, d_off):
 
 
 # ---------------------------------------------------------------------------
+# AABB slab test (the BVH walk's building block)
+# ---------------------------------------------------------------------------
+
+
+def intersect_aabb(origin, direction, box_min, box_max, mint, maxt):
+    """Slab test in f32 (intersection.glsl:349-350 used f64 temporaries by
+    accident): bool, True where the ray meets the box inside [mint, maxt].
+    Broadcasts over matching batch shapes [..., 3]."""
+    inv_d = _safe_div(torch.ones_like(direction), direction)
+    f = (box_max - origin) * inv_d
+    n = (box_min - origin) * inv_d
+    t1 = torch.amin(torch.maximum(f, n), dim=-1)
+    t0 = torch.amax(torch.minimum(f, n), dim=-1)
+    return torch.clamp(t1, max=maxt) >= torch.clamp(t0, min=mint)
+
+
+# ---------------------------------------------------------------------------
 # Whole scene
 # ---------------------------------------------------------------------------
 
@@ -220,10 +238,18 @@ def closest_hit_scene(scene: Scene, ray: Ray, mint, maxt, tri_chunk: int = 2048)
     Rays on the card search the triangles with the CUDA kernel B8
     (``intersect_pk.launch_closest_hit``), on detached inputs: the search
     selects and does not differentiate, and ``isect_from_hit`` rebuilds the
-    differentiable record from the index.  Rays on the CPU take the plain
-    search ``closest_hit_triangles``."""
+    differentiable record from the index.  Rays on the CPU walk the BVH of
+    a BVH scene (``traverse.closest_hit_bvh``, ``intersect.py:389-396`` of
+    the JAX package) and take the plain search ``closest_hit_triangles``
+    otherwise."""
     o, d = ray.origin, ray.direction
-    if scene.num_triangles > 0 and o.device.type == "cuda":
+    if scene.num_triangles > 0 and o.device.type == "cpu" and scene.bvh is not None:
+        from . import traverse
+
+        with torch.no_grad():
+            t_tri, i_tri = traverse.closest_hit_bvh(scene, scene.bvh, o, d, mint,
+                                                    maxt)
+    elif scene.num_triangles > 0 and o.device.type == "cuda":
         from . import intersect_pk
 
         packed = intersect_pk.pack_triangles(

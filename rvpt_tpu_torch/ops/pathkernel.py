@@ -1,5 +1,6 @@
-"""Whole-path tracer, primary-hit and Hart kernels and the whole-chain
-pullback: the ports of the Pallas kernels K1, B3, B4 and K2.
+"""Whole-path tracer, primary-hit and Hart kernels, the big-mesh kernels
+and the whole-chain pullback: the ports of the Pallas kernels K1, B3, B4,
+B5, B6 and K2.
 
 ``rvpt_tpu/ops/pathkernel.py`` traces whole paths in one Pallas launch per
 group of <= 8 bounces (make_path_kernel :1115, _path_call :1276) with the
@@ -7,25 +8,35 @@ Kajiya, Whitted or Cook bounce integrator, optionally writing per-bounce
 records; runs the single-intersection debug integrators (modes 0-6) in one
 launch (make_primary_kernel :3390, _primary_call :3445); sphere-traces the
 triangle SDF for the Hart heat map (make_hart_kernel :3564, _hart_call
-:3632); and pulls an image cotangent back through the whole chain from the
-records (make_bwd_kernel :1346, _bwd_call :1609, bwd_path :1801).  Here
-each function has two versions:
+:3632); traces BVH meshes of more than 1,024 triangles one bounce or one
+search per launch (make_bigmesh_dma_kernel :2366 and make_bigmesh_kernel
+:2061, BigMeshTracer :2927) with their Hart distance per march step
+(make_bigmesh_hart_kernel :2820); and pulls an image cotangent back through
+the whole chain from the records (make_bwd_kernel :1346, _bwd_call :1609,
+bwd_path :1801).  Here each function has two versions:
 
 * ``csrc/path_kernel.cu`` (K1), ``csrc/primary_kernel.cu`` (B3),
-  ``csrc/hart_kernel.cu`` (B4) and ``csrc/bwd_kernel.cu`` (K2):
-  hand-written CUDA for Hopper, one thread per ray or pixel, one launch
-  per trace or pullback (``launch_path_kernel``, ``launch_primary_kernel``,
-  ``launch_hart_kernel``, ``launch_bwd_kernel``);
-* ``trace_plain``, ``primary_plain``, ``hart_plain`` and ``bwd_plain``: the
-  same functions in plain PyTorch on flat [N] tensors, the references the
-  kernels are held against.
+  ``csrc/hart_kernel.cu`` (B4), ``csrc/bigmesh_kernel.cu`` (B5),
+  ``csrc/bigmesh_hart.cu`` (B6) and ``csrc/bwd_kernel.cu`` (K2):
+  hand-written CUDA for Hopper, one thread per ray, pixel or point
+  (``launch_path_kernel``, ``launch_primary_kernel``,
+  ``launch_hart_kernel``, ``launch_bigmesh_kernel``,
+  ``launch_bigmesh_hart``, ``launch_bwd_kernel``);
+* ``trace_plain``, ``primary_plain``, ``hart_plain``,
+  ``bigmesh_bounce_plain``, ``bigmesh_search_plain``,
+  ``bigmesh_distance_plain`` and ``bwd_plain``: the same functions in plain
+  PyTorch on flat [N] tensors, the references the kernels are held
+  against.
 
-``PathTracer`` and ``bwd_path`` dispatch on the device of their tables: a
-CPU tensor takes the plain version, a CUDA tensor launches the kernel or
-raises.  Scene tables are packed in the row form (one f32 row per
-primitive) in the field orders below.  A trace's record (``PathRecord``)
-is flat and SoA: per bounce the 13 bounce-input fields and the
-(family, index) hit record, -1 where the lane was dead or missed.
+``PathTracer``, ``BigMeshTracer`` and ``bwd_path`` dispatch on the device
+of their tables: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises.  Scene tables are packed in the row form
+(one f32 row per primitive) in the field orders below; a BVH scene's
+triangles are in the tree's leaf order, and K1 and B3 on it (their BVH
+form, the port of the culled form) and B5 search them by a per-ray walk of
+the ``pack_bvh`` nodes, after the spheres and planes.  A trace's record
+(``PathRecord``) is flat and SoA: per bounce the 13 bounce-input fields and
+the (family, index) hit record, -1 where the lane was dead or missed.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ from torch import nn
 from ..core import rng
 from ..scene.scene import Scene
 from .build import check_cuda, check_launch, load_library
-from .intersect import triangle_precompute
+from .intersect import _min_and_first_index, triangle_precompute
 
 _BIG = 3.0e38
 _DENOM_EPS = 1e-30
@@ -89,6 +100,21 @@ GRAD_WIDTHS = (9, 4, 4, 7)
 # The kernel backward's bound (the "pallas" route's, fast_grad.py:108):
 # K2 stages the raw tables and their gradient sums in shared memory.
 MAX_BWD_TRIANGLES = 1024
+# BVH routing (pathkernel.py:1906-1913): a BVH scene with more than
+# min(BIG_ROUTE_TRIS, CULL_MAX_TRIS) triangles is a big mesh and runs on
+# BigMeshTracer (B5, B6); one with fewer runs K1's and B3's BVH form.
+BIG_ROUTE_TRIS = 1024
+CULL_MAX_TRIS = 8192
+# The per-thread stack of the kernels' BVH walk (csrc/bvh_search.cuh): the
+# deepest node's depth must stay below it.
+BVH_STACK = 64
+# One node of pack_bvh: padded box lo xyz, hi xyz, then first and count as
+# int32 bit patterns.
+NODE_FIELDS = ("lox", "loy", "loz", "hix", "hiy", "hiz", "first", "count")
+# The big-mesh bounce kernel's ray state, f32[16, N]: the 15 carries, then
+# active as 0/1 (BigMeshTracer.trace).
+STATE_FIELDS = ("ox", "oy", "oz", "dx", "dy", "dz", "tr", "tg", "tb",
+                "cr", "cg", "cb", "rr", "rg", "rb", "active")
 
 # Record fields per bounce: o, d, throughput, gathered color, active.
 RECORD_FIELDS = ("ox", "oy", "oz", "dx", "dy", "dz", "tr", "tg", "tb",
@@ -145,13 +171,15 @@ def pack_fwd(scene: Scene) -> tuple[torch.Tensor, tuple[int, int, int, int]]:
 
 
 def stages_tables(scene: Scene) -> bool:
-    """Whether the search kernels (K1, B3) can stage ``pack_fwd``'s tables
-    of ``scene`` in shared memory: always for a scene on the CPU, whose
-    plain versions have no such limit; on the card, up to the kernels'
-    opt-in limit there (about 3,400 triangles in Hopper's 227 KB)."""
+    """Whether the search kernels (K1, B3, B5) can stage ``pack_fwd``'s
+    tables of ``scene`` in shared memory: always for a scene on the CPU,
+    whose plain versions have no such limit; on the card, up to the
+    kernels' opt-in limit there (about 3,400 triangles in Hopper's 227 KB).
+    A BVH scene's triangles stay in device memory and are not staged."""
     if scene.device.type != "cuda":
         return True
-    floats = (len(TRI_FIELDS) * scene.num_triangles
+    staged_tris = 0 if scene.bvh is not None else scene.num_triangles
+    floats = (len(TRI_FIELDS) * staged_tris
               + len(SPH_FIELDS) * scene.num_spheres
               + len(PLN_FIELDS) * scene.num_planes
               + len(MAT_FIELDS) * max(scene.materials.count, 1))
@@ -165,6 +193,40 @@ def pack_hart(scene: Scene) -> tuple[torch.Tensor, int]:
     t = scene.num_triangles
     rows = torch.cat([scene.tri_v0, scene.tri_v1, scene.tri_v2], dim=-1)
     return rows.reshape(t * 9).to(torch.float32).contiguous(), t
+
+
+def is_bigmesh(scene: Scene) -> bool:
+    """True when a scene routes through ``BigMeshTracer`` (``is_bigmesh``
+    :1909): it has a BVH and more than min(BIG_ROUTE_TRIS, CULL_MAX_TRIS)
+    triangles."""
+    return (scene.bvh is not None
+            and scene.num_triangles > min(BIG_ROUTE_TRIS, CULL_MAX_TRIS))
+
+
+def bvh_eps(scene: Scene) -> torch.Tensor:
+    """The box padding of ``pack_cull`` (:148): 1e-4 of the triangles'
+    extent plus 1e-6, in f32.  Without it a flat box (the quad light at
+    y = 2.4) can be pruned by rounding."""
+    bmin = torch.minimum(torch.minimum(scene.tri_v0, scene.tri_v1), scene.tri_v2)
+    bmax = torch.maximum(torch.maximum(scene.tri_v0, scene.tri_v1), scene.tri_v2)
+    return 1e-4 * torch.max(bmax) - 1e-4 * torch.min(bmin) + 1e-6
+
+
+def pack_bvh(scene: Scene) -> torch.Tensor:
+    """The BVH's nodes for the kernels' walk: f32[M, 8] rows
+    (``NODE_FIELDS``), each box padded by ``bvh_eps``, first and count as
+    int32 bit patterns.  Raises when the tree is deeper than the walk's
+    stack (``BVH_STACK``)."""
+    bvh = scene.bvh
+    if bvh is None or scene.num_triangles == 0:
+        raise ValueError("pack_bvh needs a BVH scene with triangles")
+    if bvh.depth >= BVH_STACK:
+        raise ValueError(f"BVH depth {bvh.depth} does not fit the walk's "
+                         f"{BVH_STACK}-entry stack")
+    eps = bvh_eps(scene)
+    ints = torch.stack([bvh.first, bvh.count], dim=1).to(torch.int32)
+    return torch.cat([bvh.bmin - eps, bvh.bmax + eps,
+                      ints.view(torch.float32)], dim=1).contiguous()
 
 
 def camera_params(cam, cfg) -> torch.Tensor:
@@ -216,17 +278,23 @@ def _rng(pix, frame, salt):
     return tuple(rng.u32_to_unit_float(x) for x in rng.pcg3d(pix, frame, salt))
 
 
-def _unpack_fwd(tables, counts):
+def _unpack_fwd(tables, counts, tri_rows=False):
     """The row-form tables as Python rows (triangles, spheres, planes: the
-    plain search's scalars) and the [M,8] material tensor."""
+    plain search's scalars) and the [M,8] material tensor; with
+    ``tri_rows`` the triangles stay one [T,17] tensor (the vectorized
+    triangles-last search's)."""
     t, s, p, nm = counts
-    flat = tables[:17 * t + 5 * s + 5 * p].tolist()
-    tri = [flat[17 * k:17 * (k + 1)] for k in range(t)]
     o = 17 * t
-    sph = [flat[o + 5 * k:o + 5 * (k + 1)] for k in range(s)]
-    o += 5 * s
-    pln = [flat[o + 5 * k:o + 5 * (k + 1)] for k in range(p)]
-    o += 5 * p
+    if tri_rows:
+        tri = tables[:o].reshape(t, 17)
+    else:
+        rows = tables[:o].tolist()
+        tri = [rows[17 * k:17 * (k + 1)] for k in range(t)]
+    flat = tables[o:o + 5 * s + 5 * p].tolist()
+    sph = [flat[5 * k:5 * (k + 1)] for k in range(s)]
+    o2 = 5 * s
+    pln = [flat[o2 + 5 * k:o2 + 5 * (k + 1)] for k in range(p)]
+    o += 5 * s + 5 * p
     return tri, sph, pln, tables[o:o + 8 * nm].reshape(nm, 8)
 
 
@@ -352,6 +420,85 @@ def _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint):
     return t_best, wnx, wny, wnz, wmat, wfam, widx
 
 
+# Elements of one [rays, triangles] block of the vectorized plain searches
+# (each of their temporaries is one such block).
+_PLAIN_BLOCK = 1 << 24
+
+
+def _search_tris_last(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint, live=None):
+    """Closest hit with the triangles LAST, the order of the culled and
+    big-mesh searches (``_search`` :828-835, ``_culled_tris_rows``): the
+    spheres and planes as ``_search_plain``, then every row of the [T,17]
+    triangle tensor ``tri`` (leaf order), which wins only with a strictly
+    smaller t.  So a sphere or plane keeps an exact tie with a triangle,
+    and among triangles the lowest index wins a tie.  Vectorized over
+    [rays, triangle block] blocks; each element's arithmetic is
+    ``_search_plain``'s, so the two round alike.  Lanes outside ``live``
+    search nothing and get the miss winner."""
+    if live is not None and not bool(live.all()):
+        lanes = torch.nonzero(live).squeeze(1)
+        sub = _search_tris_last(tri, sph, pln, *(c[lanes] for c in (
+            ox, oy, oz, dx, dy, dz)), mint)
+        out = _search_plain([], [], [], ox, oy, oz, dx, dy, dz, mint)
+        for w, v in zip(out, sub):
+            w[lanes] = v
+        return out
+    t_best, wnx, wny, wnz, wmat, wfam, widx = _search_plain(
+        [], sph, pln, ox, oy, oz, dx, dy, dz, mint)
+    n, n_tri = ox.shape[0], tri.shape[0]
+    block = max(1, min(n_tri, _PLAIN_BLOCK // max(n, 1)))
+    oxb, oyb, ozb, dxb, dyb, dzb = (c[:, None] for c in (ox, oy, oz, dx, dy, dz))
+    for base in range(0, n_tri, block):
+        rows = tri[base:base + block]
+        (nx, ny, nz, e0x, e0y, e0z, e1x, e1y, e1z, v0n, v0e0, v0e1, g00, g11,
+         g01, inv_det, mat) = (c[None, :] for c in rows.unbind(1))
+        dn = nx * dxb + ny * dyb + nz * dzb
+        on = nx * oxb + ny * oyb + nz * ozb
+        de0 = e0x * dxb + e0y * dyb + e0z * dzb
+        de1 = e1x * dxb + e1y * dyb + e1z * dzb
+        oe0 = e0x * oxb + e0y * oyb + e0z * ozb
+        oe1 = e1x * oxb + e1y * oyb + e1z * ozb
+        t = (v0n - on) / _safe_den(dn)
+        b0 = oe0 + t * de0 - v0e0
+        b1 = oe1 + t * de1 - v0e1
+        u = inv_det * (g11 * b0 - g01 * b1)
+        v = inv_det * (g00 * b1 - g01 * b0)
+        valid = ((mint < t) & (t < t_best[:, None]) & (u > 0.0) & (v > 0.0)
+                 & (u + v < 1.0))
+        cmin, first = _min_and_first_index(
+            torch.where(valid, t, torch.full_like(t, _BIG)), dim=1)
+        better = cmin < t_best
+        t_best = torch.where(better, cmin, t_best)
+        wnx = torch.where(better, rows[first, 0], wnx)
+        wny = torch.where(better, rows[first, 1], wny)
+        wnz = torch.where(better, rows[first, 2], wnz)
+        wmat = torch.where(better, rows[first, 16], wmat)
+        wfam = torch.where(better, 0, wfam)
+        widx = torch.where(better, (base + first).to(torch.int32), widx)
+    return t_best, wnx, wny, wnz, wmat, wfam, widx
+
+
+def _plain_search(tables, counts, mint, tris_last, on_search=None):
+    """(search, material rows) of the plain versions: ``search(o3, d3,
+    live=None)`` -> winner for the rays with origin ``o3`` and direction
+    ``d3`` ((x, y, z) tuples of f32[N]), the row form's ``_search_plain``
+    (every lane; ``live`` unused) or, with ``tris_last``, the BVH forms'
+    ``_search_tris_last``.  ``on_search``, if given, is called with
+    ``(o3, d3, live)`` of every search first (``live`` None for every
+    lane), so a bound can count the work the kernel does on those rays
+    (``count_bvh_walk``)."""
+    tri, sph, pln, mat = _unpack_fwd(tables, counts, tri_rows=tris_last)
+
+    def search(o3, d3, live=None):
+        if on_search is not None:
+            on_search(o3, d3, live)
+        if not tris_last:
+            return _search_plain(tri, sph, pln, *o3, *d3, mint)
+        return _search_tris_last(tri, sph, pln, *o3, *d3, mint, live)
+
+    return search, mat
+
+
 def _sky_add(rr, rg, rb, cr, cg, cb, tr, tg, tb, sky_t, mask):
     """Add the gathered color and the sky behind ``mask``'s lanes."""
     rr = torch.where(mask, rr + cr + tr * (_WHITE[0] + _SKY[0] * sky_t), rr)
@@ -418,132 +565,95 @@ def _shade_geom_plain(pix, frame, salt, ox, oy, oz, dx, dy, dz, winner, ior,
     return px, py, pz, nX, nY, nZ, out_dx, out_dy, out_dz, off, is_lam
 
 
-def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
-                rays=None, cam_params=None, cam_mode=PINHOLE, jitter_salt=0,
-                mint=0.0, collect=False, integ="kajiya", work=None):
-    """The plain PyTorch version of the whole-path kernel -> f32[3, N], or
-    (f32[3, N], ``PathRecord``) with ``collect``.
+def _no_count(key, mask):
+    """The work counter of a plain version run without a ``work`` dict."""
 
-    ``tables``/``counts`` from ``pack_fwd``; ``pix`` int64[N] pixel ids;
-    ``rays`` six f32[N] components (ox, oy, oz, dx, dy, dz) or None to
-    generate camera rays from ``cam_params``.  The bounce-b RNG salt is
-    ``salt_base + 4 b``.  ``integ`` is the bounce integrator: "kajiya",
-    "whitted" (a shadow search per Lambert hit, which ends the path) or
-    "cook" (a Lambert scatter ends on the next hit's emission or the sky,
-    with one tail search after the last bounce).  Mirrors ``_search``,
-    ``_shade``, ``_shade_whitted``, ``_shade_cook``, the Cook tail
-    (:1235-1253) and the ``collect`` records (:1202-1215) of the JAX
-    kernel line for line; records are a Kajiya-only path (:1718).  A dict
-    passed as ``work`` gets the lanes of the work the kernel does on this
-    data, for a bound: "search" every closest-hit search of a live lane
-    (bounce, Whitted shadow and Cook tail searches), "scatter" every hit
-    that runs the scatter shading and its random draw, "lambert" every
-    Whitted Lambert hit (shadow ray and direct term, no scatter) and "end"
-    every lane that ends on the sky or on Cook's emission."""
-    if integ not in INTEGS:
-        raise ValueError(f"unknown integrator {integ!r}")
-    if integ != "kajiya" and collect:
-        raise ValueError("hit records are a Kajiya-only path")
-    tri, sph, pln, mat = _unpack_fwd(tables, counts)
 
-    if rays is None:
-        ox, oy, oz, dx, dy, dz = _camera_rays_plain(
-            cam_params.tolist(), cam_mode, pix, frame, jitter_salt)
-    else:
-        ox, oy, oz, dx, dy, dz = rays
-    ones = torch.ones_like(ox)
-    zeros = torch.zeros_like(ox)
-    tr = tg = tb = ones
-    # Whitted starts its path color at the ambient term (:1183-1186).
-    cr = cg = cb = torch.full_like(ox, _AMBIENT) if integ == "whitted" else zeros
-    rr = rg = rb = zeros
-    active = torch.ones_like(ox, dtype=torch.bool)
-    final = torch.zeros_like(active)
-    rec_fields, rec_hits = [], []
+def _shade_plain(integ, mat, pix, frame, salt, state, winner, final, search,
+                 count=_no_count):
+    """One bounce of a bounce integrator at a search's winner, shape-
+    generic plain tensor code: Kajiya (``_shade`` :925), Whitted
+    (``_shade_whitted`` :961: a Lambert hit casts a shadow ray with
+    ``search(o3, d3, live)`` and ends) or Cook (``_shade_cook`` :1016:
+    a lane whose previous bounce scattered off Lambert, ``final``, ends on
+    this hit's emission).  ``state`` holds the 15 carries (``STATE_FIELDS``)
+    and the bool ``active``; returns (the new state, the new ``final``).
+    ``count(key, mask)`` receives the lanes of each kind of work (see
+    ``trace_plain``)."""
+    ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, rr, rg, rb, active = state
+    hit = winner[5] >= 0
+    # Kajiya shifts d.y into [0,1] (integrators.glsl:579); Whitted and
+    # Cook use raw d.y.
+    sky_t = dy * 0.5 + 0.5 if integ == "kajiya" else dy
+    count("end", active & ~hit)
+    rr, rg, rb = _sky_add(rr, rg, rb, cr, cg, cb, tr, tg, tb, sky_t,
+                          active & ~hit)
+    active = active & hit
 
-    def count(key, mask):
-        if work is not None:
-            work[key] = work.get(key, 0) + int(mask.sum())
+    m = _mat_fetch(mat, winner[4])
+    if integ == "cook":
+        fin_now = active & final
+        count("end", fin_now)
+        rr = torch.where(fin_now, rr + cr + tr * m[:, 3], rr)
+        rg = torch.where(fin_now, rg + cg + tg * m[:, 4], rg)
+        rb = torch.where(fin_now, rb + cb + tb * m[:, 5], rb)
+        active = active & ~final
+    cr = torch.where(active, cr + tr * m[:, 3], cr)
+    cg = torch.where(active, cg + tg * m[:, 4], cg)
+    cb = torch.where(active, cb + tb * m[:, 5], cb)
 
-    for b in range(int(max_bounces)):
-        if collect:
-            rec_fields.append(torch.stack([ox, oy, oz, dx, dy, dz, tr, tg, tb,
-                                           cr, cg, cb, active.to(torch.float32)]))
-        count("search", active)
-        winner = _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint)
-        wfam, widx = winner[5], winner[6]
-        hit = wfam >= 0
-        if collect:
-            live_hit = active & hit
-            rec_hits.append(torch.stack([torch.where(live_hit, wfam, -1),
-                                         torch.where(live_hit, widx, -1)]))
+    (px, py, pz, nX, nY, nZ, out_dx, out_dy, out_dz, off,
+     lam) = _shade_geom_plain(pix, frame, salt, ox, oy, oz, dx, dy, dz,
+                              winner, m[:, 6], m[:, 7])
 
-        # Kajiya shifts d.y into [0,1] (integrators.glsl:579); Whitted and
-        # Cook use raw d.y.
-        sky_t = dy * 0.5 + 0.5 if integ == "kajiya" else dy
-        count("end", active & ~hit)
-        rr, rg, rb = _sky_add(rr, rg, rb, cr, cg, cb, tr, tg, tb, sky_t,
-                              active & ~hit)
-        active = active & hit
+    if integ == "whitted":
+        # Lambert lanes: a shadow ray toward the directional light, then
+        # the path ends.
+        is_lam = active & lam
+        count("search", is_lam)
+        count("lambert", is_lam)
+        ones = torch.ones_like(ox)
+        sw = search((px + _EPSILON * nX, py + _EPSILON * nY, pz + _EPSILON * nZ),
+                    (_LDIR[0] * ones, _LDIR[1] * ones, _LDIR[2] * ones), is_lam)
+        in_shadow = (sw[5] >= 0) & is_lam
+        cos_l = torch.clamp(_LDIR[0] * nX + _LDIR[1] * nY + _LDIR[2] * nZ,
+                            min=0.0)
+        lit = _LIGHT_I * cos_l
+        lam_r = torch.where(in_shadow, cr, cr + tr * m[:, 0] * lit)
+        lam_g = torch.where(in_shadow, cg, cg + tg * m[:, 1] * lit)
+        lam_b = torch.where(in_shadow, cb, cb + tb * m[:, 2] * lit)
+        rr = torch.where(is_lam, rr + lam_r, rr)
+        rg = torch.where(is_lam, rg + lam_g, rg)
+        rb = torch.where(is_lam, rb + lam_b, rb)
+        active = active & ~is_lam
+    elif integ == "cook":
+        final = active & lam
+    count("scatter", active)
 
-        m = _mat_fetch(mat, winner[4])
-        if integ == "cook":
-            fin_now = active & final
-            count("end", fin_now)
-            rr = torch.where(fin_now, rr + cr + tr * m[:, 3], rr)
-            rg = torch.where(fin_now, rg + cg + tg * m[:, 4], rg)
-            rb = torch.where(fin_now, rb + cb + tb * m[:, 5], rb)
-            active = active & ~final
-        cr = torch.where(active, cr + tr * m[:, 3], cr)
-        cg = torch.where(active, cg + tg * m[:, 4], cg)
-        cb = torch.where(active, cb + tb * m[:, 5], cb)
+    ox = torch.where(active, px + off * nX, ox)
+    oy = torch.where(active, py + off * nY, oy)
+    oz = torch.where(active, pz + off * nZ, oz)
+    dx = torch.where(active, out_dx, dx)
+    dy = torch.where(active, out_dy, dy)
+    dz = torch.where(active, out_dz, dz)
+    tr = torch.where(active, tr * m[:, 0], tr)
+    tg = torch.where(active, tg * m[:, 1], tg)
+    tb = torch.where(active, tb * m[:, 2], tb)
+    return (ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, rr, rg, rb,
+            active), final
 
-        (px, py, pz, nX, nY, nZ, out_dx, out_dy, out_dz, off,
-         lam) = _shade_geom_plain(pix, frame, salt_base + 4 * b, ox, oy, oz,
-                                  dx, dy, dz, winner, m[:, 6], m[:, 7])
 
-        if integ == "whitted":
-            # Lambert lanes: a shadow ray toward the directional light, then
-            # the path ends.
-            is_lam = active & lam
-            count("search", is_lam)
-            count("lambert", is_lam)
-            sw = _search_plain(tri, sph, pln, px + _EPSILON * nX,
-                               py + _EPSILON * nY, pz + _EPSILON * nZ,
-                               _LDIR[0] * ones, _LDIR[1] * ones,
-                               _LDIR[2] * ones, mint)
-            in_shadow = (sw[5] >= 0) & is_lam
-            cos_l = torch.clamp(_LDIR[0] * nX + _LDIR[1] * nY + _LDIR[2] * nZ,
-                                min=0.0)
-            lit = _LIGHT_I * cos_l
-            lam_r = torch.where(in_shadow, cr, cr + tr * m[:, 0] * lit)
-            lam_g = torch.where(in_shadow, cg, cg + tg * m[:, 1] * lit)
-            lam_b = torch.where(in_shadow, cb, cb + tb * m[:, 2] * lit)
-            rr = torch.where(is_lam, rr + lam_r, rr)
-            rg = torch.where(is_lam, rg + lam_g, rg)
-            rb = torch.where(is_lam, rb + lam_b, rb)
-            active = active & ~is_lam
-        elif integ == "cook":
-            final = active & lam
-        count("scatter", active)
-
-        ox = torch.where(active, px + off * nX, ox)
-        oy = torch.where(active, py + off * nY, oy)
-        oz = torch.where(active, pz + off * nZ, oz)
-        dx = torch.where(active, out_dx, dx)
-        dy = torch.where(active, out_dy, dy)
-        dz = torch.where(active, out_dz, dz)
-        tr = torch.where(active, tr * m[:, 0], tr)
-        tg = torch.where(active, tg * m[:, 1], tg)
-        tb = torch.where(active, tb * m[:, 2], tb)
-
-    if integ == "cook" and int(max_bounces) > 0:
-        # A Lambert scatter on the last bounce still resolves: one more
-        # search, ending on emission or the sky (:1235-1253).
+def _finish_plain(integ, style, state, final, search, mat, count=_no_count):
+    """After the last bounce -> f32[3, N]: Cook's tail (a Lambert scatter
+    on the last bounce still resolves: one more search, ending on emission
+    or the sky, :1235-1253), then ``style="standard"``'s gathered color of
+    the lanes still active (:1254-1257)."""
+    ox, oy, oz, dx, dy, dz, tr, tg, tb, cr, cg, cb, rr, rg, rb, active = state
+    if integ == "cook" and final is not None:
         fin = active & final
         count("search", fin)
         count("end", fin)
-        tw = _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint)
+        tw = search((ox, oy, oz), (dx, dy, dz), fin)
         m2 = _mat_fetch(mat, tw[4])
         hit2 = tw[5] >= 0
         rr = torch.where(fin, rr + cr + tr * torch.where(
@@ -557,7 +667,79 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
         rr = torch.where(active, rr + cr, rr)
         rg = torch.where(active, rg + cg, rg)
         rb = torch.where(active, rb + cb, rb)
-    out = torch.stack([rr, rg, rb])
+    return torch.stack([rr, rg, rb])
+
+
+def _start_state(rays, integ):
+    """The carries at a path's start (``STATE_FIELDS``): unit throughput,
+    the gathered color zero (Whitted: the ambient term, :1183-1186), no
+    radiance, every lane active."""
+    ox = rays[0]
+    ones, zeros = torch.ones_like(ox), torch.zeros_like(ox)
+    c0 = torch.full_like(ox, _AMBIENT) if integ == "whitted" else zeros
+    return (*rays, ones, ones, ones, c0, c0, c0, zeros, zeros, zeros,
+            torch.ones_like(ox, dtype=torch.bool))
+
+
+def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
+                rays=None, cam_params=None, cam_mode=PINHOLE, jitter_salt=0,
+                mint=0.0, collect=False, integ="kajiya", work=None,
+                tris_last=False, on_search=None):
+    """The plain PyTorch version of the whole-path kernel -> f32[3, N], or
+    (f32[3, N], ``PathRecord``) with ``collect``.
+
+    ``tables``/``counts`` from ``pack_fwd``; ``pix`` int64[N] pixel ids;
+    ``rays`` six f32[N] components (ox, oy, oz, dx, dy, dz) or None to
+    generate camera rays from ``cam_params``.  The bounce-b RNG salt is
+    ``salt_base + 4 b``.  ``integ`` is the bounce integrator: "kajiya",
+    "whitted" (a shadow search per Lambert hit, which ends the path) or
+    "cook" (a Lambert scatter ends on the next hit's emission or the sky,
+    with one tail search after the last bounce).  ``tris_last`` searches
+    as K1's BVH form does (a BVH scene's leaf-ordered tables, triangles
+    after spheres and planes: ``_search_tris_last``), otherwise as its row
+    form.  Mirrors ``_search``, ``_shade``, ``_shade_whitted``,
+    ``_shade_cook``, the Cook tail (:1235-1253) and the ``collect`` records
+    (:1202-1215) of the JAX kernel line for line; records are a
+    Kajiya-only path (:1718).  A dict passed as ``work`` gets the lanes of
+    the work the kernel does on this data, for a bound: "search" every
+    closest-hit search of a live lane (bounce, Whitted shadow and Cook tail
+    searches), "scatter" every hit that runs the scatter shading and its
+    random draw, "lambert" every Whitted Lambert hit (shadow ray and direct
+    term, no scatter) and "end" every lane that ends on the sky or on
+    Cook's emission.  ``on_search`` sees the rays of every search
+    (``_plain_search``)."""
+    if integ not in INTEGS:
+        raise ValueError(f"unknown integrator {integ!r}")
+    if integ != "kajiya" and collect:
+        raise ValueError("hit records are a Kajiya-only path")
+    search, mat = _plain_search(tables, counts, mint, tris_last, on_search)
+
+    if rays is None:
+        rays = _camera_rays_plain(cam_params.tolist(), cam_mode, pix, frame,
+                                  jitter_salt)
+    state = _start_state(tuple(rays), integ)
+    final = torch.zeros_like(state[15])
+    rec_fields, rec_hits = [], []
+
+    def count(key, mask):
+        if work is not None:
+            work[key] = work.get(key, 0) + int(mask.sum())
+
+    nb = int(max_bounces)
+    for b in range(nb):
+        active = state[15]
+        if collect:
+            rec_fields.append(torch.stack([*state[:12], active.to(torch.float32)]))
+        count("search", active)
+        winner = search(state[:3], state[3:6], active)
+        if collect:
+            live_hit = active & (winner[5] >= 0)
+            rec_hits.append(torch.stack([torch.where(live_hit, winner[5], -1),
+                                         torch.where(live_hit, winner[6], -1)]))
+        state, final = _shade_plain(integ, mat, pix, frame, salt_base + 4 * b,
+                                    state, winner, final, search, count)
+    out = _finish_plain(integ, style, state, final if nb else None, search, mat,
+                        count)
     if collect:
         return out, PathRecord(torch.stack(rec_fields), torch.stack(rec_hits))
     return out
@@ -649,21 +831,20 @@ def _primary_finalize(mode, nrays, mat, pix, frame, salt_base, rays, winner,
 
 
 def primary_plain(tables, counts, pix, frame, salt_base, mode, nrays,
-                  cam_params, cam_mode=PINHOLE, jitter_salt=0, mint=0.0):
+                  cam_params, cam_mode=PINHOLE, jitter_salt=0, mint=0.0,
+                  tris_last=False, on_search=None):
     """The plain PyTorch version of the primary-hit kernel -> f32[3, N]:
     camera rays from ``pix`` (int64[N]), one closest hit, then the
     finalize of debug ``mode`` (``PRIMARY_MODES``); AO casts ``nrays``
-    cosine probes with salts ``salt_base + 4 i``."""
+    cosine probes with salts ``salt_base + 4 i``.  ``tris_last`` searches
+    as B3's BVH form does; ``on_search`` sees the rays of every search
+    (``_plain_search``)."""
     if mode not in PRIMARY_MODES:
         raise ValueError(f"mode {mode} is not a primary-hit mode")
-    tri, sph, pln, mat = _unpack_fwd(tables, counts)
+    search, mat = _plain_search(tables, counts, mint, tris_last, on_search)
     rays = _camera_rays_plain(cam_params.tolist(), cam_mode, pix, frame,
                               jitter_salt)
-
-    def search(o3, d3, mask):
-        return _search_plain(tri, sph, pln, *o3, *d3, mint)
-
-    winner = search(rays[:3], rays[3:], None)
+    winner = search(rays[:3], rays[3:])
     return torch.stack(_primary_finalize(mode, int(nrays), mat, pix, frame,
                                          salt_base, rays, winner, search))
 
@@ -745,6 +926,55 @@ def hart_plain(htables, n_tri, pix, frame, cam_params, cam_mode=PINHOLE,
     return torch.stack([val, val, val])
 
 
+def bigmesh_search_plain(tables, counts, rays, live, mint=0.0):
+    """The plain version of the big-mesh kernel's search-only instance:
+    ``rays`` the six f32[N] ray components, ``live`` bool[N] -> (f32[5, N]
+    winner t, normal xyz, material id; int32[2, N] family, index): every
+    triangle brute force, triangles last (``_search_tris_last``), as the
+    culled walk finds them (``_culled_tris_rows`` :472); a lane outside
+    ``live`` gets the miss winner (t 3e38, family and index -1)."""
+    tri, sph, pln, _ = _unpack_fwd(tables, counts, tri_rows=True)
+    w = _search_tris_last(tri, sph, pln, *rays, mint, live)
+    return torch.stack(w[:5]), torch.stack(w[5:])
+
+
+def bigmesh_bounce_plain(tables, counts, pix, state, frame, salt, mint=0.0):
+    """The plain version of the big-mesh kernel's bounce instance: ``state``
+    f32[16, N] (``STATE_FIELDS``), ``pix`` int64[N] -> the state after one
+    Kajiya bounce (the search of ``bigmesh_search_plain``, then ``_shade``
+    :925 with the RNG salt ``salt``).  A dead lane passes through exactly
+    (:2593-2597); the standard-style tail is the caller's (:3097-3101)."""
+    tri, sph, pln, mat = _unpack_fwd(tables, counts, tri_rows=True)
+    rows = state.unbind(0)
+    active = rows[15] > 0.0
+    winner = _search_tris_last(tri, sph, pln, *rows[:6], mint, active)
+    new, _ = _shade_plain("kajiya", mat, pix, frame, salt, (*rows[:15], active),
+                          winner, None, None)
+    return torch.stack([*new[:15], new[15].to(torch.float32)])
+
+
+def bigmesh_distance_plain(htables, n_tri, p, live, tri_chunk=None):
+    """The plain version of the big-mesh Hart distance kernel: points ``p``
+    f32[3, N], ``live`` bool[N] -> f32[N], sqrt of the minimum iq squared
+    distance (``_tri_dist2``) over every triangle of ``htables``
+    (``pack_hart``), from 3e38 down; inf on a lane outside ``live``.  The
+    minimum is exact, so the order of the triangles does not matter."""
+    out = torch.full_like(p[0], float("inf"))
+    lanes = torch.nonzero(live).squeeze(1)
+    if lanes.numel() == 0:
+        return out
+    px, py, pz = (c[lanes][:, None] for c in p.unbind(0))
+    n = lanes.numel()
+    block = tri_chunk or max(1, min(n_tri, _PLAIN_BLOCK // 4 // n))
+    cols = htables.reshape(n_tri, 9).unbind(1)
+    d2 = torch.full((n,), _BIG, dtype=torch.float32, device=p.device)
+    for base in range(0, n_tri, block):
+        vs = [c[None, base:base + block] for c in cols]
+        d2 = torch.minimum(d2, torch.amin(_tri_dist2(px, py, pz, *vs), dim=1))
+    out[lanes] = torch.sqrt(d2)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
@@ -756,8 +986,8 @@ def _path_lib():
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.rvpt_path_trace.argtypes = [
             ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            ptr, ptr, ptr, i32, u32, u32, u32, i32, i32, i32, ctypes.c_float,
-            i32, ptr,
+            ptr, ptr, ptr, ptr, i32, u32, u32, u32, i32, i32, i32,
+            ctypes.c_float, i32, ptr,
         ]
         lib.rvpt_path_trace.restype = i32
         lib.rvpt_max_table_floats.argtypes = []
@@ -766,17 +996,40 @@ def _path_lib():
     return lib
 
 
-def _scene_lib(load, tables, counts):
-    """Check the row-form tables (CUDA, sized by ``counts``), then load the
-    kernel's library and check they fit its shared-memory staging."""
+def _scene_lib(load, tables, counts, nodes=None):
+    """Check the row-form tables (CUDA, sized by ``counts``) and, for a BVH
+    form, the ``pack_bvh`` nodes; then load the kernel's library and check
+    that the tables it stages fit its shared memory (all of them, or with
+    ``nodes`` all but the triangles, which the walk reads from device
+    memory)."""
     t, s, p, nm = counts
     check_cuda(tables, torch.float32, "tables", 17 * t + 5 * s + 5 * p + 8 * nm)
+    if nodes is not None:
+        _check_nodes(nodes, tables.device)
+        if t == 0:
+            raise ValueError("the BVH form needs triangles")
     lib = load()
-    if tables.numel() > lib.rvpt_max_table_floats():
+    staged = tables.numel() - (17 * t if nodes is not None else 0)
+    if staged > lib.rvpt_max_table_floats():
         raise ValueError(
-            f"scene tables of {tables.numel()} floats exceed the kernel's "
+            f"scene tables of {staged} floats exceed the kernel's "
             f"shared-memory staging ({lib.rvpt_max_table_floats()})")
     return lib
+
+
+def _check_nodes(nodes, dev):
+    """Raise unless ``nodes`` are ``pack_bvh``'s [M, 8] rows on ``dev``,
+    16-byte aligned (the walk loads a node as two float4)."""
+    check_cuda(nodes, torch.float32, "BVH nodes", device=dev)
+    if nodes.dim() != 2 or nodes.shape[1] != len(NODE_FIELDS):
+        raise ValueError(f"BVH nodes: need pack_bvh's [M, {len(NODE_FIELDS)}] "
+                         f"rows, got {tuple(nodes.shape)}")
+    if nodes.data_ptr() % 16:
+        raise ValueError("BVH nodes: need a 16-byte aligned buffer")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _check_camera(pix, n, cam_params, dev):
@@ -789,20 +1042,26 @@ def _check_camera(pix, n, cam_params, dev):
 
 def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
                        style, rays=None, cam_params=None, cam_mode=PINHOLE,
-                       jitter_salt=0, mint=0.0, collect=False, integ="kajiya"):
+                       jitter_salt=0, mint=0.0, collect=False, integ="kajiya",
+                       nodes=None):
     """Launch the CUDA kernel -> f32[3, n] on the tables' card, or
     (f32[3, n], ``PathRecord``) with ``collect``.
 
     ``pix`` int64[n] pixel ids, or None for the ids 0..n-1 (the raster
-    film).  Other arguments as ``trace_plain``.  Counts one launch in
+    film).  ``nodes`` (``pack_bvh``) selects the BVH form, which walks the
+    tree for the triangles after the spheres and planes
+    (``trace_plain(tris_last=True)``); None the row form.  Other arguments
+    as ``trace_plain``.  Counts one launch in
     ``launch_path_kernel.launches``."""
     if integ not in INTEGS:
         raise ValueError(f"unknown integrator {integ!r}")
     if integ != "kajiya" and collect:
         raise ValueError("hit records are a Kajiya-only path")
+    if collect and nodes is not None:
+        raise NotImplementedError("hit records of BVH scenes are ROADMAP A12")
     t, s, p, nm = counts
     dev = tables.device
-    lib = _scene_lib(_path_lib, tables, counts)
+    lib = _scene_lib(_path_lib, tables, counts, nodes)
     if rays is None:
         _check_camera(pix, n, cam_params, dev)
         ray_ptrs = [None] * 6
@@ -823,8 +1082,8 @@ def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
             torch.empty((nb, 2, n), dtype=torch.int32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rvpt_path_trace(
-        tables.data_ptr(), t, s, p, nm, cam_ptr,
-        None if pix is None else pix.data_ptr(), *ray_ptrs, out.data_ptr(),
+        tables.data_ptr(), t, s, p, nm, _ptr(nodes), cam_ptr, _ptr(pix),
+        *ray_ptrs, out.data_ptr(),
         None if record is None else record.fields.data_ptr(),
         None if record is None else record.hits.data_ptr(), n,
         int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
@@ -844,8 +1103,8 @@ def _primary_lib():
     if not hasattr(lib, "_rvpt_bound"):
         ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
         lib.rvpt_primary.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr,
-                                     i32, u32, u32, u32, i32, i32, f32, i32,
-                                     f32, ptr]
+                                     ptr, i32, u32, u32, u32, i32, i32, f32,
+                                     i32, f32, ptr]
         lib.rvpt_primary.restype = i32
         lib.rvpt_max_table_floats.argtypes = []
         lib.rvpt_max_table_floats.restype = i32
@@ -855,10 +1114,11 @@ def _primary_lib():
 
 def launch_primary_kernel(tables, counts, pix, n, frame, salt_base, mode,
                           nrays, cam_params, cam_mode=PINHOLE, jitter_salt=0,
-                          mint=0.0):
+                          mint=0.0, nodes=None):
     """Launch the CUDA primary-hit kernel B3 -> f32[3, n] on the tables'
-    card.  ``pix`` int64[n] pixel ids, or None for the ids 0..n-1.  Other
-    arguments as ``primary_plain``.  Counts one launch in
+    card.  ``pix`` int64[n] pixel ids, or None for the ids 0..n-1;
+    ``nodes`` (``pack_bvh``) selects the BVH form.  Other arguments as
+    ``primary_plain``.  Counts one launch in
     ``launch_primary_kernel.launches``."""
     if mode not in PRIMARY_MODES:
         raise ValueError(f"mode {mode} is not a primary-hit mode")
@@ -867,12 +1127,12 @@ def launch_primary_kernel(tables, counts, pix, n, frame, salt_base, mode,
         raise ValueError(f"nrays must be at least 1, got {nrays}")
     t, s, p, nm = counts
     dev = tables.device
-    lib = _scene_lib(_primary_lib, tables, counts)
+    lib = _scene_lib(_primary_lib, tables, counts, nodes)
     _check_camera(pix, n, cam_params, dev)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     err = lib.rvpt_primary(
-        tables.data_ptr(), t, s, p, nm, cam_params.data_ptr(),
-        None if pix is None else pix.data_ptr(), out.data_ptr(), n,
+        tables.data_ptr(), t, s, p, nm, _ptr(nodes), cam_params.data_ptr(),
+        _ptr(pix), out.data_ptr(), n,
         int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
         int(jitter_salt) & 0xFFFFFFFF, int(mode), int(cam_mode), float(mint),
         nrays, _f32(1.0 / nrays), torch.cuda.current_stream(dev).cuda_stream)
@@ -919,6 +1179,147 @@ def launch_hart_kernel(htables, n_tri, pix, n, frame, cam_params,
 launch_hart_kernel.launches = 0
 
 
+def _bigmesh_lib():
+    lib = load_library("bigmesh_kernel")
+    if not hasattr(lib, "_rvpt_bound"):
+        ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        lib.rvpt_bigmesh.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr,
+                                     i32, ptr, ptr, ptr, ptr, i32, u32, u32,
+                                     ctypes.c_float, ptr]
+        lib.rvpt_bigmesh.restype = i32
+        lib.rvpt_max_table_floats.argtypes = []
+        lib.rvpt_max_table_floats.restype = i32
+        lib._rvpt_bound = True
+    return lib
+
+
+def _run_bigmesh(tables, counts, nodes, pix, state, frame, salt, mint,
+                 search_only, count=False):
+    """One launch of the big-mesh kernel's bounce, search-only or (with
+    ``count``) counting instance -> out_state, or (out_w, out_i, out_count
+    or None)."""
+    rows = 7 if search_only else len(STATE_FIELDS)
+    t, s, p, nm = counts
+    dev = tables.device
+    lib = _scene_lib(_bigmesh_lib, tables, counts, nodes)
+    if state.dim() != 2 or state.shape[0] != rows:
+        raise ValueError(f"state: need [{rows}, N], got {tuple(state.shape)}")
+    n = state.shape[1]
+    check_cuda(state, torch.float32, "state", device=dev)
+    if not search_only:
+        check_cuda(pix, torch.int64, "pixel", n, dev)
+    out_state = out_w = out_i = out_c = None
+    if search_only:
+        out_w = torch.empty((5, n), dtype=torch.float32, device=dev)
+        out_i = torch.empty((2, n), dtype=torch.int32, device=dev)
+        if count:
+            out_c = torch.empty((2, n), dtype=torch.int32, device=dev)
+    else:
+        out_state = torch.empty_like(state)
+    err = lib.rvpt_bigmesh(
+        tables.data_ptr(), t, s, p, nm, nodes.data_ptr(),
+        None if search_only else pix.data_ptr(), state.data_ptr(), rows - 1,
+        _ptr(out_state), _ptr(out_w), _ptr(out_i), _ptr(out_c), n,
+        int(frame) & 0xFFFFFFFF, int(salt) & 0xFFFFFFFF, float(mint),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, err, "big-mesh kernel")
+    return (out_w, out_i, out_c) if search_only else out_state
+
+
+def launch_bigmesh_kernel(tables, counts, nodes, pix, state, frame, salt,
+                          mint=0.0, search_only=False):
+    """Launch the CUDA big-mesh kernel B5 on the tables' card: per ray the
+    BVH search (spheres and planes, then the triangles by the tree), then
+    one Kajiya bounce.
+
+    ``state`` is f32[16, N] (``STATE_FIELDS``) and the result the state
+    after the bounce, as ``bigmesh_bounce_plain``; ``pix`` int64[N].  With
+    ``search_only`` ``state`` is f32[7, N] (the ray, then live as 0/1),
+    ``pix`` is unused and the result the winner of
+    ``bigmesh_search_plain``.  Counts one launch in
+    ``launch_bigmesh_kernel.launches``."""
+    out = _run_bigmesh(tables, counts, nodes, pix, state, frame, salt, mint,
+                       search_only)
+    launch_bigmesh_kernel.launches += 1
+    return out[:2] if search_only else out
+
+
+def count_bvh_walk(tables, counts, nodes, rays, live, mint=0.0):
+    """The BVH walk's work on the card, for a bound: the big-mesh kernel's
+    counting instance (its search-only walk of ``bvh_search.cuh``, the walk
+    that K1's and B3's BVH forms and B5 share, with COUNT) on ``rays``
+    (six f32[N]) where ``live`` (bool[N]) -> (node slab tests, the root's
+    included; triangle tests), summed over the lanes.  It serves the bounds
+    of chip_smoke.py, not a display path, so it adds no launch of B5."""
+    state = torch.stack([*rays, live.to(torch.float32)]).contiguous()
+    _, _, c = _run_bigmesh(tables, counts, nodes, None, state, 0, 0, mint,
+                           True, count=True)
+    box, tri = c.sum(dim=1, dtype=torch.int64).tolist()
+    return box, tri
+
+
+launch_bigmesh_kernel.launches = 0
+
+
+def _bigmesh_hart_lib():
+    lib = load_library("bigmesh_hart")
+    if not hasattr(lib, "_rvpt_bound"):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.rvpt_bigmesh_hart.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr,
+                                          i32, ptr]
+        lib.rvpt_bigmesh_hart.restype = i32
+        lib._rvpt_bound = True
+    return lib
+
+
+def _run_bigmesh_hart(htables, n_tri, nodes, p, live, count=False):
+    """One launch of the big-mesh Hart kernel, or (with ``count``) of its
+    counting instance -> (f32[N], int32[2, N] or None)."""
+    dev = htables.device
+    check_cuda(htables, torch.float32, "Hart tables", 9 * n_tri)
+    _check_nodes(nodes, dev)
+    if p.dim() != 2 or p.shape[0] != 3:
+        raise ValueError(f"points: need [3, N], got {tuple(p.shape)}")
+    n = p.shape[1]
+    check_cuda(p, torch.float32, "points", device=dev)
+    check_cuda(live, torch.float32, "live", n, dev)
+    if n_tri == 0:
+        raise ValueError("the big-mesh Hart kernel needs triangles")
+    lib = _bigmesh_hart_lib()
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    out_c = torch.empty((2, n), dtype=torch.int32, device=dev) if count else None
+    err = lib.rvpt_bigmesh_hart(
+        htables.data_ptr(), nodes.data_ptr(), n_tri, p.data_ptr(),
+        live.data_ptr(), out.data_ptr(), _ptr(out_c), n,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, err, "big-mesh Hart kernel")
+    return out, out_c
+
+
+def launch_bigmesh_hart(htables, n_tri, nodes, p, live):
+    """Launch the CUDA big-mesh Hart distance kernel B6 on the tables' card:
+    points ``p`` f32[3, N], ``live`` f32[N] (0/1) -> f32[N] as
+    ``bigmesh_distance_plain``.  Counts one launch in
+    ``launch_bigmesh_hart.launches``."""
+    out, _ = _run_bigmesh_hart(htables, n_tri, nodes, p, live)
+    launch_bigmesh_hart.launches += 1
+    return out
+
+
+def count_hart_walk(htables, n_tri, nodes, p, live):
+    """B6's walk's work on the card, for a bound: its counting instance on
+    points ``p`` f32[3, N] where ``live`` (bool[N]) -> (node box
+    distances, the root's included; triangle distances), summed over the
+    points.  Adds no launch of B6."""
+    _, c = _run_bigmesh_hart(htables, n_tri, nodes, p.contiguous(),
+                             live.to(torch.float32).contiguous(), count=True)
+    box, tri = c.sum(dim=1, dtype=torch.int64).tolist()
+    return box, tri
+
+
+launch_bigmesh_hart.launches = 0
+
+
 def _pixels(pixel):
     """(n, pixel ids or None) of a ``pixel`` argument: an int64[N] tensor,
     or an int N meaning the raster ids 0..N-1."""
@@ -945,14 +1346,24 @@ class PathTracer(nn.Module):
     """Whole-path, primary-hit and Hart tracer for one scene: the packed
     search tables and the Hart vertex rows live as buffers on the scene's
     device.  Each entry runs its CUDA kernel for a scene on the card and
-    its plain version for a scene on the CPU."""
+    its plain version for a scene on the CPU.
+
+    A BVH scene (of at most min(BIG_ROUTE_TRIS, CULL_MAX_TRIS) triangles;
+    a larger one is a big mesh, ``BigMeshTracer``) takes K1's and B3's BVH
+    form, the port of their culled form (``meta["culled"]`` :828-835): the
+    ``pack_bvh`` nodes are a buffer too, and the search walks the tree for
+    the triangles after the spheres and planes.  Hart runs B4 on the raw
+    vertex rows either way."""
 
     def __init__(self, scene: Scene, mint: float = 0.0):
         super().__init__()
-        if scene.bvh is not None:
-            raise NotImplementedError("BVH scenes wait for the BVH port")
+        if is_bigmesh(scene):
+            raise ValueError(f"a BVH scene of {scene.num_triangles} triangles "
+                             "is a big mesh: trace it with BigMeshTracer")
         tables, self.counts = pack_fwd(scene)
         self.register_buffer("tables", tables)
+        self.bvh_form = scene.bvh is not None and scene.num_triangles > 0
+        self.register_buffer("nodes", pack_bvh(scene) if self.bvh_form else None)
         htables, self.hart_count = pack_hart(scene)
         self.register_buffer("hart_tables", htables)
         self.mint = float(mint)
@@ -992,15 +1403,19 @@ class PathTracer(nn.Module):
                 comps = (origin[:, 0], origin[:, 1], origin[:, 2],
                          direction[:, 0], direction[:, 1], direction[:, 2])
             rays = tuple(c.contiguous() for c in comps)
+        if collect_states and self.bvh_form:
+            raise NotImplementedError("hit records of BVH scenes are ROADMAP A12")
         kw = dict(rays=rays, cam_params=cam_params, cam_mode=cam_mode,
                   jitter_salt=jitter_salt, mint=self.mint,
                   collect=collect_states, integ=integ)
         return _on_device(
             self.tables.device,
             lambda: launch_path_kernel(self.tables, self.counts, pix, n, frame,
-                                       salt_base, max_bounces, style, **kw),
+                                       salt_base, max_bounces, style,
+                                       nodes=self.nodes, **kw),
             lambda: trace_plain(self.tables, self.counts, _raster(pix, n, "cpu"),
-                                frame, salt_base, max_bounces, style, **kw))
+                                frame, salt_base, max_bounces, style,
+                                tris_last=self.bvh_form, **kw))
 
     def trace_primary(self, pixel, frame, mode, *, cam_params, cam_mode,
                       salt_base, jitter_salt, nrays=1):
@@ -1013,11 +1428,12 @@ class PathTracer(nn.Module):
             self.tables.device,
             lambda: launch_primary_kernel(
                 self.tables, self.counts, pix, n, frame, salt_base, mode,
-                nrays, cam_params, cam_mode, jitter_salt, self.mint),
+                nrays, cam_params, cam_mode, jitter_salt, self.mint,
+                self.nodes),
             lambda: primary_plain(
                 self.tables, self.counts, _raster(pix, n, "cpu"), frame,
                 salt_base, mode, nrays, cam_params, cam_mode, jitter_salt,
-                self.mint))
+                self.mint, self.bvh_form))
 
     def trace_hart(self, pixel, frame, *, cam_params, cam_mode, jitter_salt):
         """Hart heat map with camera rays made in the trace -> f32[3, N],
@@ -1038,6 +1454,162 @@ class PathTracer(nn.Module):
         """Per-bounce (families, indices) int64[B, N] of a record (the
         JAX ``hits_from_record`` layout)."""
         return record.hits[:, 0].long(), record.hits[:, 1].long()
+
+
+class BigMeshTracer(nn.Module):
+    """Tracer for a BVH mesh of more than min(BIG_ROUTE_TRIS, CULL_MAX_TRIS)
+    triangles (``BigMeshTracer`` :2927), every integrator mode: the search
+    tables, the ``pack_bvh`` nodes and the Hart vertex rows are buffers on
+    the scene's device, and rays arrive from the caller (``render.py``
+    makes them with ``jittered_camera_rays``, as the JAX path does).
+
+    * ``trace``: Kajiya, one launch of B5's bounce instance per bounce (the
+      state f32[16, N] rides device memory between launches);
+    * ``trace_primary`` (modes 0-6) and ``trace_shaded`` (Whitted, Cook):
+      B5's search-only instance (``search``) for every search, with the
+      finalize and shading of the small-scene kernels running between
+      launches as plain PyTorch (``_primary_finalize``, ``_shade_plain``);
+    * ``trace_hart``: the 32-step march in PyTorch, each step's scene
+      distance one launch of B6 (``distance``).
+
+    On a scene on the CPU every launch is its plain version.  Not ported:
+    the TPU kernels' chunk streams, work lists and wavefront sorts, which
+    never change a ray's result (a cull or prune never changes the
+    winner, :2940-2943)."""
+
+    def __init__(self, scene: Scene, mint: float = 0.0):
+        super().__init__()
+        if scene.bvh is None or scene.num_triangles == 0:
+            raise ValueError("BigMeshTracer needs a BVH-attached scene "
+                             "(leaf-ordered triangles)")
+        tables, self.counts = pack_fwd(scene)
+        self.register_buffer("tables", tables)
+        self.register_buffer("nodes", pack_bvh(scene))
+        htables, self.hart_count = pack_hart(scene)
+        self.register_buffer("hart_tables", htables)
+        self.mint = float(mint)
+
+    @property
+    def _mat(self):
+        t, s, p, nm = self.counts
+        return self.tables[17 * t + 5 * s + 5 * p:].reshape(nm, 8)
+
+    def search(self, origin, direction, live=None):
+        """Closest hit over the whole scene: ``origin``/``direction`` (x, y,
+        z) tuples of f32[N], ``live`` bool[N] (None: every lane) -> the
+        winner (t, normal xyz, material id, family, index), family -1 on a
+        miss and on every lane outside ``live`` (``search_tiles`` :3122)."""
+        rays = tuple(origin) + tuple(direction)
+        if live is None:
+            live = torch.ones_like(rays[0], dtype=torch.bool)
+
+        def kernel():
+            packed = torch.stack([*rays, live.to(torch.float32)])
+            w, i = launch_bigmesh_kernel(self.tables, self.counts, self.nodes,
+                                         None, packed, 0, 0, self.mint,
+                                         search_only=True)
+            return (*w.unbind(0), *i.unbind(0))
+
+        def plain():
+            w, i = bigmesh_search_plain(self.tables, self.counts, rays, live,
+                                        self.mint)
+            return (*w.unbind(0), *i.unbind(0))
+
+        return _on_device(self.tables.device, kernel, plain)
+
+    def bounce(self, pix, state, frame, salt):
+        """One Kajiya bounce of ``state`` f32[16, N] (``STATE_FIELDS``) ->
+        the new state (B5's bounce instance, or its plain version)."""
+        return _on_device(
+            self.tables.device,
+            lambda: launch_bigmesh_kernel(self.tables, self.counts, self.nodes,
+                                          pix, state, frame, salt, self.mint),
+            lambda: bigmesh_bounce_plain(self.tables, self.counts, pix, state,
+                                         frame, salt, self.mint))
+
+    def distance(self, p, live):
+        """The scene's unsigned distance at points ``p`` f32[3, N] for the
+        lanes of ``live`` bool[N] (B6, or its plain version); inf
+        elsewhere."""
+        return _on_device(
+            self.tables.device,
+            lambda: launch_bigmesh_hart(self.hart_tables, self.hart_count,
+                                        self.nodes, p.contiguous(),
+                                        live.to(torch.float32)),
+            lambda: bigmesh_distance_plain(self.hart_tables, self.hart_count,
+                                           p, live))
+
+    @staticmethod
+    def _rays(origin, direction):
+        return (origin[:, 0], origin[:, 1], origin[:, 2],
+                direction[:, 0], direction[:, 1], direction[:, 2])
+
+    def trace(self, pixel, origin, direction, frame, salt_base, max_bounces,
+              style="reference", collect_hits=False):
+        """Kajiya paths -> f32[3, N] (unpacks as the JAX ``trace``'s (r, g,
+        b), :2966): ``pixel`` int64[N], ``origin``/``direction`` f32[N,3];
+        bounce b draws with salt ``salt_base + 4 b``; the standard-style
+        tail runs after the loop (:3097-3101)."""
+        if collect_hits:
+            raise NotImplementedError("big-mesh hit records are ROADMAP A12")
+        start = _start_state(self._rays(origin, direction), "kajiya")
+        state = torch.stack([*start[:15], start[15].to(torch.float32)])
+        for b in range(int(max_bounces)):
+            state = self.bounce(pixel, state, frame, salt_base + 4 * b)
+        rows = state.unbind(0)
+        return _finish_plain("kajiya", style, (*rows[:15], rows[15] > 0.0), None,
+                             None, None)
+
+    def trace_primary(self, pixel, origin, direction, frame, mode, *,
+                      salt_base, nrays=1):
+        """Debug integrator ``mode`` (``PRIMARY_MODES``) -> f32[3, N]
+        (:3143): one search launch, then ``_primary_finalize``, whose AO
+        probes and Appel shadow rays are search launches too."""
+        if mode not in PRIMARY_MODES:
+            raise ValueError(f"mode {mode} is not a primary-hit mode")
+        rays = self._rays(origin, direction)
+        winner = self.search(rays[:3], rays[3:])
+        return torch.stack(_primary_finalize(
+            mode, int(nrays), self._mat, pixel, frame, salt_base, rays, winner,
+            self.search))
+
+    def trace_shaded(self, pixel, origin, direction, frame, integ, *,
+                     salt_base, max_bounces, style="reference"):
+        """Whitted or Cook paths -> f32[3, N] (:3168): per bounce one search
+        launch and ``_shade_plain`` (Whitted adds a shadow search launch per
+        bounce, Cook a tail search after the last)."""
+        if integ not in ("whitted", "cook"):
+            raise ValueError(f"trace_shaded runs Whitted or Cook, not {integ!r}")
+        state = _start_state(self._rays(origin, direction), integ)
+        final = torch.zeros_like(state[15])
+        mat = self._mat
+        nb = int(max_bounces)
+        for b in range(nb):
+            winner = self.search(state[:3], state[3:6], state[15])
+            state, final = _shade_plain(integ, mat, pixel, frame,
+                                        salt_base + 4 * b, state, winner, final,
+                                        self.search)
+        return _finish_plain(integ, style, state, final if nb else None,
+                             self.search, mat)
+
+    def trace_hart(self, pixel, origin, direction, *, mint=0.0):
+        """The Hart heat map -> f32[3, N] (:3237): MARCH_ITER steps of the
+        scene distance (``distance``), stopping below MARCH_EPS; the value
+        is the step of the stop times 1/(MARCH_ITER-1), 32/31 where the
+        march never stopped.  ``pixel`` is unused (no random draws)."""
+        d = direction.T.contiguous()
+        p = origin.T + mint * d
+        iters = torch.full_like(p[0], MARCH_ITER, dtype=torch.int32)
+        done = torch.zeros_like(p[0], dtype=torch.bool)
+        for i in range(MARCH_ITER):
+            dist = self.distance(p, ~done)
+            stop = dist < MARCH_EPS
+            iters = torch.where(~done & stop, i, iters)
+            adv = ~done & ~stop
+            p = torch.where(adv, p + dist * d, p)
+            done = done | stop
+        val = iters.to(torch.float32) * (1.0 / (MARCH_ITER - 1))
+        return torch.stack([val, val, val])
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,11 @@ temporal EMA.  Two routes render a sample:
   models.integrators), the port of the JAX package's XLA path;
 * ``render_sample_fast_chw``: the kernels of ``ops.pathkernel`` (the
   whole-path tracer for Kajiya/Whitted/Cook, the primary-hit kernel for
-  modes 0-6, the Hart march for mode 10), CUDA for a scene on the card and
-  their plain versions on the CPU; a split-screen frame runs each
-  quadrant's kernel on exactly that quadrant's pixels.
+  modes 0-6, the Hart march for mode 10, each in its row form or, on a
+  BVH scene, its BVH form; on a big mesh, ``BigMeshTracer``'s bounce,
+  search and distance kernels), CUDA for a scene on the card and their
+  plain versions on the CPU; a split-screen frame runs each quadrant's
+  kernel on exactly that quadrant's pixels.
 """
 
 from __future__ import annotations
@@ -109,16 +111,17 @@ def render_sample_chw(scene, camera, settings: RenderSettings, cfg: FilmConfig,
 def _megakernel_eligible(scene, settings: RenderSettings) -> bool:
     """Whether the kernels serve this scene and settings
     (``render.py:119``, minus its platform sniffing): every quadrant's
-    integrator is one of the eleven, the scene has no BVH, and where a
-    quadrant searches (every mode but Hart, whose kernel stages triangles
-    in chunks) the search tables fit the kernels' shared-memory staging.
-    The backward kernel's 1,024-triangle limit is the trainer's
+    integrator is one of the eleven and, where a quadrant searches (every
+    mode but Hart, whose kernels read triangles in chunks or by the tree),
+    the tables the kernels stage fit their shared memory (a BVH scene
+    stages no triangles: its walk reads them from device memory).  The
+    backward kernel's 1,024-triangle limit is the trainer's
     (``train.inverse._fast_eligible``), not the display's.  The tracer
     picks each kernel or its plain version by the device."""
     from .ops.pathkernel import stages_tables
 
     modes = set(settings.modes())
-    if not modes <= set(INTEGRATORS) or scene.bvh is not None:
+    if not modes <= set(INTEGRATORS):
         return False
     return modes == {10} or stages_tables(scene)
 
@@ -146,6 +149,32 @@ def _trace_mode_kernel(pt, camera, settings: RenderSettings, cam_params,
     return pt(pixel, None, None, frame, salt_base=salt0 + _INTEGRATOR_SITE,
               max_bounces=settings.max_bounces, style=settings.style,
               gen_rays=True, integ=integ, **kw)
+
+
+def _trace_mode_bigmesh(bt, camera, settings: RenderSettings, cfg: FilmConfig,
+                        pixel, xs, ys, frame, salt0, mode):
+    """One big-mesh integrator pass over a pixel batch -> f32[3, n]
+    (``render.py:382``): camera rays made here with the jitter salts of
+    ``render_pixels``, then ``BigMeshTracer``'s Hart march (10), debug
+    finalize (0-6), Whitted/Cook loop (7, 8) or Kajiya bounces (9)."""
+    from .ops.pathkernel import PRIMARY_MODES
+
+    ray = jittered_camera_rays(camera, cfg, pixel, xs, ys, frame, salt0)
+    salt_base = salt0 + _INTEGRATOR_SITE
+    if mode == 10:
+        return bt.trace_hart(pixel, ray.origin, ray.direction)
+    if mode in PRIMARY_MODES:
+        nrays = max(int(settings.max_bounces), 1) if mode == 5 else 1
+        return bt.trace_primary(pixel, ray.origin, ray.direction, frame, mode,
+                                salt_base=salt_base, nrays=nrays)
+    if mode in (7, 8):
+        return bt.trace_shaded(pixel, ray.origin, ray.direction, frame,
+                               {7: "whitted", 8: "cook"}[mode],
+                               salt_base=salt_base,
+                               max_bounces=settings.max_bounces,
+                               style=settings.style)
+    return bt.trace(pixel, ray.origin, ray.direction, frame, salt_base,
+                    settings.max_bounces, style=settings.style)
 
 
 @lru_cache(maxsize=8)
@@ -180,31 +209,48 @@ def _rect_pixels(y0, y1, x0, x1, width, device):
     return (xs[None, :] + ys[:, None] * width).reshape(-1)
 
 
+def make_tracer(scene):
+    """The tracer of the kernels' route for ``scene``: ``BigMeshTracer`` for
+    a big mesh (``pathkernel.is_bigmesh``), else ``PathTracer``."""
+    from .ops.pathkernel import BigMeshTracer, PathTracer, is_bigmesh
+
+    return BigMeshTracer(scene) if is_bigmesh(scene) else PathTracer(scene)
+
+
 def render_sample_fast_chw(scene, camera, settings: RenderSettings,
                            cfg: FilmConfig, frame, tracer=None, cam_params=None):
     """One frame's sample image f32[3,H,W] through the kernels
     (``_fast_chw_jit``, minus the TPU block layouts); settings or scenes
     outside their scope (``_megakernel_eligible``) take the plain path.
-    ``tracer`` is a ``PathTracer`` already built for ``scene`` and
-    ``cam_params`` the ``camera_params`` vector of ``camera`` and ``cfg``
-    (each built here when None).  A split-screen frame runs each
-    quadrant's kernel on exactly its own pixels (the RNG keys by global
-    pixel id, so values match the plain path's evaluate-and-select) and
-    writes the quadrant into its rectangle of the film."""
-    from .ops.pathkernel import PathTracer, camera_params
+    ``tracer`` is the ``make_tracer`` tracer already built for ``scene``
+    and ``cam_params`` the ``camera_params`` vector of ``camera`` and
+    ``cfg`` (each built here when None; a big mesh needs no camera vector,
+    its rays are made here).  A split-screen frame runs each quadrant's
+    kernel on exactly its own pixels (the RNG keys by global pixel id, so
+    values match the plain path's evaluate-and-select) and writes the
+    quadrant into its rectangle of the film."""
+    from .ops.pathkernel import BigMeshTracer, camera_params
 
     if not _megakernel_eligible(scene, settings):
         return render_sample_chw(scene, camera, settings, cfg, frame)
-    pt = tracer if tracer is not None else PathTracer(scene)
-    if cam_params is None:
+    pt = tracer if tracer is not None else make_tracer(scene)
+    big = isinstance(pt, BigMeshTracer)
+    if cam_params is None and not big:
         cam_params = camera_params(camera, cfg)
     modes = set(settings.modes())
 
     def sample(pixel, mode):
+        if big:
+            xs = pixel % cfg.width
+            ys = torch.div(pixel, cfg.width, rounding_mode="floor")
         acc = None
         for i in range(settings.aa):
-            out = _trace_mode_kernel(pt, camera, settings, cam_params, pixel,
-                                     frame, i * AA_STRIDE, mode)
+            if big:
+                out = _trace_mode_bigmesh(pt, camera, settings, cfg, pixel, xs,
+                                          ys, frame, i * AA_STRIDE, mode)
+            else:
+                out = _trace_mode_kernel(pt, camera, settings, cam_params,
+                                         pixel, frame, i * AA_STRIDE, mode)
             acc = out if acc is None else acc + out
         if settings.aa > 1:
             acc = acc * (1.0 / settings.aa)
@@ -212,7 +258,9 @@ def render_sample_fast_chw(scene, camera, settings: RenderSettings,
 
     if len(modes) == 1:
         (mode,) = modes
-        return sample(cfg.num_pixels, mode).reshape(3, cfg.height, cfg.width)
+        pixel = (torch.arange(cfg.num_pixels, device=scene.device) if big
+                 else cfg.num_pixels)
+        return sample(pixel, mode).reshape(3, cfg.height, cfg.width)
     out = torch.empty((3, cfg.height, cfg.width), dtype=torch.float32,
                       device=scene.device)
     for m, (y0, y1, x0, x1) in _split_partition(cfg, settings):

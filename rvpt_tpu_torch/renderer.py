@@ -5,7 +5,8 @@ accumulation on any camera or settings change (rvpt.cpp:21-29, 102-111);
 keeps up to ``frames_in_flight - 1`` frames outstanding on the card
 (rvpt.h:25); reports frame statistics.  Frames of any integrator, or of
 the 4-way split-screen, go through the kernels of ``ops.pathkernel``; the
-``PathTracer`` that holds their tables is built once per scene.
+tracer that holds their tables (``PathTracer``, or ``BigMeshTracer`` for a
+big mesh) is built once per scene.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import torch
 from .config import FilmConfig, RenderSettings
 from .models.camera import Camera
 from .ops.film import Film, chw_to_hwc, to_srgb_u8
-from .ops.pathkernel import PathTracer, camera_params
-from .render import render_frame
+from .ops.pathkernel import camera_params
+from .render import make_tracer, render_frame
 from .scene.scene import Scene
 from .utils.image import write_png
 from .utils.timer import FrameTimer
@@ -77,7 +78,7 @@ class Renderer:
 
     def set_scene(self, scene: Scene) -> None:
         self.scene = scene
-        self.tracer = PathTracer(scene)
+        self.tracer = make_tracer(scene)
         self._prev_state = None  # force an accumulation reset
 
     def update_camera(self, **kw) -> None:

@@ -6,9 +6,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from .bvh import Bvh
 from .materials import Materials
 
 ARRAY_FIELDS = (
@@ -34,8 +36,9 @@ class Scene:
     pln_d: torch.Tensor  # f32[P]
     pln_mat: torch.Tensor  # i64[P]
     materials: Materials
-    # BVH over the triangle family: always None until BVH scenes are ported.
-    bvh: object = None
+    # BVH over the triangle family (None until scene.bvh.attach_bvh attaches
+    # one; the triangles are then in its leaf order).
+    bvh: Bvh | None = None
 
     @property
     def device(self) -> torch.device:
@@ -89,6 +92,14 @@ class SceneBuilder:
         self._plns.append((tuple(normal), float(d), int(mat)))
         return self
 
+    def add_mesh(self, vertices, faces, mat: int) -> "SceneBuilder":
+        """Bulk-add a triangle mesh: vertices f32[V,3], faces i32[F,3]."""
+        v = np.asarray(vertices, np.float32)
+        f = np.asarray(faces, np.int64)
+        self._tris.extend((a, b, c, int(mat))
+                          for a, b, c in zip(v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]))
+        return self
+
     def build(self, device=None) -> Scene:
         """The scene's tensors on ``device`` (None: the card)."""
         device = resolve_device(device)
@@ -96,7 +107,9 @@ class SceneBuilder:
         i64 = dict(dtype=torch.int64, device=device)
 
         def vec3(rows):
-            return torch.tensor(rows, **f32) if rows else torch.zeros((0, 3), **f32)
+            if not rows:
+                return torch.zeros((0, 3), **f32)
+            return torch.from_numpy(np.asarray(rows, np.float32)).to(device)
 
         def scal(rows, kw):
             return torch.tensor(rows, **kw) if rows else torch.zeros((0,), **kw)

@@ -140,13 +140,13 @@ def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh=None):
 
 def _fast_eligible(scene, settings: RenderSettings) -> bool:
     """The paired trace differentiates Kajiya only: every quadrant Kajiya,
-    a scene the kernels serve, and at most the backward kernel's 1,024
-    triangles."""
+    a scene the kernels serve, no BVH (the mesh gradient path is ROADMAP
+    A12), and at most the backward kernel's 1,024 triangles."""
     from ..models.integrators import KAJIYA
     from ..ops.pathkernel import MAX_BWD_TRIANGLES
     from ..render import _megakernel_eligible
 
-    return (set(settings.modes()) == {KAJIYA}
+    return (set(settings.modes()) == {KAJIYA} and scene.bvh is None
             and scene.num_triangles <= MAX_BWD_TRIANGLES
             and _megakernel_eligible(scene, settings))
 

@@ -1,6 +1,7 @@
 """The CUDA kernels of rvpt_tpu_torch (K1 path_kernel with its Kajiya,
 Whitted and Cook forms, K2 bwd_kernel, B8 closest_hit, B3 primary_kernel,
-B4 hart_kernel) against their plain PyTorch versions, on the card.  Every
+B4 hart_kernel, K1's and B3's BVH forms, B5 bigmesh_kernel, B6
+bigmesh_hart) against their plain PyTorch versions, on the card.  Every
 test here needs an NVIDIA card and skips without one.  This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -14,7 +15,10 @@ over all entries and over the non-zero ones, and table columns within
 rtol 1e-3, atol 1e-7 (sums over rays in another order); B8 index equal on
 >= 99.9% of rays, t within rtol 1e-5 where they agree; B3 (every mode) and
 K1's Whitted/Cook forms >= 99.5% of pixel channels within 1e-4, B4 >= 99%
-(the tests/test_megakernel.py bars).  The kernels are
+(the tests/test_megakernel.py bars); the BVH forms and B5 >= 99.5% of
+channels within 1e-4, B6 >= 99% of live lanes (tests/test_bigmesh_modes.py),
+on the mesh builtins and on a random soup with a sphere, a plane, mirror
+and dielectric triangles.  The kernels are
 built with --fmad=false and round like the plain versions' unfused ops, so
 they usually agree exactly.
 """
@@ -515,5 +519,308 @@ def test_split_screen_draw_launches_each_kernel(dev):
             tpk.launch_hart_kernel.launches - counts[1],
             tpk.launch_path_kernel.launches - counts[2]) == (1, 1, 2)
     cpu_scene, cpu_cam = builtin.cornell_box(aspect=cfg.aspect, device="cpu")
+    want = render_sample_fast_chw(cpu_scene, cpu_cam, st, cfg, 0)
+    assert _share(img.cpu(), want) >= 0.995
+
+
+# ---------------------------------------------------------------------------
+# The BVH mesh display path: K1's and B3's BVH forms, B5 and B6
+# ---------------------------------------------------------------------------
+
+
+def _mesh(name, cfg, dev):
+    kw = {"mesh_demo2": dict(subdiv=2), "mesh_demo3": dict(subdiv=3)}.get(name, {})
+    make = getattr(builtin, "mesh_demo" if name.startswith("mesh_demo") else name)
+    return make(aspect=cfg.aspect, device=dev, **kw)
+
+
+@pytest.mark.parametrize("integ", ["kajiya", "whitted", "cook"])
+@pytest.mark.parametrize("scene_name", ["rabbit", "mesh_demo2"])
+def test_bvh_form_k1_matches_plain(dev, scene_name, integ):
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mesh(scene_name, cfg, dev)
+    pt = tpk.PathTracer(scene)
+    assert pt.bvh_form
+    cp = tpk.camera_params(cam, cfg)
+    kw = dict(cam_params=cp, cam_mode=cam.mode, jitter_salt=0, integ=integ)
+    before = tpk.launch_path_kernel.launches
+    got = tpk.launch_path_kernel(pt.tables, pt.counts, None, cfg.num_pixels, 2, 16,
+                                 8, "standard", nodes=pt.nodes, **kw)
+    pix = torch.arange(cfg.num_pixels, device=dev)
+    want = tpk.trace_plain(pt.tables, pt.counts, pix, 2, 16, 8, "standard",
+                           tris_last=True, **kw)
+    torch.cuda.synchronize()
+    assert tpk.launch_path_kernel.launches == before + 1
+    assert torch.isfinite(got).all()
+    share = _share(got, want)
+    assert share >= 0.995, f"only {share:.4%} of pixel channels match"
+
+
+@pytest.mark.parametrize("mode", range(7))
+def test_bvh_form_b3_matches_plain(dev, mode):
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mesh("mesh_demo2", cfg, dev)
+    pt = tpk.PathTracer(scene)
+    cp = tpk.camera_params(cam, cfg)
+    got = tpk.launch_primary_kernel(pt.tables, pt.counts, None, cfg.num_pixels, 1,
+                                    16, mode, 4, cp, cam.mode, 0, nodes=pt.nodes)
+    pix = torch.arange(cfg.num_pixels, device=dev)
+    want = tpk.primary_plain(pt.tables, pt.counts, pix, 1, 16, mode, 4, cp,
+                             cam.mode, 0, tris_last=True)
+    torch.cuda.synchronize()
+    share = _share(got, want)
+    assert share >= 0.995, f"mode {mode}: only {share:.4%} of channels match"
+
+
+def _bigmesh_rays(scene, cam, cfg, dev):
+    pixel, xs, ys = _pixel_grid(cfg, dev)
+    ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, 2, 0)
+    return pixel, ray
+
+
+def test_bigmesh_kernel_matches_plain(dev):
+    """B5's bounce instance, 6 bounces of mesh_demo(3) from the same state
+    each time, and its search-only instance on the last state (dead lanes
+    included)."""
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mesh("mesh_demo3", cfg, dev)
+    bt = tpk.BigMeshTracer(scene)
+    pixel, ray = _bigmesh_rays(scene, cam, cfg, dev)
+    start = tpk._start_state(bt._rays(ray.origin, ray.direction), "kajiya")
+    state = torch.stack([*start[:15], start[15].to(torch.float32)])
+    for b in range(6):
+        got = tpk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, pixel,
+                                        state, 2, 16 + 4 * b)
+        want = tpk.bigmesh_bounce_plain(bt.tables, bt.counts, pixel, state, 2,
+                                        16 + 4 * b)
+        torch.cuda.synchronize()
+        share = _share(got, want)
+        assert share >= 0.995, f"bounce {b}: only {share:.4%} match"
+        dead = state[15] == 0
+        assert torch.equal(got[:, dead], state[:, dead])
+        state = want
+    assert 0 < int(state[15].sum()) < cfg.num_pixels
+    packed = torch.stack([*state[:6], state[15]]).contiguous()
+    w, i = tpk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, None, packed,
+                                     0, 0, search_only=True)
+    ww, wi = tpk.bigmesh_search_plain(bt.tables, bt.counts, state[:6].unbind(0),
+                                      state[15] > 0)
+    torch.cuda.synchronize()
+    assert (i == wi).all(dim=0).float().mean().item() >= 0.995
+    assert _share(w, ww) >= 0.995
+    assert (i[:, state[15] == 0] == -1).all()
+
+
+def test_bigmesh_hart_matches_plain(dev):
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mesh("mesh_demo3", cfg, dev)
+    bt = tpk.BigMeshTracer(scene)
+    _, ray = _bigmesh_rays(scene, cam, cfg, dev)
+    p = (ray.origin + 2.5 * ray.direction).T.contiguous()
+    live = torch.arange(cfg.num_pixels, device=dev) % 3 != 0
+    got = tpk.launch_bigmesh_hart(bt.hart_tables, bt.hart_count, bt.nodes, p,
+                                  live.to(torch.float32))
+    want = tpk.bigmesh_distance_plain(bt.hart_tables, bt.hart_count, p, live)
+    torch.cuda.synchronize()
+    share = _share(got[live], want[live])
+    assert share >= 0.99, f"only {share:.4%} of live lanes match"
+    assert torch.isinf(got[~live]).all()
+
+
+def _mixed_soup(n_tri, dev, seed=11):
+    """A random soup of Lambert, mirror and dielectric triangles with an
+    emissive sphere and a floor plane (the scene of
+    tests/test_bigmesh_modes.py, made here from numpy without JAX), so the
+    sphere and plane seed of the walk and every scatter branch run."""
+    import numpy as np
+
+    from rvpt_tpu_torch.scene.bvh import attach_bvh
+
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-3, 3, size=(n_tri, 3)).astype(np.float32)
+    c[:, 2] += 5.0
+    e1 = rng.normal(0, 0.4, size=(n_tri, 3)).astype(np.float32)
+    e2 = rng.normal(0, 0.4, size=(n_tri, 3)).astype(np.float32)
+    b = SceneBuilder()
+    lam = b.add_material(albedo=(0.6, 0.5, 0.4))
+    mir = b.add_material(albedo=(0.9, 0.9, 0.9), kind=1)
+    die = b.add_material(albedo=(1.0, 1.0, 1.0), kind=2, ior=1.5)
+    mats = (lam, lam, mir, die)
+    for i, (a, v1, v2) in enumerate(zip(c, c + e1, c + e2)):
+        b.add_triangle(tuple(a), tuple(v1), tuple(v2), mats[i % 4])
+    light = b.add_material(albedo=(0, 0, 0), emission=(4, 4, 4))
+    b.add_sphere((0.0, 6.0, 2.0), 1.0, light)
+    b.add_plane((0.0, 1.0, 0.0), -3.5, lam)
+    scene = attach_bvh(b.build(dev))
+    cam = builtin.sphere_plane(aspect=320 / 180, device=dev)[1]
+    return scene, cam
+
+
+@pytest.mark.parametrize("integ", ["kajiya", "whitted", "cook"])
+def test_soup_bvh_form_k1_matches_plain(dev, integ):
+    """K1's BVH form on a 600-triangle soup with a sphere, a plane, mirror
+    and dielectric triangles."""
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mixed_soup(600, dev)
+    pt = tpk.PathTracer(scene)
+    assert pt.bvh_form and scene.num_spheres == 1 and scene.num_planes == 1
+    kw = dict(cam_params=tpk.camera_params(cam, cfg), cam_mode=cam.mode,
+              jitter_salt=0, integ=integ)
+    got = tpk.launch_path_kernel(pt.tables, pt.counts, None, cfg.num_pixels, 2, 16,
+                                 6, "standard", nodes=pt.nodes, **kw)
+    pix = torch.arange(cfg.num_pixels, device=dev)
+    want = tpk.trace_plain(pt.tables, pt.counts, pix, 2, 16, 6, "standard",
+                           tris_last=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and want.mean() > 0
+    share = _share(got, want)
+    assert share >= 0.995, f"only {share:.4%} of pixel channels match"
+
+
+@pytest.mark.parametrize("mode", range(7))
+def test_soup_bvh_form_b3_matches_plain(dev, mode):
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mixed_soup(600, dev)
+    pt = tpk.PathTracer(scene)
+    cp = tpk.camera_params(cam, cfg)
+    got = tpk.launch_primary_kernel(pt.tables, pt.counts, None, cfg.num_pixels, 1,
+                                    16, mode, 4, cp, cam.mode, 0, nodes=pt.nodes)
+    pix = torch.arange(cfg.num_pixels, device=dev)
+    want = tpk.primary_plain(pt.tables, pt.counts, pix, 1, 16, mode, 4, cp,
+                             cam.mode, 0, tris_last=True)
+    torch.cuda.synchronize()
+    share = _share(got, want)
+    assert share >= 0.995, f"mode {mode}: only {share:.4%} of channels match"
+
+
+def test_soup_bigmesh_kernels_match_plain(dev):
+    """B5's bounce and search-only instances and B6 on a 1,500-triangle
+    soup: mirror and dielectric triangles scatter, the sphere and the plane
+    win their searches, and the walk's winner agrees with the brute
+    force's on every bounce."""
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mixed_soup(1500, dev)
+    bt = tpk.BigMeshTracer(scene)
+    pixel, ray = _bigmesh_rays(scene, cam, cfg, dev)
+    start = tpk._start_state(bt._rays(ray.origin, ray.direction), "kajiya")
+    state = torch.stack([*start[:15], start[15].to(torch.float32)])
+    fams, mats = set(), set()
+    for b in range(6):
+        packed = torch.stack([*state[:6], state[15]]).contiguous()
+        w, i = tpk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, None,
+                                         packed, 0, 0, search_only=True)
+        ww, wi = tpk.bigmesh_search_plain(bt.tables, bt.counts, state[:6].unbind(0),
+                                          state[15] > 0)
+        got = tpk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, pixel,
+                                        state, 2, 16 + 4 * b)
+        want = tpk.bigmesh_bounce_plain(bt.tables, bt.counts, pixel, state, 2,
+                                        16 + 4 * b)
+        torch.cuda.synchronize()
+        assert (i == wi).all(dim=0).float().mean().item() >= 0.995, f"bounce {b}"
+        assert _share(w, ww) >= 0.995, f"bounce {b}: search winners"
+        share = _share(got, want)
+        assert share >= 0.995, f"bounce {b}: only {share:.4%} match"
+        dead = state[15] == 0
+        assert torch.equal(got[:, dead], state[:, dead])
+        fams |= set(wi[0].unique().tolist())
+        mats |= set(ww[4][wi[0] == 0].unique().tolist())
+        state = want
+    assert fams >= {-1, 0, 1, 2}, f"families hit: {fams}"
+    assert mats >= {1.0, 2.0}, f"no mirror or dielectric triangle hit: {mats}"
+    p = (ray.origin + 2.5 * ray.direction).T.contiguous()
+    live = torch.arange(cfg.num_pixels, device=dev) % 3 != 0
+    got = tpk.launch_bigmesh_hart(bt.hart_tables, bt.hart_count, bt.nodes, p,
+                                  live.to(torch.float32))
+    want = tpk.bigmesh_distance_plain(bt.hart_tables, bt.hart_count, p, live)
+    torch.cuda.synchronize()
+    assert _share(got[live], want[live]) >= 0.99
+
+
+def test_walk_counting_instances(dev):
+    """count_bvh_walk and count_hart_walk, the kernels' counting instances
+    for the bounds: no work on lanes that are not live, at least the root
+    on every live lane, a fraction of the brute force's triangle tests, no
+    launch counted, and the timed instances' results unchanged beside
+    them."""
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mixed_soup(1500, dev)
+    bt = tpk.BigMeshTracer(scene)
+    _, ray = _bigmesh_rays(scene, cam, cfg, dev)
+    rays = tuple(c.contiguous() for c in (*ray.origin.T, *ray.direction.T))
+    n = cfg.num_pixels
+    live = torch.arange(n, device=dev) % 2 == 0
+    launches = (tpk.launch_bigmesh_kernel.launches, tpk.launch_bigmesh_hart.launches)
+    assert tpk.count_bvh_walk(bt.tables, bt.counts, bt.nodes, rays,
+                              torch.zeros_like(live)) == (0, 0)
+    box, tri = tpk.count_bvh_walk(bt.tables, bt.counts, bt.nodes, rays, live)
+    box_all, tri_all = tpk.count_bvh_walk(bt.tables, bt.counts, bt.nodes, rays,
+                                          torch.ones_like(live))
+    assert int(live.sum()) <= box < box_all and 0 < tri < tri_all
+    assert tri_all < n * scene.num_triangles // 10
+    p = (ray.origin + 2.5 * ray.direction).T.contiguous()
+    hbox, htri = tpk.count_hart_walk(bt.hart_tables, bt.hart_count, bt.nodes, p, live)
+    assert int(live.sum()) <= hbox and 0 < htri < int(live.sum()) * scene.num_triangles // 4
+    assert (tpk.launch_bigmesh_kernel.launches,
+            tpk.launch_bigmesh_hart.launches) == launches
+    w, i = tpk.launch_bigmesh_kernel(
+        bt.tables, bt.counts, bt.nodes, None,
+        torch.stack([*rays, live.to(torch.float32)]).contiguous(), 0, 0,
+        search_only=True)
+    ww, wi = tpk.bigmesh_search_plain(bt.tables, bt.counts, rays, live)
+    torch.cuda.synchronize()
+    assert torch.equal(i, wi) and _share(w, ww) >= 0.995
+
+
+@pytest.mark.parametrize("mode", [9, 3, 5, 7, 8, 10])
+def test_bigmesh_draw_launches_and_matches_cpu(dev, mode, monkeypatch):
+    """Renderer.draw on mesh_demo(3): Kajiya launches B5 once per bounce,
+    Hart B6 once per march step; no plain version runs on the card; the
+    film agrees with the CPU's plain route of the same frame."""
+    from rvpt_tpu_torch.renderer import Renderer
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    cfg = FilmConfig(width=64, height=36)
+    quads = ("top_left_render_mode", "top_right_render_mode",
+             "bottom_left_render_mode", "bottom_right_render_mode")
+    st = RenderSettings(max_bounces=3, style="standard", **dict.fromkeys(quads, mode))
+    scene, cam = _mesh("mesh_demo3", cfg, dev)
+    cpu_scene, cpu_cam = _mesh("mesh_demo3", cfg, "cpu")
+    want = render_sample_fast_chw(cpu_scene, cpu_cam, st, cfg, 0)
+    for name in ("bigmesh_bounce_plain", "bigmesh_search_plain",
+                 "bigmesh_distance_plain", "trace_plain", "primary_plain"):
+        monkeypatch.setattr(tpk, name, refuse)
+    counts = (tpk.launch_bigmesh_kernel.launches, tpk.launch_bigmesh_hart.launches)
+    r = Renderer(scene, cam, st, cfg)
+    assert isinstance(r.tracer, tpk.BigMeshTracer)
+    img = r.draw()
+    r.flush()
+    b5 = tpk.launch_bigmesh_kernel.launches - counts[0]
+    b6 = tpk.launch_bigmesh_hart.launches - counts[1]
+    if mode == 9:
+        assert (b5, b6) == (3, 0)
+    elif mode == 10:
+        assert (b5, b6) == (0, tpk.MARCH_ITER)
+    else:
+        assert b5 >= 1 and b6 == 0
+    share = _share(img.cpu(), want)
+    assert share >= (0.99 if mode == 10 else 0.995), f"{share:.4%}"
+
+
+def test_bvh_scene_draw_takes_the_bvh_form(dev):
+    """rabbit (143 triangles) draws through K1's BVH form, one launch."""
+    from rvpt_tpu_torch.renderer import Renderer
+
+    cfg = FilmConfig(width=128, height=64)
+    scene, cam = builtin.rabbit(aspect=cfg.aspect, device=dev)
+    st = RenderSettings(max_bounces=8)
+    r = Renderer(scene, cam, st, cfg)
+    assert r.tracer.bvh_form
+    before = tpk.launch_path_kernel.launches
+    img = r.draw()
+    r.flush()
+    assert tpk.launch_path_kernel.launches == before + 1
+    cpu_scene, cpu_cam = builtin.rabbit(aspect=cfg.aspect, device="cpu")
     want = render_sample_fast_chw(cpu_scene, cpu_cam, st, cfg, 0)
     assert _share(img.cpu(), want) >= 0.995
