@@ -6,10 +6,10 @@ Needs one NVIDIA card (Hopper, sm_90a) and nvcc; there is no CPU path.
 Phases, each of which raises on failure:
 
 1. device: the card, its power limit, torch/CUDA/nvcc versions;
-2. build: the seven kernels (path_kernel K1, bwd_kernel K2, closest_hit
-   B8, primary_kernel B3, hart_kernel B4, bigmesh_kernel B5, bigmesh_hart
-   B6) from rvpt_tpu_torch/csrc, one nvcc each, started together, and the
-   native scene-ingest library (g++);
+2. build: the eight kernel sources (path_kernel K1, bwd_kernel K2,
+   closest_hit B8, primary_kernel B3, hart_kernel B4, bigmesh_kernel B5,
+   bigmesh_hart B6, replay_lookup B7) from rvpt_tpu_torch/csrc, one nvcc
+   each, started together, and the native scene-ingest library (g++);
 3. kernel vs plain: the CUDA kernel against its plain PyTorch version on
    the card, Cornell box at 1920x1080 (rays passed in: 3 bounces, both
    styles, >= 99.5% of pixel channels within 1e-4; rays made in the
@@ -87,15 +87,47 @@ Phases, each of which raises on failure:
    Hart, Kajiya), terrain_demo(225) x2; every loop with zeroed counts,
    a finite film that is not black, and its ms/frame; then the
    rabbit_kajiya and mesh2_kajiya goldens through the kernels (printed,
-   not asserted, as phase 4).
+   not asserted, as phase 4);
+17. B7 against its plain versions: the gather (bit for bit) and the
+   segment sum (within rtol 1e-5, atol 1e-5 of the float64 sum, in units
+   of the cotangent's scale, in two calls) on mesh_demo(5)'s triangle
+   tables at the 2,073,600 indices its 1080p replay reads at bounce 2, and
+   on a 140,000-row table at 2,073,600 pixel-coherent ids; each timed
+   beside its plain version, the PyTorch call (index_select, index_add_)
+   and its bound;
+18. records: K1's BVH form with records on rabbit at 1024x512 x 8 (rays
+   in) and B5's collect instance on mesh_demo(5) at 1080p x 8 (every 8th
+   row of pixel ids): bit-identical to trace_plain's and
+   bigmesh_bounce_plain(collect=True)'s, the radiance and states those of
+   the instances without records; each timed beside its bound;
+19. this slice's main path: one fwd+bwd step of the mean image over
+   albedo, emission and the vertices through make_fast_kajiya on
+   mesh_demo(3) and on mesh_demo(5) at 1920x1080 x 8, standard, with the
+   launch counts zeroed before it and read after it (8 B5 collect
+   launches, 8 gathers, 7 segment sums); the primal bit-identical to the
+   tracer without records, the gradients within rtol 1e-3, atol 1e-6 (in
+   units of each gradient's scale) of autograd through kajiya_from_hits
+   in float64 on the same records; the step time (CUDA events over 5 steps
+   after 2)
+   and its peak memory; and on mesh_demo(3) at 320x180 the gradients
+   within rtol 2e-2, atol 1e-5 (in units of their scale) of autograd
+   through integrator_kajiya;
+20. rabbit at 1024x512 x 8: the step through "auto" (K1's BVH-form
+   records, then K2) and through "soa" (records, then the replay with B7),
+   each against autograd through kajiya_from_hits as in phase 19;
+21. the trainer on mesh_demo(3) at 1920x1080 x 8: target = mean of 4
+   kernel-route frames, init albedo 0.5 and emission x 1.2,
+   recover(steps=30, learning_rate=3e-2) with zeroed counts (two B5
+   frames and one replay's 8 gathers per step); the loss and both mean
+   parameter errors fall.
 
 Prints the kernel record as a JSON line (launches of the main paths:
 the trainer for K1, K2 and B8, the split-screen draws for B3 and B4, the
 rabbit draws for K1's and B3's BVH forms, the mesh_demo(3) Kajiya and
-mesh_demo(5) Hart draws for B5 and B6; times, bounds and errors of this
-run), the card's
-name and power limit, then, last, one JSON line {"ok": true, "device":
-{...}}.
+mesh_demo(5) Hart draws for B5 and B6, the mesh_demo(3) fwd+bwd step for
+B7 and B5's collect instance, the rabbit step for K1's BVH-form records;
+times, bounds and errors of this run), the card's name and power limit,
+then, last, one JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -803,11 +835,15 @@ def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
     return out
 
 
-def bigmesh_check(smi, dev, name, scene, cam, cfg, nb, every):
+def bigmesh_check(smi, dev, name, scene, cam, cfg, nb, every, collect=False):
     """Phase 15's B5 check on one mesh: one 1080p frame of ``nb`` bounce
     launches (standard), the kernel's states against bigmesh_bounce_plain's
     on the pixel ids of every ``every``-th row, then the search-only
-    instance on the camera rays; each timed beside its bound."""
+    instance on the camera rays; each timed beside its bound.  With
+    ``collect`` (phase 18) the frame runs the collect instance instead:
+    its states must equal the bounce instance's, and its states and hit
+    records those of bigmesh_bounce_plain(collect=True) bit for bit; the
+    bound adds the hit record written (8 B per ray and launch)."""
     import torch
 
     from rvpt_tpu_torch.ops import pathkernel as pk
@@ -819,24 +855,41 @@ def bigmesh_check(smi, dev, name, scene, cam, cfg, nb, every):
     ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, 1, 0)
     start = pk._start_state(bt._rays(ray.origin, ray.direction), "kajiya")
     states = [torch.stack([*start[:15], start[15].to(torch.float32)])]
+    hits = []
     for b in range(nb):
-        states.append(pk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, pixel,
-                                               states[-1], 1, 16 + 4 * b))
+        st = pk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, pixel,
+                                      states[-1], 1, 16 + 4 * b, collect=collect)
+        if collect:
+            bare = pk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, pixel,
+                                            states[-1], 1, 16 + 4 * b)
+            check(torch.equal(st[0], bare), f"B5's collect instance changes the "
+                  f"state of {name} at bounce {b}")
+            st, h = st
+            hits.append(h)
+        states.append(st)
     sub = torch.nonzero(ys % every == 0).squeeze(1)
     plain = states[0][:, sub]
     worst = 1.0
     err = 0.0
+    same = True
     for b in range(nb):
         plain = pk.bigmesh_bounce_plain(bt.tables, bt.counts, pixel[sub], plain, 1,
-                                        16 + 4 * b)
-        close, e, _ = equal_share(states[b + 1][:, sub], plain)
-        worst, err = min(worst, close), max(err, e)
+                                        16 + 4 * b, collect=collect)
+        if collect:
+            plain, h = plain
+            same = same and torch.equal(hits[b][:, sub], h)
+        close, e, eq = equal_share(states[b + 1][:, sub], plain)
+        worst, err, same = min(worst, close), max(err, e), same and eq
     torch.cuda.synchronize()
+    kind = "collect" if collect else "bounce"
     print(f"[B5-vs-plain] {name} ({scene.num_triangles} triangles, {bt.nodes.shape[0]} "
-          f"nodes), {cfg.width}x{cfg.height} x {nb} bounces: bounce states on "
+          f"nodes), {cfg.width}x{cfg.height} x {nb} {kind} launches: states on "
           f"{sub.numel()} pixel ids (every {every}th row) within 1e-4 on "
-          f"{worst:.6f} of entries at worst (bar 0.995), max |err| {err:.3g}")
+          f"{worst:.6f} of entries at worst (bar 0.995), max |err| {err:.3g}"
+          f"{f'; states and hit records bit-identical: {same}' if collect else ''}")
     check(worst >= 0.995, f"B5 on {name} disagrees with plain: {worst:.6f}")
+    if collect:
+        check(same, f"B5's collect instance on {name} is not bit-identical to plain")
     check(bool(torch.isfinite(states[-1]).all().item()), f"B5 state on {name} not finite")
 
     # Search-only on the camera rays.
@@ -857,8 +910,8 @@ def bigmesh_check(smi, dev, name, scene, cam, cfg, nb, every):
     # Times: each bounce launch on its own input state, summed per frame.
     iters = 10 if scene.num_triangles < 5000 else 4
     frame_ms = sum(cuda_ms(lambda st=st, b=b: pk.launch_bigmesh_kernel(
-        bt.tables, bt.counts, bt.nodes, pixel, st, 1, 16 + 4 * b), iters)
-        for b, st in enumerate(states[:-1]))
+        bt.tables, bt.counts, bt.nodes, pixel, st, 1, 16 + 4 * b, collect=collect),
+        iters) for b, st in enumerate(states[:-1]))
     search_ms = cuda_ms(lambda: pk.launch_bigmesh_kernel(
         bt.tables, bt.counts, bt.nodes, None, packed, 0, 0, search_only=True), iters)
 
@@ -866,7 +919,8 @@ def bigmesh_check(smi, dev, name, scene, cam, cfg, nb, every):
         st = states[0][:, sub]
         for b in range(nb):
             st = pk.bigmesh_bounce_plain(bt.tables, bt.counts, pixel[sub], st, 1,
-                                         16 + 4 * b)
+                                         16 + 4 * b, collect=collect)
+            st = st[0] if collect else st
         return st
 
     plain_ms = cuda_ms(plain_frame, 1)
@@ -891,18 +945,20 @@ def bigmesh_check(smi, dev, name, scene, cam, cfg, nb, every):
         ops += n_live * seed + scatter * (OPS_SHADE + OPS_PCG) + (n_live - scatter) * OPS_END
     ops += walk_ops(work)
     table_bytes = 4 * (bt.tables.numel() + bt.nodes.numel())
-    bnd, by = bound(nb * (n * 128 + table_bytes) + 8 * scattered, ops)
+    bnd, by = bound(nb * (n * (136 if collect else 128) + table_bytes) + 8 * scattered,
+                    ops)
     live0 = int(states[0][15].sum().item())
     s_work = {}
     walk_counter(bt.tables, bt.counts, bt.nodes, s_work)(
         states[0][:3].unbind(0), states[0][3:6].unbind(0), states[0][15] > 0)
     s_bnd, s_by = bound(n * 56 + table_bytes, live0 * seed + walk_ops(s_work))
     print(f"[time] B5 {name}: {frame_ms:.4f} ms per {cfg.width}x{cfg.height} frame of "
-          f"{nb} bounce launches, plain {plain_ms:.4f} ms on its {sub.numel()} rays; "
+          f"{nb} {kind} launches, plain {plain_ms:.4f} ms on its {sub.numel()} rays; "
           f"bound {bnd:.4f} ms by {by} (walk {work}), kernel at {bnd / frame_ms:.1%} of "
           f"it; search-only {search_ms:.4f} ms, bound {s_bnd:.4f} ms by {s_by} "
           f"({s_work}), at {s_bnd / search_ms:.1%} [{smi}]")
-    return dict(max_abs_err=max(err, s_err), within_1e_4=worst, ms=frame_ms,
+    return dict(max_abs_err=max(err, s_err), within_1e_4=worst, bit_identical=same,
+                ms=frame_ms,
                 plain_ms=plain_ms, plain_rays=sub.numel(), bound_ms=bnd, bound_by=by,
                 search_ms=search_ms, search_bound_ms=s_bnd, search_bound_by=s_by,
                 walk=work)
@@ -1202,6 +1258,392 @@ def mesh_phases(smi, dev, out_dir, here):
     return out
 
 
+def lookup_check(smi, label, tables, idx, n_seg, live=None):
+    """Phase 17 on one table: B7's gather on ``tables`` f32[C, T] at ``idx``
+    against gather_plain (bit for bit) and its segment sum of a seeded
+    cotangent of the mean loss's scale (``n_seg`` columns; zero outside
+    ``live`` where given, as the replay's is on the lanes that hit no
+    triangle) against segsum_plain's float64 sum (rtol 1e-5, atol 1e-5 in
+    units of that scale), twice; each timed beside its plain version, the
+    PyTorch call that computes it (index_select; index_add_ into a zeroed
+    f32 buffer) and its bound."""
+    import numpy as np
+    import torch
+
+    from rvpt_tpu_torch.ops import replay_soa as rs
+
+    c, t = tables.shape
+    n = idx.numel()
+    scale = 1.0 / (3 * n)
+    g = torch.from_numpy(np.random.default_rng(t).normal(size=(n_seg, n))
+                         .astype(np.float32) * np.float32(scale)).to(tables.device)
+    if live is not None:
+        g = g * live
+    got = rs.launch_gather(tables, idx)
+    want = rs.gather_plain(tables, idx)
+    s1 = rs.launch_segsum(idx, g, t)
+    s2 = rs.launch_segsum(idx, g, t)
+    ref = rs.segsum_plain(idx, g, t)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    seg_ok = torch.allclose(s1 / scale, ref / scale, rtol=1e-5, atol=1e-5)
+    rep_ok = torch.allclose(s1 / scale, s2 / scale, rtol=1e-5, atol=1e-5)
+    seg_err = ((s1 - ref).abs().max() / scale).item()
+    rep_same = bool(torch.equal(s1, s2))
+    rows = int(torch.unique(idx).numel())
+    print(f"[B7-vs-plain] {label}: {c} columns x {t} rows, {n} indices ({rows} rows hit, "
+          f"the busiest {int(torch.bincount(idx).max())} times): gather bit-identical: "
+          f"{same}; segment sum of {n_seg} columns within rtol 1e-5 atol 1e-5 of the "
+          f"float64 sum in units of g's scale: {seg_ok}, max |err| {seg_err:.3g}; a "
+          f"second call within the bar: {rep_ok}, bit-identical: {rep_same}")
+    check(same, f"B7 gather on {label} is not bit-identical to plain")
+    check(seg_ok, f"B7 segment sum on {label} disagrees: max |err| {seg_err:.3g}")
+    check(rep_ok, f"B7 segment sum on {label} is not reproducible within the bar")
+    g_ms = cuda_ms(lambda: rs.launch_gather(tables, idx), 20)
+    g_plain = cuda_ms(lambda: rs.gather_plain(tables, idx), 5)
+    g_lib = cuda_ms(lambda: tables.index_select(1, idx), 20)
+    s_ms = cuda_ms(lambda: rs.launch_segsum(idx, g, t), 20)
+    s_plain = cuda_ms(lambda: rs.segsum_plain(idx, g, t), 5)
+    s_lib = cuda_ms(lambda: torch.zeros((n_seg, t), device=g.device).index_add_(1, idx, g), 20)
+    # Each input read once, each output written once: the index and the C
+    # gathered values per ray and the tables once; the index and the
+    # cotangents per ray and the [C, T] result once, one add per cotangent.
+    g_bnd, g_by = bound(n * (4 + 4 * c) + 4 * c * t, 0)
+    s_bnd, s_by = bound(n * (4 + 4 * n_seg) + 4 * n_seg * t, n * n_seg)
+    print(f"[time] B7 {label}: gather {g_ms:.4f} ms, plain {g_plain:.4f} ms, "
+          f"index_select {g_lib:.4f} ms, bound {g_bnd:.4f} ms by {g_by} (kernel at "
+          f"{g_bnd / g_ms:.1%}); segment sum {s_ms:.4f} ms, plain {s_plain:.4f} ms, "
+          f"index_add_ {s_lib:.4f} ms, bound {s_bnd:.4f} ms by {s_by} (kernel at "
+          f"{s_bnd / s_ms:.1%}) [{smi}]")
+    return ({"max_abs_err": 0.0 if same else float("inf"), "bit_identical": same,
+             "ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib, "bound_ms": g_bnd,
+             "bound_by": g_by},
+            {"max_abs_err": seg_err * scale, "max_abs_err_in_g_scale": seg_err,
+             "repeat_bit_identical": rep_same, "ms": s_ms, "plain_ms": s_plain,
+             "library_ms": s_lib, "bound_ms": s_bnd, "bound_by": s_by})
+
+
+def mesh_step_check(smi, dev, label, scene, cam, cfg, nb, counters, backward="auto",
+                    time_it=True):
+    """One fwd+bwd step of the mean image over albedo, emission and the
+    vertices through make_fast_kajiya (the main path of this slice), with
+    every launch count zeroed before it and read after it; its primal
+    against the tracer's output without records (bit for bit) and its
+    gradients against autograd through kajiya_from_hits on the records of
+    the same forward (rtol 1e-3, atol 1e-6 in units of each gradient's
+    scale); then its time (CUDA events over 5 steps after 2) and its peak
+    memory.  The reference runs in float64: autograd's transpose of
+    indexing sums each row's duplicates one by one, and in f32 at 1080p
+    (millions of rays on three material rows) that was 6% off."""
+    import torch
+
+    from rvpt_tpu_torch.core.types import Ray
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops.fast_grad import kajiya_from_hits, make_fast_kajiya
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
+    from rvpt_tpu_torch.train import inverse
+
+    pixel, xs, ys = _pixel_grid(cfg, dev)
+    ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, 1, 0)
+    ray = Ray(ray.origin.contiguous(), ray.direction.contiguous())
+    trace = make_fast_kajiya(scene, 16, nb, style="standard", backward=backward)
+    groups = ("albedo", "emission", "vertices")
+
+    def leaves():
+        return {k: x.detach().clone().requires_grad_(True)
+                for k, x in inverse.trainable_params(scene, groups).items()}
+
+    p = leaves()
+
+    def step(frame):
+        s = inverse.apply_params(scene, p)
+        out = trace(s, ray.origin, ray.direction, pixel, frame)
+        return out, torch.autograd.grad(torch.mean(out), list(p.values()))
+
+    def reference(fams, idxs):
+        q = {k: x.detach().double().requires_grad_(True)
+             for k, x in inverse.trainable_params(scene, groups).items()}
+        r64 = Ray(ray.origin.double(), ray.direction.double())
+        out = kajiya_from_hits(inverse.apply_params(scene, q), r64, pixel, 1, 16,
+                               fams, idxs, "standard")
+        return [g.float() for g in torch.autograd.grad(torch.mean(out), list(q.values()))]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for k in counters.values():
+        k.launches = 0
+    out, grads = step(1)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()}
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    bigmesh = pk.is_bigmesh(scene)
+    if bigmesh:
+        tracer = pk.BigMeshTracer(scene)
+        bare = tracer.trace(pixel, ray.origin, ray.direction, 1, 16, nb,
+                            style="standard").T
+        _, (fams, idxs) = tracer.trace(pixel, ray.origin, ray.direction, 1, 16, nb,
+                                       style="standard", collect_hits=True)
+    else:
+        pt = pk.PathTracer(scene)
+        bare = torch.stack(pt.trace(pixel, ray.origin, ray.direction, 1, 16, nb,
+                                    style="standard"), dim=-1)
+        _, rec = pt.trace(pixel, ray.origin, ray.direction, 1, 16, nb,
+                          style="standard", collect_states=True)
+        fams, idxs = pt.hits_from_record(rec)
+        del rec
+    same = bool(torch.equal(out.detach(), bare))
+    t0 = time.perf_counter()
+    ref = reference(fams, idxs)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    del fams, idxs, bare
+    errs = {}
+    for k, a, b in zip(p, grads, ref):
+        sc = b.abs().max().item()
+        ok = bool(torch.isfinite(a).all()) and sc > 0 and torch.allclose(
+            a / sc, b / sc, rtol=1e-3, atol=1e-6)
+        errs[k] = (a - b).abs().max().item() / sc if sc > 0 else float("inf")
+        check(ok, f"{label}: d loss / d {k} disagrees with autograd through "
+              f"kajiya_from_hits: max |err| {errs[k]:.3g} of its scale {sc:.3g}")
+    print(f"[mesh-step] {label}, {cfg.width}x{cfg.height} x {nb} bounces, standard, "
+          f"backward {backward}: primal bit-identical to the tracer without records: "
+          f"{same}; gradients (albedo, emission, vertices) within rtol 1e-3 atol 1e-6 "
+          f"of autograd through kajiya_from_hits in float64 on the same records "
+          f"({ref_s:.1f} s), max |err| in "
+          f"units of each gradient's scale {({k: float(f'{v:.3g}') for k, v in errs.items()})}; "
+          f"loss {torch.mean(out).item():.6f}; launches {launches}; peak memory "
+          f"{peak_gb:.2f} GB above the {base / 1e9:.2f} GB held before [{smi}]")
+    check(same, f"{label}: the paired trace's primal is not the tracer's output")
+    del ref, out, grads
+    res = dict(launches=launches, primal_bit_identical=same, grad_err=errs,
+               peak_gb=peak_gb)
+    if time_it:
+        for f in range(2):
+            step(2 + f)
+        steps = 5
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for f in range(steps):
+            step(4 + f)
+        stop.record()
+        stop.synchronize()
+        res["step_ms"] = start.elapsed_time(stop) / steps
+        print(f"[mesh-step] {label}: fwd+bwd {res['step_ms']:.4f} ms/step, "
+              f"{cfg.num_pixels * nb / res['step_ms'] / 1e3:.1f} Mrays/s "
+              f"(W*H*aa*bounces per step) [{smi}]")
+    return res
+
+
+def mesh_grad_phases(smi, dev, counters):
+    """Phases 17-21 (the mesh gradient path); returns the kernels' numbers
+    and the main paths' launches."""
+    import numpy as np
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig, RenderSettings
+    from rvpt_tpu_torch.models.integrators import integrator_kajiya
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops.fast_grad import make_fast_kajiya
+    from rvpt_tpu_torch.render import (_pixel_grid, jittered_camera_rays,
+                                       render_sample_fast_chw)
+    from rvpt_tpu_torch.scene import builtin
+    from rvpt_tpu_torch.train import inverse
+
+    hd = FilmConfig(1920, 1080)
+    rcfg = FilmConfig(1024, 512)
+    nb = 8
+    mesh3, cam3 = builtin.mesh_demo(3, aspect=hd.aspect, device=dev)
+    mesh5, cam5 = builtin.mesh_demo(5, aspect=hd.aspect, device=dev)
+    rabbit, rcam = builtin.rabbit(aspect=rcfg.aspect, device=dev)
+    out = {}
+
+    # ---- 17. B7: the gather and the segment sum against their plain versions
+    # mesh_demo(5)'s triangle tables (v0, v1, v2, material id) at the
+    # indices the replay's second bounce gives them (B5's records, clipped
+    # as the replay clips them: misses and other families read row 0), and a
+    # 140,000-row table at 2,073,600 pixel-coherent ids.
+    bt = pk.BigMeshTracer(mesh5)
+    pixel, xs, ys = _pixel_grid(hd, dev)
+    ray = jittered_camera_rays(cam5, hd, pixel, xs, ys, 1, 0)
+    _, (fams, idxs) = bt.trace(pixel, ray.origin, ray.direction, 1, 16, 2,
+                               collect_hits=True)
+    t5 = mesh5.num_triangles
+    tabs5 = torch.cat([mesh5.tri_v0.T, mesh5.tri_v1.T, mesh5.tri_v2.T,
+                       mesh5.tri_mat.to(torch.float32)[None]]).contiguous()
+    idx5 = idxs[1].clamp(0, t5 - 1).to(torch.int32).contiguous()
+    on_tri = fams[1] == 0
+    print(f"[B7] mesh_demo(5) bounce-2 records: {on_tri.float().mean().item():.4f} "
+          f"of rays on a triangle")
+    del fams, idxs, bt, ray
+    r = np.random.default_rng(17)
+    t_huge = 140_000
+    base = np.arange(hd.num_pixels, dtype=np.int64) * t_huge // hd.num_pixels
+    huge_idx = np.clip(base + r.integers(-300, 300, hd.num_pixels), 0, t_huge - 1)
+    huge = torch.from_numpy(r.standard_normal((10, t_huge)).astype(np.float32)).to(dev)
+    gat5, seg5 = lookup_check(smi, "mesh_demo(5) tables, 1080p bounce-2 ids", tabs5,
+                              idx5, 9, on_tri)
+    # The same ids with every cotangent non-zero: row 0 takes every lane
+    # that hit no triangle (the hot row the zero skip spares the replay).
+    lookup_check(smi, "mesh_demo(5) tables, 1080p bounce-2 ids, no zero cotangent",
+                 tabs5, idx5, 9)
+    gat_h, seg_h = lookup_check(smi, "140,000-row table, 1080p coherent ids", huge,
+                                torch.from_numpy(huge_idx.astype(np.int32)).to(dev), 9)
+    out["gather"] = {**gat5, "rows_140000": gat_h}
+    out["segsum"] = {**seg5, "rows_140000": seg_h}
+    del tabs5, idx5, huge, on_tri
+
+    # ---- 18. records: K1's BVH form on rabbit, B5's collect instance
+    rpt = pk.PathTracer(rabbit)
+    rn = rcfg.num_pixels
+    rpix, rxs, rys = _pixel_grid(rcfg, dev)
+    rray = jittered_camera_rays(rcam, rcfg, rpix, rxs, rys, 1, 0)
+    rays = tuple(c.contiguous() for c in (*rray.origin.T, *rray.direction.T))
+
+    def k1bc():
+        return pk.launch_path_kernel(rpt.tables, rpt.counts, rpix, rn, 1, 16, nb,
+                                     "standard", rays=rays, collect=True,
+                                     nodes=rpt.nodes)
+
+    def k1bc_plain(work=None):
+        return pk.trace_plain(rpt.tables, rpt.counts, rpix, 1, 16, nb, "standard",
+                              rays=rays, collect=True, tris_last=True, work=work,
+                              on_search=None if work is None else walk_counter(
+                                  rpt.tables, rpt.counts, rpt.nodes, work))
+
+    work = {}
+    (got, rec), (want, wrec) = k1bc(), k1bc_plain(work)
+    bare = pk.launch_path_kernel(rpt.tables, rpt.counts, rpix, rn, 1, 16, nb,
+                                 "standard", rays=rays, nodes=rpt.nodes)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in ((got, want), (rec.hits, wrec.hits),
+                                              (rec.fields, wrec.fields)))
+    err = max((got - want).abs().max().item(),
+              (rec.fields - wrec.fields).abs().max().item())
+    print(f"[records] K1's BVH form with records, rabbit {rcfg.width}x{rcfg.height} x {nb} "
+          f"bounces, rays in: radiance equal to the display instance's: "
+          f"{torch.equal(got, bare)}; radiance, (family, index) and fields "
+          f"bit-identical to trace_plain's: {same}, max |err| {err:.3g}; "
+          f"{(rec.hits[:, 0] == 0).float().mean().item():.4f} of ray-bounces on a triangle")
+    check(torch.equal(got, bare), "K1's BVH form changes its radiance with records")
+    check(same, "K1's BVH-form records are not bit-identical to trace_plain's")
+    del got, want, rec, wrec, bare
+    ms = cuda_ms(k1bc, 20)
+    plain_ms = cuda_ms(k1bc_plain, 1)
+    t_, s_, p_, _ = rpt.counts
+    seed = s_ * OPS_SPH + p_ * OPS_PLN + OPS_INV
+    # rays in (24 B), pixel ids (8), the film (12), 60 B per record slot,
+    # the tables and nodes once
+    bnd, by = bound(rn * (24 + 8 + 12 + 60 * nb)
+                    + 4 * (rpt.tables.numel() + rpt.nodes.numel()),
+                    k1_ops(work, seed) + walk_ops(work))
+    print(f"[time] K1 BVH-form collect, rabbit: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bnd:.4f} ms by {by} (work {work}), kernel at {bnd / ms:.1%} [{smi}]")
+    out["k1_bvh_collect"] = dict(max_abs_err=err, bit_identical=same, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+    out["b5_collect"] = bigmesh_check(smi, dev, "mesh_demo(5)", mesh5, cam5, hd, nb, 8,
+                                      collect=True)
+
+    # ---- 19. the mesh fwd+bwd step at 1080p x 8: this slice's main path
+    out["steps"] = {}
+    for label, scene, cam in (("mesh_demo(3)", mesh3, cam3),
+                              ("mesh_demo(5)", mesh5, cam5)):
+        res = mesh_step_check(smi, dev, label, scene, cam, hd, nb, counters)
+        want = {"bigmesh_kernel": nb, "replay_gather": nb, "replay_segsum": nb - 1}
+        ran = {k: v for k, v in res["launches"].items() if v}
+        check(ran == want, f"{label}: a step launched {ran}, expected {want} (one B5 "
+              f"collect launch and one gather per bounce, one segment sum per bounce "
+              f"whose vertices reach the image)")
+        out["steps"][label] = res
+    # ... and at 320x180 against autograd through integrator_kajiya (B8)
+    small = FilmConfig(320, 180)
+    scene, cam = builtin.mesh_demo(3, aspect=small.aspect, device=dev)
+    pixel, xs, ys = _pixel_grid(small, dev)
+    ray = jittered_camera_rays(cam, small, pixel, xs, ys, 1, 0)
+    st = RenderSettings(max_bounces=nb, style="standard")
+    trace = make_fast_kajiya(scene, 16, nb, style="standard")
+    groups = ("albedo", "emission", "vertices")
+
+    def small_grads(run):
+        p = {k: x.detach().clone().requires_grad_(True)
+             for k, x in inverse.trainable_params(scene, groups).items()}
+        return list(p), torch.autograd.grad(
+            torch.mean(run(inverse.apply_params(scene, p))), list(p.values()))
+
+    names, fast = small_grads(lambda s: trace(s, ray.origin, ray.direction, pixel, 1))
+    _, ref = small_grads(lambda s: integrator_kajiya(s, ray, pixel, 1, st, salt_base=16))
+    torch.cuda.synchronize()
+    for k, a, b in zip(names, fast, ref):
+        sc = b.abs().max().item()
+        ok = sc > 0 and torch.allclose(a / sc, b / sc, rtol=2e-2, atol=1e-5)
+        e = (a - b).abs().max().item() / max(sc, 1e-30)
+        print(f"[mesh-step] mesh_demo(3) {small.width}x{small.height} x {nb}: d loss / d "
+              f"{k} vs autograd through integrator_kajiya (B8): within rtol 2e-2 atol "
+              f"1e-5 in units of its scale {sc:.4g}: {ok}, max |err| {e:.3g}")
+        check(ok, f"mesh_demo(3) d loss / d {k} disagrees with integrator_kajiya")
+    del fast, ref, scene
+
+    # ---- 20. rabbit at 1024x512 x 8: K1's BVH-form records, then K2 or B7
+    out["rabbit"] = {}
+    for backward in ("auto", "soa"):
+        res = mesh_step_check(smi, dev, "rabbit", rabbit, rcam, rcfg, nb, counters,
+                              backward=backward, time_it=backward == "auto")
+        ran = {k: v for k, v in res["launches"].items() if v}
+        want = ({"path_kernel": 1, "bwd_kernel": 1} if backward == "auto" else
+                {"path_kernel": 1, "replay_gather": nb, "replay_segsum": nb - 1})
+        check(ran == want, f"rabbit {backward}: a step launched {ran}, expected {want}")
+        out["rabbit"][backward] = res
+
+    # ---- 21. the trainer on mesh_demo(3) at 1920x1080 x 8
+    st21 = RenderSettings(max_bounces=nb, aa=1, style="standard")
+    frames, train_steps = 4, 30
+    mats = mesh3.materials
+    # The light starts too bright (x1.2): started dim, the light's own
+    # albedo, seen only where paths hit the quad, takes up the deficit.
+    init = inverse.apply_params(mesh3, {
+        "materials.albedo": torch.full_like(mats.albedo, 0.5),
+        "materials.emission": mats.emission * 1.2})
+    target = torch.zeros((3, hd.height, hd.width), device=dev)
+    for f in range(frames):
+        target = target + render_sample_fast_chw(mesh3, cam3, st21, hd, f) / frames
+    inverse.recover(init, cam3, st21, hd, None, target, steps=2, learning_rate=3e-2)
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_scene, losses, _ = inverse.recover(init, cam3, st21, hd, None, target,
+                                           steps=train_steps, learning_rate=3e-2)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) / train_steps * 1e3
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+
+    def mean_err(a, b):
+        return (a - b).abs().mean().item()
+
+    alb0, em0 = mean_err(init.materials.albedo, mats.albedo), mean_err(
+        init.materials.emission, mats.emission)
+    alb, em = mean_err(rec_scene.materials.albedo, mats.albedo), mean_err(
+        rec_scene.materials.emission, mats.emission)
+    print(f"[train] recover on mesh_demo(3), {hd.width}x{hd.height} x {nb} bounces, "
+          f"{train_steps} steps, lr 3e-2: {train_ms:.4f} ms/step (after a 2-step warm-up "
+          f"run); loss {losses[0]:.6f} -> {losses[-1]:.6f}; mean |albedo err| "
+          f"{alb0:.4f} -> {alb:.4f}, mean |emission err| {em0:.4f} -> {em:.4f}; "
+          f"launches {launches} [{smi}]")
+    check(all(np.isfinite(losses)), "mesh trainer loss not finite")
+    check(losses[-1] < losses[0], f"mesh trainer loss did not fall: {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}")
+    check(alb < alb0, f"mesh albedo error did not fall: {alb0:.4f} -> {alb:.4f}")
+    check(em < em0, f"mesh emission error did not fall: {em0:.4f} -> {em:.4f}")
+    check(launches == {"bigmesh_kernel": 2 * nb * train_steps,
+                       "replay_gather": nb * train_steps},
+          f"the mesh trainer launched {launches}: expected two B5 frames and one "
+          f"replay's gathers per step (no vertex gradient, no segment sum)")
+    out["train"] = dict(ms_per_step=train_ms, losses=(losses[0], losses[-1]),
+                        albedo_err=(alb0, alb), emission_err=(em0, em), launches=launches)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1367,6 +1809,23 @@ def main() -> int:
     integ = integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here)
     split = integ["split"]["launches"]
     mesh = mesh_phases(smi, dev, out_dir, here)
+    del scene, pixel, xs, ys, rays, ray, got, want
+    torch.cuda.empty_cache()
+    from rvpt_tpu_torch.ops import intersect_pk as ipk
+    from rvpt_tpu_torch.ops import replay_soa as rs
+
+    counters = {"path_kernel": pk.launch_path_kernel,
+                "bwd_kernel": pk.launch_bwd_kernel,
+                "closest_hit": ipk.launch_closest_hit,
+                "primary_kernel": pk.launch_primary_kernel,
+                "hart_kernel": pk.launch_hart_kernel,
+                "bigmesh_kernel": pk.launch_bigmesh_kernel,
+                "bigmesh_hart": pk.launch_bigmesh_hart,
+                "replay_gather": rs.launch_gather,
+                "replay_segsum": rs.launch_segsum}
+    grad = mesh_grad_phases(smi, dev, counters)
+    main3 = grad["steps"]["mesh_demo(3)"]["launches"]
+    rabbit_auto = grad["rabbit"]["auto"]["launches"]
 
     kernels = [{
         "name": "path_kernel", "route": "cuda",
@@ -1438,7 +1897,42 @@ def main() -> int:
         "replaces": "rvpt_tpu/ops/pathkernel.py:2820",
         "launches": mesh["launches"]["bigmesh_hart"], **mesh["b6"],
         "library_ms": None,
+    }, {
+        # The launches of the main path of this slice, one mesh_demo(3)
+        # fwd+bwd step at 1080p x 8; the numbers of mesh_demo(5)'s tables at
+        # its replay's bounce-2 indices, the 140,000-row table beside them.
+        "name": "replay_gather", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/replay_lookup.cu",
+        "replaces": "rvpt_tpu/ops/replay_soa.py:309",
+        "also_replaces": ["rvpt_tpu/ops/replay_soa.py:105",
+                          "rvpt_tpu/ops/replay_soa.py:359"],
+        "launches": main3["replay_gather"], **grad["gather"],
+    }, {
+        "name": "replay_segsum", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/replay_lookup.cu",
+        "replaces": "rvpt_tpu/ops/replay_soa.py:244",
+        "also_replaces": ["rvpt_tpu/ops/replay_soa.py:170",
+                          "rvpt_tpu/ops/replay_soa.py:381"],
+        "launches": main3["replay_segsum"], **grad["segsum"],
+    }, {
+        # Launches: one rabbit fwd+bwd step (auto: records, then K2).
+        "name": "path_kernel_bvh_collect", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:1276",
+        "launches": rabbit_auto["path_kernel"], **grad["k1_bvh_collect"],
+        "library_ms": None,
+    }, {
+        # Launches: one mesh_demo(3) fwd+bwd step; times and bound of one
+        # 1080p frame of 8 collect launches on mesh_demo(5).
+        "name": "bigmesh_kernel_collect", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/bigmesh_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:2366",
+        "launches": main3["bigmesh_kernel"], **grad["b5_collect"],
+        "library_ms": None,
     }]
+    steps = {k: {m: v for m, v in r.items() if m != "launches"}
+             for k, r in grad["steps"].items()}
+    print(json.dumps({"mesh_steps": steps, "mesh_train": grad["train"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

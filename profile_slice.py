@@ -9,18 +9,23 @@ training step.
 Default mode drives ``Renderer.draw`` (style standard) of ``--scene`` (the
 Cornell box by default; rabbit, mesh_demo(3), mesh_demo(5) or
 terrain_demo(225)) in integrator ``--mode`` (Kajiya by default) through
-the kernels.  ``--fwd-bwd`` drives the headline training
-step instead (bench.py:63-90 on the port, chip_smoke.py phase 9): value and
-gradient of the mean image over ``trainable_params`` (albedo, emission)
-through ``make_fast_kajiya``, i.e. camera rays, K1 with records, K2 and its
-table sum, and the autograd glue.  Prints:
+the kernels.  ``--fwd-bwd`` drives a training step of ``--scene`` instead:
+value and gradient of the mean image through ``make_fast_kajiya``.  On the
+Cornell box that is the headline step (bench.py:63-90 on the port,
+chip_smoke.py phase 9) over ``trainable_params`` (albedo, emission): camera
+rays, K1 with records, K2 and its table sum, and the autograd glue.  On a
+mesh it is the mesh step of bench.py:125-160 (chip_smoke.py phase 19) over
+albedo, emission and the vertices: on a big mesh B5's collect instance per
+bounce, then the SoA replay with the B7 gather and segment sum; on rabbit
+K1's BVH form with records, then K2.  Prints:
 
 * wall ms per frame or step without the profiler, timed with CUDA events
   over ``--frames`` iterations, ``--repeats`` times;
 * from one torch.profiler trace of ``--frames`` iterations: device time
   per iteration, split by kernel (display: each kernel of the route and
   the rest;
-  fwd+bwd: K1 with records, K2, K2's table sum and the glue), device
+  fwd+bwd: K1 with records, K2, K2's table sum, B5, B7's gather, segment
+  sum and its rounding pass, and the glue), device
   operations and host-to-device copies per iteration by name, the device's
   idle share of the traced window (1 - union of device intervals /
   window), and an estimate of the idle share without the profiler (1 -
@@ -96,11 +101,13 @@ def _fwd_bwd(a, dev):
     from rvpt_tpu_torch.train import inverse
 
     cfg = FilmConfig(a.width, a.height)
-    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    scene, cam = SCENES[a.scene](builtin, cfg.aspect, dev)
     trace = make_fast_kajiya(scene, 16, a.bounces, style="standard")
     pixel, xs, ys = _pixel_grid(cfg, dev)
+    groups = (("albedo", "emission") if scene.bvh is None
+              else ("albedo", "emission", "vertices"))
     params = {k: x.detach().clone().requires_grad_(True)
-              for k, x in inverse.trainable_params(scene).items()}
+              for k, x in inverse.trainable_params(scene, groups).items()}
     frame = [0]
 
     def step():
@@ -113,9 +120,16 @@ def _fwd_bwd(a, dev):
         loss = torch.mean(trace(s, ray.origin, ray.direction, pixel, frame[0]))
         return torch.autograd.grad(loss, list(params.values()))
 
+    # Demangled or not, the B7 kernels' names end in "<name>_kernel(" or
+    # hold its length-prefixed mangled form.
     parts = {"k1_collect": ("path_kernel",), "k2": ("bwd_kernel",),
-             "k2_table_sum": ("table_sum_kernel",)}
-    return step, torch.cuda.synchronize, parts, "profile_fwd_bwd_trace.json"
+             "k2_table_sum": ("table_sum_kernel",), "b5": ("bigmesh_kernel",),
+             "b7_gather": ("::gather_kernel(", "13gather_kernelE"),
+             "b7_segsum": ("::segsum_kernel(", "13segsum_kernelE"),
+             "b7_round": ("::round_kernel(", "12round_kernelE")}
+    name = ("profile_fwd_bwd_trace.json" if a.scene == "cornell"
+            else f"profile_fwd_bwd_{a.scene}_trace.json")
+    return step, torch.cuda.synchronize, parts, name
 
 
 def main() -> int:
@@ -128,7 +142,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--scene", choices=sorted(SCENES), default="cornell",
-                    help="the display frame's scene")
+                    help="the display frame's or the training step's scene")
     ap.add_argument("--mode", type=int, default=9,
                     help="the display frame's integrator mode (9: Kajiya)")
     a = ap.parse_args()

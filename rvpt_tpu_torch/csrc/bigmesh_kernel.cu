@@ -15,11 +15,14 @@
 // :3122) writes the winner: f32[5,N] (t, normal xyz, material id) and
 // int32[2,N] (family, index); a lane not live does no search and gets the
 // miss winner.  Its caller runs the debug finalize and the Whitted and Cook
-// shading between launches as plain PyTorch (:3143-3235).  Hit records
-// (collect) are not ported yet (ROADMAP A12).  A third instance, search-only
-// with the walk's counting (bvh_search.cuh COUNT), also writes each ray's
-// node and triangle tests as int32[2,N]; it serves the bounds of
-// chip_smoke.py and no display path.
+// shading between launches as plain PyTorch (:3143-3235).  The collect
+// instance (make_bigmesh_dma_kernel(collect=True), outputs :2418 and
+// :2568-2600) is the bounce instance that also writes the bounce's hit
+// record int32[2,N]: (family, index) of the winner, -1 on a lane that was
+// dead or missed; the mesh gradient's SoA replay reads it.  A fourth
+// instance, search-only with the walk's counting (bvh_search.cuh COUNT),
+// also writes each ray's node and triangle tests as int32[2,N]; it serves
+// the bounds of chip_smoke.py and no display path.
 //
 // The TPU mechanism is not carried over: no chunk DMAs or SMEM clusters, no
 // per-tile chunk work lists (_bigmesh_chunk_worklist :2734), no wavefront
@@ -58,14 +61,15 @@ using namespace scene;
 constexpr int THREADS = 256;
 constexpr int N_STATE = 16;  // pathkernel.STATE_FIELDS
 
-template <bool SEARCH_ONLY, bool COUNT>
+template <bool SEARCH_ONLY, bool COUNT, bool COLLECT>
 __global__ void __launch_bounds__(THREADS) bigmesh_kernel(
     const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
     int n_mat, const float* __restrict__ nodes,
     const int64_t* __restrict__ pix_ids, const float* __restrict__ state,
     int live_row, float* __restrict__ out_state, float* __restrict__ out_w,
-    int32_t* __restrict__ out_i, int32_t* __restrict__ out_count, int n,
-    uint32_t frame, uint32_t salt, float mint) {
+    int32_t* __restrict__ out_i, int32_t* __restrict__ out_count,
+    int32_t* __restrict__ out_hits, int n, uint32_t frame, uint32_t salt,
+    float mint) {
   extern __shared__ float smem[];
   const Tables s = stage(smem, nullptr, tables + TRI_STRIDE * n_tri, 0, n_sph,
                          n_pln, n_mat);
@@ -99,6 +103,10 @@ __global__ void __launch_bounds__(THREADS) bigmesh_kernel(
   auto put = [&](int r, float v) { out_state[(int64_t)r * n + i] = v; };
   if (!active) {  // a dead lane passes through
     for (int r = 0; r < N_STATE; ++r) put(r, row(r));
+    if (COLLECT) {
+      out_hits[i] = -1;
+      out_hits[(int64_t)n + i] = -1;
+    }
     return;
   }
   float tr = row(6), tg = row(7), tb = row(8);
@@ -106,6 +114,10 @@ __global__ void __launch_bounds__(THREADS) bigmesh_kernel(
   float rr = row(12), rg = row(13), rb = row(14);
   bool alive = true;
   const Hit h = bvh::closest_hit_mesh(s, mesh, ox, oy, oz, dx, dy, dz, mint);
+  if (COLLECT) {  // a miss is -1 already
+    out_hits[i] = h.fam;
+    out_hits[(int64_t)n + i] = h.fam < 0 ? -1 : h.idx;
+  }
   if (h.fam < 0) {  // the sky, with d.y shifted into [0,1], and the end
     const float st = dy * 0.5f + 0.5f;
     rr = rr + cr + tr * (1.0f + SKY_R * st);
@@ -129,24 +141,24 @@ __global__ void __launch_bounds__(THREADS) bigmesh_kernel(
   for (int r = 0; r < N_STATE; ++r) put(r, v[r]);
 }
 
-template <bool SEARCH_ONLY, bool COUNT>
+template <bool SEARCH_ONLY, bool COUNT, bool COLLECT>
 int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
            const float* nodes, const int64_t* pix_ids, const float* state,
            int live_row, float* out_state, float* out_w, int32_t* out_i,
-           int32_t* out_count, int n, uint32_t frame, uint32_t salt,
-           float mint, void* stream) {
+           int32_t* out_count, int32_t* out_hits, int n, uint32_t frame,
+           uint32_t salt, float mint, void* stream) {
   const size_t smem = sizeof(float) * staged_floats(0, n_sph, n_pln, n_mat);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bigmesh_kernel<SEARCH_ONLY, COUNT>,
+        bigmesh_kernel<SEARCH_ONLY, COUNT, COLLECT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (n + THREADS - 1) / THREADS;
-  bigmesh_kernel<SEARCH_ONLY, COUNT>
+  bigmesh_kernel<SEARCH_ONLY, COUNT, COLLECT>
       <<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
           tables, n_tri, n_sph, n_pln, n_mat, nodes, pix_ids, state, live_row,
-          out_state, out_w, out_i, out_count, n, frame, salt, mint);
+          out_state, out_w, out_i, out_count, out_hits, n, frame, salt, mint);
   return (int)cudaGetLastError();
 }
 
@@ -157,29 +169,30 @@ extern "C" {
 int rvpt_max_table_floats() { return max_table_floats(); }
 
 // Launch on `stream`; returns cudaGetLastError() of the launch.  With
-// out_state non-null: one bounce of `state` f32[16,N] (live row 15); else
-// the search-only instance on `state` f32[7,N] (live row 6), writing out_w
-// and out_i, and with out_count non-null its counting instance, which also
-// writes each ray's node and triangle tests to out_count int32[2,N].
+// out_state non-null: one bounce of `state` f32[16,N] (live row 15), and
+// with out_hits non-null the collect instance, which also writes the hit
+// record to out_hits int32[2,N]; else the search-only instance on `state`
+// f32[7,N] (live row 6), writing out_w and out_i, and with out_count
+// non-null its counting instance, which also writes each ray's node and
+// triangle tests to out_count int32[2,N].
 int rvpt_bigmesh(const float* tables, int n_tri, int n_sph, int n_pln,
                  int n_mat, const float* nodes, const int64_t* pix_ids,
                  const float* state, int live_row, float* out_state,
-                 float* out_w, int32_t* out_i, int32_t* out_count, int n,
-                 uint32_t frame, uint32_t salt, float mint, void* stream) {
+                 float* out_w, int32_t* out_i, int32_t* out_count,
+                 int32_t* out_hits, int n, uint32_t frame, uint32_t salt,
+                 float mint, void* stream) {
   if (n <= 0) return 0;
+#define RVPT_LAUNCH(S, C, R)                                                  \
+  launch<S, C, R>(tables, n_tri, n_sph, n_pln, n_mat, nodes, pix_ids, state, \
+                  live_row, out_state, out_w, out_i, out_count, out_hits, n, \
+                  frame, salt, mint, stream)
   if (out_state) {
-    return launch<false, false>(tables, n_tri, n_sph, n_pln, n_mat, nodes,
-                                pix_ids, state, live_row, out_state, out_w,
-                                out_i, nullptr, n, frame, salt, mint, stream);
+    return out_hits ? RVPT_LAUNCH(false, false, true)
+                    : RVPT_LAUNCH(false, false, false);
   }
-  if (out_count) {
-    return launch<true, true>(tables, n_tri, n_sph, n_pln, n_mat, nodes,
-                              pix_ids, state, live_row, out_state, out_w,
-                              out_i, out_count, n, frame, salt, mint, stream);
-  }
-  return launch<true, false>(tables, n_tri, n_sph, n_pln, n_mat, nodes,
-                             pix_ids, state, live_row, out_state, out_w, out_i,
-                             nullptr, n, frame, salt, mint, stream);
+  return out_count ? RVPT_LAUNCH(true, true, false)
+                   : RVPT_LAUNCH(true, false, false);
+#undef RVPT_LAUNCH
 }
 
 const char* rvpt_error_string(int code) {

@@ -30,7 +30,10 @@
 // no MAX_GROUP bounce split with its 16-field carry (so no 0/1/2 trit for
 // Cook's flag across groups: it is a register), no one-hot table fetches.
 //
-// Collect mode (the Kajiya COLLECT instance, for the gradient): before
+// Collect mode (the Kajiya COLLECT instances of both search forms, for the
+// gradient; the BVH form's mirrors the culled path's collect inside
+// _path_call with cull_tables, whose triangle indices are leaf-order ids,
+// the rows of the BVH scene's own tables): before
 // each bounce's search the thread writes its 13 bounce-input fields (o, d,
 // throughput, gathered color, active as 0/1) to rec_f[B][13][N], and after
 // it the hit's (family, index) to rec_i[B][2][N], -1 where the lane missed.
@@ -262,9 +265,9 @@ int rvpt_max_table_floats() { return max_table_floats(); }
 
 // Launch on `stream`; returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for an unknown integrator or records asked of
-// Whitted, Cook or the BVH form.  With rec_f and rec_i non-null the Kajiya
-// collect instance writes the record; with `nodes` non-null (pack_bvh's
-// rows) the BVH form runs.
+// Whitted or Cook.  With rec_f and rec_i non-null a Kajiya collect instance
+// writes the record; with `nodes` non-null (pack_bvh's rows) the BVH form
+// runs, collect or not.
 int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
                     int n_mat, const float* nodes, const float* cam,
                     const int64_t* pix_ids,
@@ -283,8 +286,9 @@ int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
                   salt_base, jitter_salt, max_bounces, standard, cam_mode,  \
                   mint, stream)
   if (collect) {
-    if (integ != KAJIYA || bvh_form) return (int)cudaErrorInvalidValue;
-    return RVPT_LAUNCH(KAJIYA, true, false);
+    if (integ != KAJIYA) return (int)cudaErrorInvalidValue;
+    return bvh_form ? RVPT_LAUNCH(KAJIYA, true, true)
+                    : RVPT_LAUNCH(KAJIYA, true, false);
   }
   if (integ == KAJIYA) {
     return bvh_form ? RVPT_LAUNCH(KAJIYA, false, true)

@@ -27,9 +27,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rvpt_tpu_torch"
 NATIVE_SOURCE = Path(__file__).resolve().parents[2] / "native" / "rvpt_native.cpp"
-# Every kernel source under csrc/: K1, K2, B8, B3, B4, B5 and B6.
+# Every kernel source under csrc/: K1, K2, B8, B3, B4, B5, B6 and B7.
 KERNELS = ("path_kernel", "bwd_kernel", "closest_hit", "primary_kernel",
-           "hart_kernel", "bigmesh_kernel", "bigmesh_hart")
+           "hart_kernel", "bigmesh_kernel", "bigmesh_hart", "replay_lookup")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 # No fast math: IEEE division, sqrt and sin/cos, and no fused multiply-add,

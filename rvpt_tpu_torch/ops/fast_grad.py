@@ -10,6 +10,13 @@
               ``bwd_plain`` on the CPU): cotangents of the ray origins and
               directions and of the 10 differentiable scene leaves.
 
+That is the "pallas" route of the JAX package (up to 1,024 triangles, with
+or without a BVH).  Its "soa" route, for big meshes and larger scenes,
+pairs the tracer with records (K1, or B5's collect instance on a big mesh)
+with autograd through ``ops.replay_soa.kajiya_replay_soa`` on the recorded
+hits, whose triangle-table lookups run the gather and segment-sum kernels
+(B7) on the card.
+
 ``kajiya_from_hits`` is the differentiable replay from hit records through
 ``isect_from_hit``: the oracle both are held against.
 """
@@ -26,8 +33,9 @@ from ..models import brdf
 from ..models.integrators import _bounce_rands, _sky
 from ..scene.materials import gather
 from .intersect import isect_from_hit
-from .pathkernel import (MAX_BWD_TRIANGLES, PathTracer, bwd_path,
-                         scene_grads_from_tables)
+from .pathkernel import (MAX_BWD_TRIANGLES, BigMeshTracer, PathTracer, _pixels,
+                         _raster, bwd_path, is_bigmesh, scene_grads_from_tables)
+from .replay_soa import kajiya_replay_soa
 
 SCENE_LEAVES = ("tri_v0", "tri_v1", "tri_v2", "sph_center", "sph_radius",
                 "pln_normal", "pln_d")
@@ -93,7 +101,7 @@ class _PathTrace(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, scene, pixel, frame, salt, origin, direction,
                 *leaves):
-        salt_base, max_bounces, style = spec
+        salt_base, max_bounces, style, _ = spec
         s = _with_leaves(scene, [x.detach() for x in leaves])
         (r, g, b), record = PathTracer(s).trace(
             pixel, origin.detach(), direction.detach(), frame, salt_base + salt,
@@ -104,13 +112,66 @@ class _PathTrace(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        salt_base, _, style = ctx.spec
+        salt_base, _, style, _ = ctx.spec
         pixel = ctx.pixel if isinstance(ctx.pixel, torch.Tensor) else None
         gtabs, go, gd = bwd_path(ctx.scene, ctx.record, ctx.frame, g,
                                  salt_base + ctx.salt, style, pixel)
         grads = scene_grads_from_tables(ctx.scene, gtabs)
         leaf_grads = [grads[k] for k in SCENE_LEAVES + MATERIAL_LEAVES]
         return (None, None, None, None, None, go, gd, *leaf_grads)
+
+
+class _SoaTrace(torch.autograd.Function):
+    """Radiance f32[N,3] of the tracer with hit records (K1 in either form,
+    or B5's collect instance on a big mesh); backward = autograd through
+    the SoA replay from those records (``ops.replay_soa``)."""
+
+    @staticmethod
+    def forward(ctx, spec, scene, pixel, frame, salt, origin, direction,
+                *leaves):
+        salt_base, max_bounces, style, bigmesh = spec
+        s = _with_leaves(scene, [x.detach() for x in leaves])
+        o, d = origin.detach(), direction.detach()
+        if bigmesh:
+            rgb, (fams, idxs) = BigMeshTracer(s).trace(
+                _raster_ids(pixel, o.device), o, d, frame, salt_base + salt,
+                max_bounces, style=style, collect_hits=True)
+        else:
+            pt = PathTracer(s)
+            (r, g, b), record = pt.trace(
+                pixel, o, d, frame, salt_base + salt, max_bounces, style=style,
+                collect_states=True)
+            rgb = torch.stack([r, g, b])
+            fams, idxs = pt.hits_from_record(record)
+        ctx.save_for_backward(o, d, fams, idxs, *leaves)
+        ctx.spec, ctx.scene, ctx.pixel, ctx.frame, ctx.salt = (
+            spec, s, pixel, frame, salt)
+        return rgb.T
+
+    @staticmethod
+    def backward(ctx, g):
+        salt_base, _, style, _ = ctx.spec
+        o, d, fams, idxs, *leaves = ctx.saved_tensors
+        want = ctx.needs_input_grad[5:]
+        if not any(want):
+            return (None,) * (5 + len(want))
+        inputs = [x.detach().requires_grad_(w) for x, w in zip((o, d, *leaves), want)]
+        with torch.enable_grad():
+            out = kajiya_replay_soa(
+                _with_leaves(ctx.scene, inputs[2:]), inputs[0], inputs[1],
+                _raster_ids(ctx.pixel, o.device), ctx.frame, salt_base + ctx.salt,
+                fams, idxs, style)
+            wrt = [x for x, w in zip(inputs, want) if w]
+            got = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+        grads = [next(got) if w else None for w in want]
+        return (None, None, None, None, None, *grads)
+
+
+def _raster_ids(pixel, dev):
+    """int64[N] pixel ids of a ``pixel`` argument (a tensor, or an int N for
+    the raster ids 0..N-1)."""
+    n, pix = _pixels(pixel)
+    return _raster(pix, n, dev)
 
 
 def make_fast_kajiya(scene_template, salt_base: int, max_bounces: int,
@@ -123,32 +184,46 @@ def make_fast_kajiya(scene_template, salt_base: int, max_bounces: int,
     parameters train through ``generate_rays``) and to the 10
     differentiable scene leaves.
 
-    ``backward``: "auto" takes the whole-chain pullback (K2 on the card),
-    which serves scenes without a BVH of at most 1,024 triangles, where the
-    JAX package takes its "pallas" route; "soa", the JAX route for larger
-    and BVH scenes, is not ported (ROADMAP A12, kernel B7) and raises, as
-    does a scene past that bound."""
-    if backward not in ("auto", "soa"):
+    ``backward`` selects the pullback (``make_fast_kajiya`` :73):
+      - "pallas": the whole-chain pullback of K1's record (K2 on the card),
+        for scenes of at most 1,024 triangles (``MAX_BWD_TRIANGLES``),
+        without a BVH or in K1's BVH form;
+      - "soa": autograd through the SoA replay of the hit records
+        (``ops.replay_soa``: on the card its triangle lookups run the
+        gather and segment-sum kernels), from K1 or, on a big mesh, from
+        B5's collect instance;
+      - "auto": the JAX rule (:106-109): "soa" for a big mesh
+        (``pathkernel.is_bigmesh``), else "pallas" up to 1,024 triangles
+        and "soa" past them."""
+    if backward not in ("auto", "pallas", "soa"):
         raise ValueError(f"unknown backward {backward!r}")
-    if (backward == "soa" or scene_template.bvh is not None
-            or scene_template.num_triangles > MAX_BWD_TRIANGLES):
-        raise NotImplementedError(
-            "the SoA replay backward (ROADMAP A12, kernel B7) is not ported; "
-            f"the kernel backward serves scenes without a BVH of at most "
-            f"{MAX_BWD_TRIANGLES} triangles (this one: "
-            f"{scene_template.num_triangles}, bvh={scene_template.bvh is not None})")
-    spec = (int(salt_base), int(max_bounces), style)
+    bigmesh = is_bigmesh(scene_template)
+    if backward == "auto":
+        backward = ("soa" if bigmesh
+                    or scene_template.num_triangles > MAX_BWD_TRIANGLES
+                    else "pallas")
+    if backward == "pallas" and bigmesh:
+        raise ValueError("the kernel pullback serves no big mesh "
+                         f"({scene_template.num_triangles} triangles, BVH): "
+                         "use backward=\"soa\"")
+    spec = (int(salt_base), int(max_bounces), style, bigmesh)
+    paired = _PathTrace if backward == "pallas" else _SoaTrace
 
     def trace(scene, origin, direction, pixel, frame, salt=0):
         leaves = _scene_leaves(scene)
         if not (torch.is_grad_enabled()
                 and any(x.requires_grad for x in (origin, direction, *leaves))):
             # Nothing to differentiate: the tracer without records.
+            if bigmesh:
+                rgb = BigMeshTracer(scene).trace(
+                    _raster_ids(pixel, origin.device), origin, direction, frame,
+                    spec[0] + salt, spec[1], style=style)
+                return rgb.T
             r, g, b = PathTracer(scene).trace(
                 pixel, origin, direction, frame, spec[0] + salt, spec[1],
                 style=style)
             return torch.stack([r, g, b], dim=-1)
-        return _PathTrace.apply(spec, scene, pixel, frame, salt, origin,
-                                direction, *leaves)
+        return paired.apply(spec, scene, pixel, frame, salt, origin, direction,
+                            *leaves)
 
     return trace

@@ -35,8 +35,11 @@ launches the kernel or raises.  Scene tables are packed in the row form
 triangles are in the tree's leaf order, and K1 and B3 on it (their BVH
 form, the port of the culled form) and B5 search them by a per-ray walk of
 the ``pack_bvh`` nodes, after the spheres and planes.  A trace's record
-(``PathRecord``) is flat and SoA: per bounce the 13 bounce-input fields and
-the (family, index) hit record, -1 where the lane was dead or missed.
+(``PathRecord``, from K1 in either form) is flat and SoA: per bounce the 13
+bounce-input fields and the (family, index) hit record, -1 where the lane
+was dead or missed; B5's collect instance writes the same hit record per
+bounce launch.  A BVH scene's triangle indices are leaf-order ids, the
+rows of its own tables.
 """
 
 from __future__ import annotations
@@ -938,19 +941,28 @@ def bigmesh_search_plain(tables, counts, rays, live, mint=0.0):
     return torch.stack(w[:5]), torch.stack(w[5:])
 
 
-def bigmesh_bounce_plain(tables, counts, pix, state, frame, salt, mint=0.0):
+def bigmesh_bounce_plain(tables, counts, pix, state, frame, salt, mint=0.0,
+                         collect=False):
     """The plain version of the big-mesh kernel's bounce instance: ``state``
     f32[16, N] (``STATE_FIELDS``), ``pix`` int64[N] -> the state after one
     Kajiya bounce (the search of ``bigmesh_search_plain``, then ``_shade``
     :925 with the RNG salt ``salt``).  A dead lane passes through exactly
-    (:2593-2597); the standard-style tail is the caller's (:3097-3101)."""
+    (:2593-2597); the standard-style tail is the caller's (:3097-3101).
+    With ``collect`` (its collect instance, :2568-2570) -> (state, int32[2,
+    N] hit record: family and index, -1 where the lane was dead or
+    missed)."""
     tri, sph, pln, mat = _unpack_fwd(tables, counts, tri_rows=True)
     rows = state.unbind(0)
     active = rows[15] > 0.0
     winner = _search_tris_last(tri, sph, pln, *rows[:6], mint, active)
     new, _ = _shade_plain("kajiya", mat, pix, frame, salt, (*rows[:15], active),
                           winner, None, None)
-    return torch.stack([*new[:15], new[15].to(torch.float32)])
+    out = torch.stack([*new[:15], new[15].to(torch.float32)])
+    if not collect:
+        return out
+    live_hit = active & (winner[5] >= 0)
+    return out, torch.stack([torch.where(live_hit, winner[5], -1),
+                             torch.where(live_hit, winner[6], -1)]).to(torch.int32)
 
 
 def bigmesh_distance_plain(htables, n_tri, p, live, tri_chunk=None):
@@ -1057,8 +1069,6 @@ def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
         raise ValueError(f"unknown integrator {integ!r}")
     if integ != "kajiya" and collect:
         raise ValueError("hit records are a Kajiya-only path")
-    if collect and nodes is not None:
-        raise NotImplementedError("hit records of BVH scenes are ROADMAP A12")
     t, s, p, nm = counts
     dev = tables.device
     lib = _scene_lib(_path_lib, tables, counts, nodes)
@@ -1184,8 +1194,8 @@ def _bigmesh_lib():
     if not hasattr(lib, "_rvpt_bound"):
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.rvpt_bigmesh.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr,
-                                     i32, ptr, ptr, ptr, ptr, i32, u32, u32,
-                                     ctypes.c_float, ptr]
+                                     i32, ptr, ptr, ptr, ptr, ptr, i32, u32,
+                                     u32, ctypes.c_float, ptr]
         lib.rvpt_bigmesh.restype = i32
         lib.rvpt_max_table_floats.argtypes = []
         lib.rvpt_max_table_floats.restype = i32
@@ -1194,10 +1204,10 @@ def _bigmesh_lib():
 
 
 def _run_bigmesh(tables, counts, nodes, pix, state, frame, salt, mint,
-                 search_only, count=False):
-    """One launch of the big-mesh kernel's bounce, search-only or (with
-    ``count``) counting instance -> out_state, or (out_w, out_i, out_count
-    or None)."""
+                 search_only, count=False, collect=False):
+    """One launch of the big-mesh kernel's bounce, (with ``collect``)
+    collect, search-only or (with ``count``) counting instance -> out_state,
+    (out_state, out_hits), or (out_w, out_i, out_count or None)."""
     rows = 7 if search_only else len(STATE_FIELDS)
     t, s, p, nm = counts
     dev = tables.device
@@ -1208,7 +1218,7 @@ def _run_bigmesh(tables, counts, nodes, pix, state, frame, salt, mint,
     check_cuda(state, torch.float32, "state", device=dev)
     if not search_only:
         check_cuda(pix, torch.int64, "pixel", n, dev)
-    out_state = out_w = out_i = out_c = None
+    out_state = out_w = out_i = out_c = out_h = None
     if search_only:
         out_w = torch.empty((5, n), dtype=torch.float32, device=dev)
         out_i = torch.empty((2, n), dtype=torch.int32, device=dev)
@@ -1216,30 +1226,36 @@ def _run_bigmesh(tables, counts, nodes, pix, state, frame, salt, mint,
             out_c = torch.empty((2, n), dtype=torch.int32, device=dev)
     else:
         out_state = torch.empty_like(state)
+        if collect:
+            out_h = torch.empty((2, n), dtype=torch.int32, device=dev)
     err = lib.rvpt_bigmesh(
         tables.data_ptr(), t, s, p, nm, nodes.data_ptr(),
         None if search_only else pix.data_ptr(), state.data_ptr(), rows - 1,
-        _ptr(out_state), _ptr(out_w), _ptr(out_i), _ptr(out_c), n,
+        _ptr(out_state), _ptr(out_w), _ptr(out_i), _ptr(out_c), _ptr(out_h), n,
         int(frame) & 0xFFFFFFFF, int(salt) & 0xFFFFFFFF, float(mint),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, err, "big-mesh kernel")
-    return (out_w, out_i, out_c) if search_only else out_state
+    if search_only:
+        return out_w, out_i, out_c
+    return (out_state, out_h) if collect else out_state
 
 
 def launch_bigmesh_kernel(tables, counts, nodes, pix, state, frame, salt,
-                          mint=0.0, search_only=False):
+                          mint=0.0, search_only=False, collect=False):
     """Launch the CUDA big-mesh kernel B5 on the tables' card: per ray the
     BVH search (spheres and planes, then the triangles by the tree), then
     one Kajiya bounce.
 
     ``state`` is f32[16, N] (``STATE_FIELDS``) and the result the state
-    after the bounce, as ``bigmesh_bounce_plain``; ``pix`` int64[N].  With
+    after the bounce, as ``bigmesh_bounce_plain``; ``pix`` int64[N]; with
+    ``collect`` (the collect instance) the result is (state, int32[2, N]
+    hit record), as ``bigmesh_bounce_plain(collect=True)``.  With
     ``search_only`` ``state`` is f32[7, N] (the ray, then live as 0/1),
     ``pix`` is unused and the result the winner of
     ``bigmesh_search_plain``.  Counts one launch in
     ``launch_bigmesh_kernel.launches``."""
     out = _run_bigmesh(tables, counts, nodes, pix, state, frame, salt, mint,
-                       search_only)
+                       search_only, collect=collect)
     launch_bigmesh_kernel.launches += 1
     return out[:2] if search_only else out
 
@@ -1403,8 +1419,6 @@ class PathTracer(nn.Module):
                 comps = (origin[:, 0], origin[:, 1], origin[:, 2],
                          direction[:, 0], direction[:, 1], direction[:, 2])
             rays = tuple(c.contiguous() for c in comps)
-        if collect_states and self.bvh_form:
-            raise NotImplementedError("hit records of BVH scenes are ROADMAP A12")
         kw = dict(rays=rays, cam_params=cam_params, cam_mode=cam_mode,
                   jitter_salt=jitter_salt, mint=self.mint,
                   collect=collect_states, integ=integ)
@@ -1517,15 +1531,17 @@ class BigMeshTracer(nn.Module):
 
         return _on_device(self.tables.device, kernel, plain)
 
-    def bounce(self, pix, state, frame, salt):
+    def bounce(self, pix, state, frame, salt, collect=False):
         """One Kajiya bounce of ``state`` f32[16, N] (``STATE_FIELDS``) ->
-        the new state (B5's bounce instance, or its plain version)."""
+        the new state, or with ``collect`` (state, int32[2, N] hit record)
+        (B5's bounce or collect instance, or its plain version)."""
         return _on_device(
             self.tables.device,
             lambda: launch_bigmesh_kernel(self.tables, self.counts, self.nodes,
-                                          pix, state, frame, salt, self.mint),
+                                          pix, state, frame, salt, self.mint,
+                                          collect=collect),
             lambda: bigmesh_bounce_plain(self.tables, self.counts, pix, state,
-                                         frame, salt, self.mint))
+                                         frame, salt, self.mint, collect))
 
     def distance(self, p, live):
         """The scene's unsigned distance at points ``p`` f32[3, N] for the
@@ -1549,16 +1565,27 @@ class BigMeshTracer(nn.Module):
         """Kajiya paths -> f32[3, N] (unpacks as the JAX ``trace``'s (r, g,
         b), :2966): ``pixel`` int64[N], ``origin``/``direction`` f32[N,3];
         bounce b draws with salt ``salt_base + 4 b``; the standard-style
-        tail runs after the loop (:3097-3101)."""
-        if collect_hits:
-            raise NotImplementedError("big-mesh hit records are ROADMAP A12")
+        tail runs after the loop (:3097-3101).  With ``collect_hits`` ->
+        (f32[3, N], (fams, idxs)): the per-bounce hit records int64[B, N]
+        of B5's collect instance (-1 where dead or missed), in the caller's
+        ray order, the layout of ``PathTracer.hits_from_record``."""
         start = _start_state(self._rays(origin, direction), "kajiya")
         state = torch.stack([*start[:15], start[15].to(torch.float32)])
+        hits = []
         for b in range(int(max_bounces)):
-            state = self.bounce(pixel, state, frame, salt_base + 4 * b)
+            state = self.bounce(pixel, state, frame, salt_base + 4 * b,
+                                collect_hits)
+            if collect_hits:
+                state, h = state
+                hits.append(h)
         rows = state.unbind(0)
-        return _finish_plain("kajiya", style, (*rows[:15], rows[15] > 0.0), None,
-                             None, None)
+        rgb = _finish_plain("kajiya", style, (*rows[:15], rows[15] > 0.0), None,
+                            None, None)
+        if not collect_hits:
+            return rgb
+        rec = (torch.stack(hits) if hits else
+               torch.empty((0, 2, rgb.shape[1]), dtype=torch.int32, device=rgb.device))
+        return rgb, (rec[:, 0].long(), rec[:, 1].long())
 
     def trace_primary(self, pixel, origin, direction, frame, mode, *,
                       salt_base, nrays=1):

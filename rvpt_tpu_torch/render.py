@@ -115,9 +115,10 @@ def _megakernel_eligible(scene, settings: RenderSettings) -> bool:
     mode but Hart, whose kernels read triangles in chunks or by the tree),
     the tables the kernels stage fit their shared memory (a BVH scene
     stages no triangles: its walk reads them from device memory).  The
-    backward kernel's 1,024-triangle limit is the trainer's
-    (``train.inverse._fast_eligible``), not the display's.  The tracer
-    picks each kernel or its plain version by the device."""
+    backward kernel's 1,024-triangle limit is no limit of either: past it
+    the trainer's paired trace takes the SoA replay
+    (``ops.fast_grad.make_fast_kajiya``).  The tracer picks each kernel or
+    its plain version by the device."""
     from .ops.pathkernel import stages_tables
 
     modes = set(settings.modes())

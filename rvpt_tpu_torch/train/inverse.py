@@ -101,7 +101,8 @@ def constrain_params(params: dict) -> dict:
 
 def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh=None):
     """Image-valued render closure backed by the paired trace of
-    ``ops.fast_grad`` (K1 with records forward, K2 backward, on the card).
+    ``ops.fast_grad`` (on the card: K1 with records forward, K2 backward;
+    on a big mesh B5 with records forward and the SoA replay backward).
 
     Returns ``render_fast(scene, camera, frame) -> f32[3, H, W]``; aa > 1
     averages per-sample traces with the display path's AA_STRIDE salt
@@ -139,15 +140,15 @@ def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh=None):
 
 
 def _fast_eligible(scene, settings: RenderSettings) -> bool:
-    """The paired trace differentiates Kajiya only: every quadrant Kajiya,
-    a scene the kernels serve, no BVH (the mesh gradient path is ROADMAP
-    A12), and at most the backward kernel's 1,024 triangles."""
+    """The JAX rule (``_fast_eligible`` :191: every scene the kernels serve,
+    ``render._megakernel_eligible``), and the paired trace differentiates
+    Kajiya only, so every quadrant must be Kajiya.  ``make_fast_kajiya``
+    picks the pullback by the scene: K2 up to 1,024 triangles, the SoA
+    replay beyond them and on big meshes."""
     from ..models.integrators import KAJIYA
-    from ..ops.pathkernel import MAX_BWD_TRIANGLES
     from ..render import _megakernel_eligible
 
-    return (set(settings.modes()) == {KAJIYA} and scene.bvh is None
-            and scene.num_triangles <= MAX_BWD_TRIANGLES
+    return (set(settings.modes()) == {KAJIYA}
             and _megakernel_eligible(scene, settings))
 
 
@@ -203,8 +204,8 @@ def make_train_step(scene, camera, settings: RenderSettings, cfg: FilmConfig,
     eligible = _fast_eligible(scene, settings)
     if fast is True and not eligible:
         raise NotImplementedError(
-            "the paired trace serves pure-Kajiya scenes without a BVH of at "
-            "most 1,024 triangles")
+            "the paired trace serves pure-Kajiya settings on scenes the "
+            "kernels serve (render._megakernel_eligible)")
     use_fast = eligible if fast == "auto" else bool(fast)
     if use_fast:
         render_fast = _make_fast_render(scene, camera, settings, cfg)

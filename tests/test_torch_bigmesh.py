@@ -174,9 +174,14 @@ def test_bigmesh_search_misses_and_dead_lanes(soup):
     new = bt.bounce(torch.arange(n), state, 3, 16)
     assert torch.equal(new[:, ~live], state[:, ~live])
     assert not torch.equal(new[:, live], state[:, live])
-    with pytest.raises(NotImplementedError, match="A12"):
-        bt.trace(torch.arange(n), torch.stack(o, 1), torch.stack(d, 1), 0, 16, 2,
-                 collect_hits=True)
+    # The collect instance's hit records: the radiance unchanged, -1 on
+    # the rays that miss and on every bounce after a lane ended.
+    args = (torch.arange(n), torch.stack(o, 1), torch.stack(d, 1), 0, 16, 2)
+    rgb, (fams, idxs) = bt.trace(*args, collect_hits=True)
+    assert torch.equal(rgb, bt.trace(*args))
+    assert fams.shape == idxs.shape == (2, n) and fams.dtype == torch.int64
+    assert (fams[0] >= 0).any() and ((fams == -1) == (idxs == -1)).all()
+    assert ((fams[1] == -1) | (fams[0] >= 0)).all()
 
 
 def test_bigmesh_split_screen_matches_jax(soup):
@@ -279,10 +284,17 @@ def test_culled_b3_plain_matches_jax(culled, mode):
 
 
 def test_bvh_form_records_wait_for_a12():
-    ts, _ = tbuiltin.rabbit(device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tpk.PathTracer(ts).trace(4, torch.zeros(4, 3), torch.ones(4, 3), 0, 16, 2,
-                                 collect_states=True)
+    """K1's BVH form now writes records (ROADMAP A12): the radiance of the
+    trace without them, and triangle hits by leaf-order id."""
+    ts, tcam = tbuiltin.rabbit(aspect=W / H, device="cpu")
+    jcam = jbuiltin.rabbit(aspect=W / H)[1]
+    _, _, pix, o, d = _rays(jcam)
+    pt = tpk.PathTracer(ts)
+    (r, g, b), rec = pt.trace(pix, o, d, 0, 16, 2, collect_states=True)
+    assert torch.equal(torch.stack([r, g, b]), torch.stack(pt.trace(pix, o, d, 0, 16, 2)))
+    fams, idxs = pt.hits_from_record(rec)
+    tri = fams == 0
+    assert tri.any() and (idxs[tri] < ts.num_triangles).all()
 
 
 @pytest.mark.parametrize("name", ["rabbit_kajiya", "mesh2_kajiya"])

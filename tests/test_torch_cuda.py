@@ -1,7 +1,9 @@
 """The CUDA kernels of rvpt_tpu_torch (K1 path_kernel with its Kajiya,
 Whitted and Cook forms, K2 bwd_kernel, B8 closest_hit, B3 primary_kernel,
-B4 hart_kernel, K1's and B3's BVH forms, B5 bigmesh_kernel, B6
-bigmesh_hart) against their plain PyTorch versions, on the card.  Every
+B4 hart_kernel, K1's and B3's BVH forms and their records, B5
+bigmesh_kernel with its collect instance, B6 bigmesh_hart, B7
+replay_lookup's gather and segment sum) against their plain PyTorch
+versions, on the card.  Every
 test here needs an NVIDIA card and skips without one.  This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -18,7 +20,11 @@ K1's Whitted/Cook forms >= 99.5% of pixel channels within 1e-4, B4 >= 99%
 (the tests/test_megakernel.py bars); the BVH forms and B5 >= 99.5% of
 channels within 1e-4, B6 >= 99% of live lanes (tests/test_bigmesh_modes.py),
 on the mesh builtins and on a random soup with a sphere, a plane, mirror
-and dielectric triangles.  The kernels are
+and dielectric triangles; the BVH-form records and B5's hit records bit for
+bit; B7's gather bit for bit, its segment sum within rtol 1e-5, atol 1e-5
+of the float64 sum; the mesh fwd+bwd gradients within rtol 1e-3, atol
+1e-6 (in units of their scale) of autograd through kajiya_from_hits on the
+same records.  The kernels are
 built with --fmad=false and round like the plain versions' unfused ops, so
 they usually agree exactly.
 """
@@ -258,7 +264,8 @@ def test_bwd_kernel_matches_plain(dev, style, g_kind):
 
 def test_bwd_kernel_1024_triangles(dev):
     """A seeded 1,024-triangle soup: K2 stages past the 48 KB default of
-    shared memory (and K1 too); a 1,025-triangle scene is refused."""
+    shared memory (and K1 too); a 1,025-triangle scene is refused by K2
+    and takes the SoA replay in make_fast_kajiya."""
     cfg = FilmConfig(width=320, height=180)
     cam = tcam.Camera.create(fov=90.0, aspect=cfg.aspect, device=dev)
     scene = _soup(dev, tpk.MAX_BWD_TRIANGLES)
@@ -274,8 +281,16 @@ def test_bwd_kernel_1024_triangles(dev):
     with pytest.raises(ValueError, match="1024"):
         tpk.launch_bwd_kernel(tables, counts, rec, None, 0, 16, "standard",
                               torch.zeros((n, 3), device=dev))
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_fast_kajiya(big, 16, 2)
+    pixel, ray = _bigmesh_rays(big, cam, cfg, dev)
+    albedo = big.materials.albedo.clone().requires_grad_(True)
+    s = dataclasses.replace(big, materials=dataclasses.replace(big.materials,
+                                                               albedo=albedo))
+    k2 = tpk.launch_bwd_kernel.launches
+    out = make_fast_kajiya(big, 16, 2)(s, ray.origin, ray.direction, pixel, 0)
+    torch.mean(out).backward()
+    torch.cuda.synchronize()
+    assert tpk.launch_bwd_kernel.launches == k2
+    assert torch.isfinite(albedo.grad).all() and albedo.grad.abs().max() > 0
 
 
 @pytest.mark.parametrize("bounced", [False, True])
@@ -824,3 +839,229 @@ def test_bvh_scene_draw_takes_the_bvh_form(dev):
     cpu_scene, cpu_cam = builtin.rabbit(aspect=cfg.aspect, device="cpu")
     want = render_sample_fast_chw(cpu_scene, cpu_cam, st, cfg, 0)
     assert _share(img.cpu(), want) >= 0.995
+
+
+# ---------------------------------------------------------------------------
+# The mesh gradient path: B7 (gather, segment sum), K1's BVH-form records,
+# B5's collect instance, the paired trace on meshes
+# ---------------------------------------------------------------------------
+
+
+def _lookup_inputs(dev, t_rows, n, c, seed, ids="uniform"):
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    tabs = torch.from_numpy(r.standard_normal((c, t_rows)).astype(np.float32)).to(dev)
+    if ids == "hot":  # nine rays in ten on row 0, as misses in the replay
+        idx = np.where(r.random(n) < 0.9, 0, r.integers(0, t_rows, n))
+    elif ids == "clustered":
+        # 1,024-ray blocks drawn from 512-row windows (hot rows), the last
+        # block partial.
+        bases = r.integers(0, max(t_rows - 512, 1), -(-n // 1024))
+        idx = np.concatenate([r.integers(b, min(b + 512, t_rows), 1024)
+                              for b in bases])[:n]
+    else:
+        idx = r.integers(0, t_rows, n)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    g = torch.from_numpy(r.standard_normal((c, n)).astype(np.float32)).to(dev)
+    return tabs, idx, g
+
+
+@pytest.mark.parametrize("ids", ["uniform", "clustered", "hot"])
+@pytest.mark.parametrize("t_rows", [1282, 20482, 140000])
+def test_replay_lookups_match_plain(dev, t_rows, ids):
+    """B7's gather is bit for bit with gather_plain; its segment sum within
+    rtol 1e-5, atol 1e-5 of segsum_plain's float64 sum (g of scale 1), and
+    two calls agree within that bar (float64 atomics in no fixed order)."""
+    from rvpt_tpu_torch.ops import replay_soa as trs
+
+    n = (1 << 18) + 77
+    tabs, idx, g = _lookup_inputs(dev, t_rows, n, 10, t_rows, ids)
+    launches = (trs.launch_gather.launches, trs.launch_segsum.launches)
+    got = trs.gather(tabs, idx)
+    s1 = trs.segsum(idx, g[:9].contiguous(), t_rows)
+    s2 = trs.segsum(idx, g[:9].contiguous(), t_rows)
+    want = trs.gather_plain(tabs, idx)
+    ref = trs.segsum_plain(idx, g[:9], t_rows)
+    torch.cuda.synchronize()
+    assert (trs.launch_gather.launches, trs.launch_segsum.launches) == (
+        launches[0] + 1, launches[1] + 2)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(s1, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s1, s2, rtol=1e-5, atol=1e-5)
+    assert ref.abs().max() > 0
+
+
+def test_replay_lookup_group_on_the_card(dev):
+    """_lookup_group past 64 rows: one gather forward, one segment sum
+    backward for the differentiated columns only; an empty index."""
+    from rvpt_tpu_torch.ops import replay_soa as trs
+
+    tabs, idx, g = _lookup_inputs(dev, 5597, 2348, 5, 3)
+    leaves = [t.clone().requires_grad_(k < 4) for k, t in enumerate(tabs)]
+    before = (trs.launch_gather.launches, trs.launch_segsum.launches)
+    out = trs._lookup_group(leaves, idx.long(), n_diff=4)
+    grads = torch.autograd.grad(sum((o * w).sum() for o, w in zip(out, g)),
+                                leaves[:4])
+    torch.cuda.synchronize()
+    assert (trs.launch_gather.launches, trs.launch_segsum.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = trs.segsum_plain(idx, g[:4], 5597)
+    for k in range(4):
+        torch.testing.assert_close(grads[k], ref[k], rtol=1e-5, atol=1e-5)
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    assert trs.gather(tabs, empty).shape == (5, 0)
+    assert not trs.segsum(empty, torch.zeros(5, 0, device=dev), 5597).any()
+
+
+def test_soup_bvh_form_records_match_plain(dev):
+    """K1's BVH-form collect instance on the 600-triangle soup: records
+    bit-identical to trace_plain's, the radiance that of the display
+    instance."""
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mixed_soup(600, dev)
+    pt = tpk.PathTracer(scene)
+    pixel, rays = _rays(scene, cam, cfg, dev)
+    n = cfg.num_pixels
+    got, rec = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 2, 16, 6,
+                                      "standard", rays=rays, collect=True,
+                                      nodes=pt.nodes)
+    bare = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 2, 16, 6,
+                                  "standard", rays=rays, nodes=pt.nodes)
+    want, wrec = tpk.trace_plain(pt.tables, pt.counts, pixel, 2, 16, 6, "standard",
+                                 rays=rays, collect=True, tris_last=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bare)
+    assert torch.equal(rec.hits, wrec.hits)
+    assert torch.equal(rec.fields, wrec.fields)
+    assert _share(got, want) >= 0.995
+    assert set(rec.hits[:, 0].unique().tolist()) >= {-1, 0, 1, 2}
+
+
+def test_soup_bigmesh_collect_matches_plain(dev):
+    """B5's collect instance on the 1,500-triangle soup, 6 bounces: the
+    state of the bounce instance and hit records bit-identical to
+    bigmesh_bounce_plain(collect=True)'s, -1 on dead lanes."""
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mixed_soup(1500, dev)
+    bt = tpk.BigMeshTracer(scene)
+    pixel, ray = _bigmesh_rays(scene, cam, cfg, dev)
+    start = tpk._start_state(bt._rays(ray.origin, ray.direction), "kajiya")
+    state = torch.stack([*start[:15], start[15].to(torch.float32)])
+    for b in range(6):
+        got, hits = tpk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, pixel,
+                                              state, 2, 16 + 4 * b, collect=True)
+        bare = tpk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, pixel,
+                                         state, 2, 16 + 4 * b)
+        want, whits = tpk.bigmesh_bounce_plain(bt.tables, bt.counts, pixel, state, 2,
+                                               16 + 4 * b, collect=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, bare), f"bounce {b}"
+        assert torch.equal(hits, whits), f"bounce {b}"
+        assert torch.equal(got, want), f"bounce {b}"
+        assert (hits[:, state[15] == 0] == -1).all()
+        state = want
+
+
+def _mesh_step(scene, cam, cfg, dev, backward="auto"):
+    """Value and gradients of the mean image over albedo, emission and the
+    vertices through make_fast_kajiya, and autograd through
+    kajiya_from_hits on the records of the same forward."""
+    from rvpt_tpu_torch.core.types import Ray
+    from rvpt_tpu_torch.ops.fast_grad import kajiya_from_hits, make_fast_kajiya
+    from rvpt_tpu_torch.train import inverse
+
+    pixel, ray = _bigmesh_rays(scene, cam, cfg, dev)
+    trace = make_fast_kajiya(scene, 16, 8, style="standard", backward=backward)
+    groups = ("albedo", "emission", "vertices")
+
+    def grads(run):
+        p = {k: x.detach().clone().requires_grad_(True)
+             for k, x in inverse.trainable_params(scene, groups).items()}
+        out = run(inverse.apply_params(scene, p))
+        return out, torch.autograd.grad(torch.mean(out), list(p.values()))
+
+    out, got = grads(lambda s: trace(s, ray.origin, ray.direction, pixel, 3))
+    if tpk.is_bigmesh(scene):
+        _, (fams, idxs) = tpk.BigMeshTracer(scene).trace(
+            pixel, ray.origin, ray.direction, 3, 16, 8, style="standard",
+            collect_hits=True)
+    else:
+        pt = tpk.PathTracer(scene)
+        _, rec = pt.trace(pixel, ray.origin, ray.direction, 3, 16, 8,
+                          style="standard", collect_states=True)
+        fams, idxs = pt.hits_from_record(rec)
+    # The reference in float64 (autograd's transpose of indexing sums each
+    # row's duplicates one by one).
+    p = {k: x.detach().double().requires_grad_(True)
+         for k, x in inverse.trainable_params(scene, groups).items()}
+    ref = kajiya_from_hits(inverse.apply_params(scene, p),
+                           Ray(ray.origin.double(), ray.direction.double()), pixel, 3,
+                           16, fams, idxs, "standard")
+    want = [w.float() for w in torch.autograd.grad(torch.mean(ref), list(p.values()))]
+    return out, got, want
+
+
+@pytest.mark.parametrize("name,backward", [("mesh_demo3", "auto"), ("rabbit", "auto"),
+                                           ("rabbit", "soa")])
+def test_mesh_fwd_bwd_matches_replay_autograd(dev, name, backward):
+    """The paired trace on meshes at 320x180 x 8: mesh_demo(3) through B5's
+    collect instance and the SoA replay (8 gathers and 7 segment sums: the
+    vertices of the last bounce's hit shape only the next ray, which the
+    image never sees),
+    rabbit through K1's BVH-form records and K2 (auto) or the SoA replay;
+    gradients within rtol 1e-3, atol 1e-6 (in units of the gradient's
+    scale) of autograd through kajiya_from_hits in float64 on the same
+    records."""
+    from rvpt_tpu_torch.ops import replay_soa as trs
+
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mesh(name, cfg, dev)
+    counters = (tpk.launch_bigmesh_kernel, tpk.launch_path_kernel,
+                tpk.launch_bwd_kernel, trs.launch_gather, trs.launch_segsum)
+    before = [k.launches for k in counters]
+    out, got, want = _mesh_step(scene, cam, cfg, dev, backward)
+    torch.cuda.synchronize()
+    ran = [k.launches - b for k, b in zip(counters, before)]
+    soa = backward == "soa" or name != "rabbit"
+    if name == "rabbit":
+        assert ran[1] >= 1 and ran[2] == (0 if soa else 1)
+    else:
+        assert ran[0] >= 8
+    if soa and scene.num_triangles > trs._LOOKUP_UNROLL:
+        assert ran[3] >= 8 and ran[4] == 7
+    for g, w in zip(got, want):
+        scale = w.abs().max()
+        assert scale > 0 and torch.isfinite(g).all()
+        torch.testing.assert_close(g / scale, w / scale, rtol=1e-3, atol=1e-6)
+
+
+def test_mesh_step_never_reaches_a_plain_version(dev, monkeypatch):
+    """A mesh_demo(3) training step on the card launches B5's collect
+    instance and B7; no plain version runs."""
+    from rvpt_tpu_torch.ops import replay_soa as trs
+    from rvpt_tpu_torch.train import inverse
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    cfg = FilmConfig(width=64, height=36)
+    st = RenderSettings(max_bounces=3, style="standard")
+    scene, cam = _mesh("mesh_demo3", cfg, dev)
+    target = render_sample_fast_chw(scene, cam, st, cfg, 0)
+    for mod, name in ((tpk, "bigmesh_bounce_plain"), (tpk, "trace_plain"),
+                      (trs, "gather_plain"), (trs, "segsum_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = (tpk.launch_bigmesh_kernel.launches, trs.launch_gather.launches,
+              trs.launch_segsum.launches)
+    step, opt = inverse.make_train_step(scene, cam, st, cfg, None, target,
+                                        groups=("albedo", "vertices"))
+    params, opt, loss = step(inverse.trainable_params(scene, ("albedo", "vertices")),
+                             opt, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    # 3 bounces without records, 3 with them; 3 gathers and 2 segment sums
+    # (the last hit's vertices shape only the next ray)
+    assert (tpk.launch_bigmesh_kernel.launches - before[0],
+            trs.launch_gather.launches - before[1],
+            trs.launch_segsum.launches - before[2]) == (6, 3, 2)

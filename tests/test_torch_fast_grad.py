@@ -284,18 +284,22 @@ def test_fast_grad_camera_matches_port_autograd():
 
 
 def test_fast_kajiya_routes():
-    """backward="soa" and scenes past the kernel backward's bound raise
-    (ROADMAP A12); a trace that needs no gradient takes no record."""
+    """backward="soa" and scenes past the kernel backward's bound take the
+    SoA replay (ROADMAP A12, done); an unknown route raises."""
     from rvpt_tpu_torch.scene.scene import SceneBuilder
 
     scene, cam = tbuiltin.cornell_box(device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tfg.make_fast_kajiya(scene, SALT, 2, backward="soa")
+    pixel, ray = _torch_rays(cam)
     b = SceneBuilder()
     m = b.add_material(albedo=(0.5, 0.5, 0.5))
     for k in range(tpk.MAX_BWD_TRIANGLES + 1):
         b.add_triangle((k, 0, 3), (k + 1, 0, 3), (k, 1, 3), m)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tfg.make_fast_kajiya(b.build("cpu"), SALT, 2)
+    for s, backward in ((scene, "soa"), (b.build("cpu"), "auto")):
+        albedo = s.materials.albedo.clone().requires_grad_(True)
+        mats = dataclasses.replace(s.materials, albedo=albedo)
+        trace = tfg.make_fast_kajiya(s, SALT, 2, backward=backward)
+        out = trace(dataclasses.replace(s, materials=mats), ray.origin,
+                    ray.direction, pixel, FRAME)
+        assert out.grad_fn.name().startswith("_SoaTrace")
     with pytest.raises(ValueError):
-        tfg.make_fast_kajiya(scene, SALT, 2, backward="pallas")
+        tfg.make_fast_kajiya(scene, SALT, 2, backward="xla")

@@ -120,8 +120,9 @@ def test_fast_route_serves_every_mode_and_keeps_scope():
 
 def test_display_scope_is_the_staging_not_the_backward_limit():
     """A 1,500-triangle scene without a BVH stays on the kernels' route for
-    display (on the CPU their plain versions, which stage anything), while
-    the trainer's paired trace stops at the backward kernel's 1,024."""
+    display (on the CPU their plain versions, which stage anything), and
+    the trainer's paired trace serves it past the backward kernel's 1,024
+    with the SoA replay."""
     from rvpt_tpu_torch.scene.scene import SceneBuilder
     from rvpt_tpu_torch.train.inverse import _fast_eligible
 
@@ -135,7 +136,8 @@ def test_display_scope_is_the_staging_not_the_backward_limit():
     assert big.num_triangles == 1500
     assert trender._megakernel_eligible(big, kajiya)
     assert trender._megakernel_eligible(big, RenderSettings(**SPLIT))
-    assert not _fast_eligible(big, kajiya)
+    assert _fast_eligible(big, kajiya)
+    assert not _fast_eligible(big, RenderSettings(**SPLIT))
     small, _ = tbuiltin.cornell_box(device="cpu")
     assert _fast_eligible(small, kajiya)
 
