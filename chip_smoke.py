@@ -119,15 +119,38 @@ Phases, each of which raises on failure:
    kernel-route frames, init albedo 0.5 and emission x 1.2,
    recover(steps=30, learning_rate=3e-2) with zeroed counts (two B5
    frames and one replay's 8 gathers per step); the loss and both mean
-   parameter errors fall.
+   parameter errors fall;
+22. K1's stats form: PathTracer.trace(stats=True) on rabbit at 1024x512 x 8
+   and mesh_demo(3) at 1920x1080 x 8, camera rays passed in, Kajiya,
+   Whitted and Cook, with the counts zeroed before the six traces and
+   read after them (six launches of the counting instance, no other K1
+   launch); then for each the radiance bit for bit that of K1 without
+   stats, the per-tile (listed, processed, still passed) counters equal
+   to the plain version's (cull_stats_hook on the card) on >= 99% of
+   every 8th tile, processed == listed, still <= listed, and both
+   launches timed beside the bound of this run's data (K1's work plus the
+   stats walk's root, cluster-box and triangle tests);
+23. this slice's main path, the CLI in-process through cli.main(argv) at
+   1920x1080 with --stats: Cornell 16 frames x 4 bounces standard, Cornell
+   --bvh 8 frames with --debug-view bvh, the split-screen (AO, Whitted,
+   Hart, Kajiya) 8 frames, mesh:5 x 8 bounces 8 frames with --checkpoint,
+   then --resume of it for 4 more (the film reaches frame 12); the counts
+   zeroed before each run and read after it (K1 row form, K1 BVH form,
+   B3 + K1 + B4, and B5 must each have run), ms/frame and rays/s of each
+   run from --stats, every PNG of the right shape and not black;
+24. the viewer, headless: Viewer(Renderer, backend=callable) x32 steps on
+   the 1080p Cornell box, a scripted W press at step 16 moves the camera
+   and accumulation restarts (film.frame back to 1); ms/step.
 
 Prints the kernel record as a JSON line (launches of the main paths:
 the trainer for K1, K2 and B8, the split-screen draws for B3 and B4, the
 rabbit draws for K1's and B3's BVH forms, the mesh_demo(3) Kajiya and
 mesh_demo(5) Hart draws for B5 and B6, the mesh_demo(3) fwd+bwd step for
-B7 and B5's collect instance, the rabbit step for K1's BVH-form records;
-times, bounds and errors of this run), the card's name and power limit,
-then, last, one JSON line {"ok": true, "device": {...}}.
+B7 and B5's collect instance, the rabbit step for K1's BVH-form records,
+the stats traces of phase 22 for the counting instance; times, bounds and
+errors of this run), a JSON line of the CLI runs and the viewer, the
+card's name and power limit, then, last, one JSON line {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -1644,6 +1667,259 @@ def mesh_grad_phases(smi, dev, counters):
     return out
 
 
+def stats_phase(smi, dev):
+    """Phase 22: K1's stats form (``PathTracer.trace(stats=True)``, the
+    counting instance and its summing kernel) on rabbit at 1024x512 x 8
+    and mesh_demo(3) at 1920x1080 x 8, camera rays passed in, Kajiya,
+    Whitted and Cook.  First the path: the launch counts zeroed, the six
+    traces through the entry point, the counts read.  Then, per trace, the
+    radiance bit for bit that of the launch without stats, the counters
+    against the plain version's (cull_stats_hook through trace_plain's
+    on_search, on the card) on every 8th tile, and both launches timed
+    beside the bound of this run's data."""
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
+    from rvpt_tpu_torch.scene import builtin
+
+    cases = {
+        "rabbit": (FilmConfig(1024, 512), builtin.rabbit),
+        "mesh_demo(3)": (FilmConfig(1920, 1080),
+                         lambda aspect, device: builtin.mesh_demo(3, aspect=aspect,
+                                                                  device=device)),
+    }
+    frame, salt, nb = 3, 16, 8
+    setups = {}
+    for name, (cfg, make) in cases.items():
+        scene, cam = make(aspect=cfg.aspect, device=dev)
+        pt = pk.PathTracer(scene)
+        check(pt.cull is not None, f"{name}: no culled form")
+        pixel, xs, ys = _pixel_grid(cfg, dev)
+        ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, frame, 0)
+        rays = tuple(c.contiguous() for c in (
+            ray.origin[:, 0], ray.origin[:, 1], ray.origin[:, 2],
+            ray.direction[:, 0], ray.direction[:, 1], ray.direction[:, 2]))
+        setups[name] = (cfg, pt, pixel, rays)
+
+    # The path: the entry point a user calls, counts zeroed and read.
+    pk.launch_path_stats.launches = 0
+    pk.launch_path_kernel.launches = 0
+    for name, (cfg, pt, pixel, rays) in setups.items():
+        for integ in ("kajiya", "whitted", "cook"):
+            rgb, agg = pt.trace(pixel, rays[:3], rays[3:], frame, salt, nb,
+                                integ=integ, stats=True)
+            check(len(agg) == 3 and agg[0].shape == (-(-cfg.num_pixels // pk.CULL_TILE),),
+                  f"{name} {integ}: counters of shape {tuple(agg[0].shape)}")
+    torch.cuda.synchronize()
+    launches = pk.launch_path_stats.launches
+    check(launches == 6 and pk.launch_path_kernel.launches == 0,
+          f"stats path: {launches} stats launches and {pk.launch_path_kernel.launches} "
+          "plain K1 launches, expected 6 and 0")
+    print(f"[stats-path] PathTracer.trace(stats=True) x6: {launches} launches of the "
+          f"counting instance [{smi}]")
+
+    out = {"launches": launches, "runs": {}}
+    for name, (cfg, pt, pixel, rays) in setups.items():
+        n = cfg.num_pixels
+        grid = -(-n // pk.CULL_TILE)
+        t_, s_, p_, _ = pt.counts
+        seed = s_ * OPS_SPH + p_ * OPS_PLN + OPS_INV
+        for integ in ("kajiya", "whitted", "cook"):
+            def plain_k1():
+                return pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, frame, salt, nb,
+                                             "reference", rays=rays, integ=integ,
+                                             nodes=pt.nodes)
+
+            def counted():
+                return pk.launch_path_stats(pt.tables, pt.counts, pt.nodes, pt.cull, pixel,
+                                            n, frame, salt, nb, "reference", rays=rays,
+                                            integ=integ)
+
+            want_rgb = plain_k1()
+            got_rgb, got = counted()
+            torch.cuda.synchronize()
+            same = torch.equal(got_rgb, want_rgb)
+            check(same, f"{name} {integ}: stats radiance differs from the launch without")
+            # The plain version on every 8th whole tile (the RNG keys by
+            # pixel id, so a tile's paths do not depend on the others).
+            tiles = torch.arange(0, grid, 8, device=dev)
+            lanes = (tiles[:, None] * pk.CULL_TILE
+                     + torch.arange(pk.CULL_TILE, device=dev)).reshape(-1)
+            lanes = lanes[lanes < n]
+            acc = torch.zeros((3, tiles.numel()), dtype=torch.float32, device=dev)
+            work = {}
+            hook = pk.cull_stats_hook(pt.tables, pt.counts, pt.cull, lanes.numel(), acc,
+                                      work=work)
+
+            def plain(hook=hook, lanes=lanes):
+                return pk.trace_plain(pt.tables, pt.counts, pixel[lanes], frame, salt, nb,
+                                      "reference", rays=tuple(c[lanes] for c in rays),
+                                      integ=integ, tris_last=True, on_search=hook)
+
+            t0 = time.perf_counter()
+            plain()
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            k = got[:, tiles]
+            eq = (k == acc).all(0).float().mean().item()
+            check(eq >= 0.99, f"{name} {integ}: counters equal on {eq:.4f} of tiles")
+            check(torch.equal(got[1], got[0]), f"{name} {integ}: processed != listed")
+            check(bool((got[2] <= got[0]).all().item()), f"{name} {integ}: still > listed")
+            check(got[0].sum().item() > 0, f"{name} {integ}: nothing listed")
+            # The bound: K1's BVH form on the whole film (its searches,
+            # walks and shading, counted by the plain version and the walk's
+            # counting instance) plus the stats walk's box, bit and triangle
+            # tests, counted on the compared tiles and scaled to the film.
+            kwork = {}
+            walk = walk_counter(pt.tables, pt.counts, pt.nodes, kwork)
+            pk.trace_plain(pt.tables, pt.counts, pixel, frame, salt, nb, "reference",
+                           rays=rays, integ=integ, tris_last=True, work=kwork,
+                           on_search=walk)
+            scale = n / lanes.numel()
+            stats_ops = scale * (work["root"] * OPS_BOX + work["clusters"] * OPS_BOX
+                                 + work["bits"] + work["tris"] * OPS_WALK_TRI)
+            words = -(-(pt.cull.shape[0] - 1) // 32)
+            mask_bytes = 2 * 4 * grid * pk.stats_slots(nb, integ) * words
+            table_bytes = 4 * (pt.tables.numel() + pt.nodes.numel() + pt.cull.numel())
+            bnd, by = bound(36 * n + 8 * n + table_bytes + mask_bytes + 12 * grid,
+                            k1_ops(kwork, seed) + walk_ops(kwork) + stats_ops)
+            for _ in range(2):
+                counted()
+                plain_k1()
+            k1_ms = cuda_ms(plain_k1, 10)
+            ms = cuda_ms(counted, 10)
+            k1_ms2 = cuda_ms(plain_k1, 10)
+            print(f"[stats-vs-plain] {name} {cfg.width}x{cfg.height} x {nb}, {integ}: "
+                  f"counters equal on {eq:.4f} of {tiles.numel()} tiles (bar 0.99); film "
+                  f"sums listed {got[0].sum().item():.0f}, still {got[2].sum().item():.0f}; "
+                  f"radiance bit-identical: {same}; stats launch {ms:.4f} ms, without "
+                  f"stats {k1_ms:.4f}/{k1_ms2:.4f} ms, plain {plain_ms:.2f} ms on "
+                  f"{lanes.numel()} rays; bound {bnd:.4f} ms by {by} (stats walk "
+                  f"{ {k2: round(v * scale) for k2, v in work.items()} }), kernel at "
+                  f"{bnd / ms:.1%} of it [{smi}]")
+            out["runs"][f"{name} {integ}"] = dict(
+                ms=ms, k1_ms=min(k1_ms, k1_ms2), plain_ms=plain_ms,
+                plain_rays=lanes.numel(), bound_ms=bnd, bound_by=by, tiles_equal=eq,
+                max_abs_err=(k - acc).abs().max().item(), bit_identical=same)
+    return out
+
+
+def cli_phases(smi, dev, out_dir):
+    """Phases 23-24: the CLI in-process through ``cli.main(argv)`` at
+    1920x1080 (the counts zeroed before each run and read after it), then
+    the headless Viewer on the Cornell box."""
+    import ast
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig, RenderSettings, cli
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.renderer import Renderer
+    from rvpt_tpu_torch.scene import builtin
+    from rvpt_tpu_torch.scene.bvh import attach_bvh
+    from rvpt_tpu_torch.utils.image import read_png
+    from rvpt_tpu_torch.window import Action, Viewer
+
+    counters = {"path_kernel": pk.launch_path_kernel,
+                "primary_kernel": pk.launch_primary_kernel,
+                "hart_kernel": pk.launch_hart_kernel,
+                "bigmesh_kernel": pk.launch_bigmesh_kernel,
+                "bigmesh_hart": pk.launch_bigmesh_hart,
+                "path_kernel_stats": pk.launch_path_stats}
+    cornell_bvh = pk.PathTracer(attach_bvh(builtin.cornell_box(device=dev)[0]))
+    check(cornell_bvh.bvh_form, "--bvh cornell would not take K1's BVH form")
+    ck = os.path.join(out_dir, "cli_mesh5.npz")
+    ck2 = os.path.join(out_dir, "cli_mesh5_resumed.npz")
+    size = ["--size", "1920x1080"]
+    runs = [
+        ("cornell", ["--scene", "cornell", "--frames", "16", "--bounces", "4", "--style",
+                     "standard"], {"path_kernel": 16}),
+        ("cornell --bvh", ["--scene", "cornell", "--bvh", "--frames", "8",
+                           "--debug-view", "bvh"], {"path_kernel": 8}),
+        ("split", ["--split", "ao,whitted,hart,kajiya", "--frames", "8"],
+         {"primary_kernel": 8, "path_kernel": 16, "hart_kernel": 8}),
+        ("mesh:5", ["--scene", "mesh:5", "--bounces", "8", "--frames", "8",
+                    "--checkpoint", ck], {"bigmesh_kernel": 64}),
+        ("mesh:5 --resume", ["--scene", "mesh:5", "--bounces", "8", "--frames", "4",
+                             "--resume", ck, "--checkpoint", ck2], {"bigmesh_kernel": 32}),
+    ]
+    out = {"runs": {}, "launches": {}}
+    for label, args, want in runs:
+        png = os.path.join(out_dir, "cli_" + label.replace(" ", "_").replace(":", "")
+                           .replace("-", "") + ".png")
+        for c in counters.values():
+            c.launches = 0
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([*args, *size, "--stats", "--out", png])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = {k: c.launches for k, c in counters.items() if c.launches}
+        check(rc == 0, f"cli {label}: exit {rc}: {err.getvalue()[-500:]}")
+        check(ran == want, f"cli {label}: launched {ran}, expected {want}")
+        for k, v in ran.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        stats = next(ast.literal_eval(line) for line in err.getvalue().splitlines()
+                     if line.startswith("{'frames'"))
+        img = read_png(png)
+        check(img.shape == (1080, 1920, 3), f"cli {label}: image of shape {img.shape}")
+        check(np.isfinite(img).all() and img.max() > 0 and img.mean() > 1.0,
+              f"cli {label}: the image is black (mean {img.mean():.3f})")
+        if "--debug-view" in args:
+            dbg = read_png(png.replace(".png", "_bvh.png"))
+            check((dbg != img).any(axis=-1).sum() > 1000, f"cli {label}: no BVH overlay")
+        print(f"[cli] {label}: {stats['avg_ms']:.4f} ms/frame, "
+              f"{stats['mrays_per_s']:.1f} Mrays/s (--stats over {stats['frames']} "
+              f"frames), accumulated {stats['accumulated_frames']}, launches {ran}, "
+              f"{wall:.2f} s in cli.main, image mean {img.mean():.3f} [{smi}]")
+        out["runs"][label] = dict(ms_per_frame=stats["avg_ms"],
+                                  mrays_per_s=stats["mrays_per_s"],
+                                  accumulated=stats["accumulated_frames"], launches=ran)
+    check("resumed at frame 8" in err.getvalue(), "the resume did not start at frame 8")
+    with np.load(ck2) as data:
+        check(int(data["['film']/.frame"]) == 12, "the resumed film did not reach frame 12")
+    check(out["runs"]["mesh:5 --resume"]["accumulated"] == 12,
+          "the resumed run's --stats did not count 12 frames")
+
+    # ---- 24. the viewer, headless: 32 steps, a W press at step 16
+    cfg = FilmConfig(1920, 1080)
+    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    r = Renderer(scene, cam, RenderSettings(max_bounces=4, style="standard"), cfg)
+    shown = []
+    v = Viewer(r, backend=lambda img: shown.append(img.shape))
+    frames = []
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    for step in range(32):
+        if step == 16:
+            v.input.on_key("w", Action.PRESS)
+        if step == 18:
+            v.input.on_key("w", Action.RELEASE)
+        v.step(dt=1.0 / 60.0)
+        frames.append(r.film.frame)
+    r.flush()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 32 * 1e3
+    check(pk.launch_path_kernel.launches == 32,
+          f"viewer: {pk.launch_path_kernel.launches} K1 launches in 32 steps")
+    check(frames[15] == 16 and frames[16] == 17 and frames[17] == 1,
+          f"viewer: accumulation did not restart on the move: frames {frames}")
+    check(len(shown) == 32 and shown[0] == (1080, 1920, 3), "viewer: frames not presented")
+    check(bool(torch.isfinite(r.film.accum).all().item()), "viewer: film not finite")
+    print(f"[viewer] Viewer(backend=callable) x32 steps, 1920x1080, 4 bounces, standard: "
+          f"{step_ms:.4f} ms/step (draw, HWC copy to the host, present); W at step 16 "
+          f"moved the camera at step 17: frames {frames[14:20]}..{frames[-1]} [{smi}]")
+    out["viewer"] = dict(ms_per_step=step_ms, launches=pk.launch_path_kernel.launches)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1826,6 +2102,9 @@ def main() -> int:
     grad = mesh_grad_phases(smi, dev, counters)
     main3 = grad["steps"]["mesh_demo(3)"]["launches"]
     rabbit_auto = grad["rabbit"]["auto"]["launches"]
+    torch.cuda.empty_cache()
+    stats = stats_phase(smi, dev)
+    app = cli_phases(smi, dev, out_dir)
 
     kernels = [{
         "name": "path_kernel", "route": "cuda",
@@ -1929,10 +2208,21 @@ def main() -> int:
         "replaces": "rvpt_tpu/ops/pathkernel.py:2366",
         "launches": main3["bigmesh_kernel"], **grad["b5_collect"],
         "library_ms": None,
+    }, {
+        # Launches: the six PathTracer.trace(stats=True) calls of phase 22;
+        # the headline numbers mesh_demo(3)'s Kajiya, every run beside them.
+        "name": "path_kernel_stats", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:1193",
+        "launches": stats["launches"],
+        **{k: v for k, v in stats["runs"]["mesh_demo(3) kajiya"].items()},
+        "library_ms": None, "runs": stats["runs"],
     }]
     steps = {k: {m: v for m, v in r.items() if m != "launches"}
              for k, r in grad["steps"].items()}
     print(json.dumps({"mesh_steps": steps, "mesh_train": grad["train"]}))
+    print(json.dumps({"cli": app["runs"], "cli_launches": app["launches"],
+                      "viewer": app["viewer"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -57,6 +57,27 @@
 // neighbouring rays walk similar paths, but the warp diverges where they
 // part.
 //
+// The counting instances (STATS, BVH form only: Kajiya, Whitted, Cook and
+// Kajiya with records) replace the stats outputs of the culled form
+// (make_path_kernel(stats=True) :1116, outputs :1193-1196 and :1265-1267):
+// per tile of 8,192 consecutive rays, the clusters of 16 leaf-ordered
+// triangles that some live lane of the tile lists (its slab test hits the
+// root box and the cluster's box) and still passes (entry t0 below the
+// lane's best t), summed over the launch's searches.  The TPU builds one
+// work list per tile; here each thread walks the cluster boxes for its own
+// ray after every search, in id order, with its own best t: the
+// sphere/plane winner, tightened by the cluster's 16 triangle tests
+// wherever the lane passes a cluster.  That is the tile's walk split by
+// lane: a lane only hits a triangle inside a box it enters (the boxes are
+// eps-padded), past that box's entry, so a cluster some other lane kept
+// alive cannot tighten it.  A lane sets the cluster's bit of the (tile,
+// search) listed and passed masks, one warp-aggregated atomicOr per word
+// and group of lanes on one word; stats_sum_kernel counts the bits.  The
+// walk reads the winner of no search, so the radiance and records are those
+// of the instances without it, bit for bit.  Its cost: per live lane and
+// search one root and n_clu box tests and 16 triangle tests per passed
+// cluster, all from L2-resident rows.
+//
 // Rounding: every expression keeps the operation order of the JAX kernel
 // and of the plain PyTorch version beside this wrapper
 // (rvpt_tpu_torch/ops/pathkernel.py trace_plain).  Build with --fmad=false
@@ -76,8 +97,76 @@ using namespace scene;
 
 constexpr int KAJIYA = 0, WHITTED = 1, COOK = 2;  // pathkernel.INTEGS
 constexpr int THREADS = 256;
+constexpr int CULL_K = 16;       // pathkernel.CULL_K
+constexpr int CULL_TILE = 8192;  // pathkernel.CULL_TILE (a multiple of 32)
+constexpr int BOX_STRIDE = 8;    // cull_rows: lo xyz, hi xyz, 2 unused
 
-template <int INTEG, bool COLLECT, bool BVH>
+// Or `bits` into `word` for every lane of the converged group that holds
+// the same word: one atomicOr per word, none for zero bits.
+__device__ __forceinline__ void or_word(uint32_t* word, uint32_t bits) {
+  const unsigned group = __activemask();
+  const unsigned peers =
+      __match_any_sync(group, reinterpret_cast<unsigned long long>(word));
+  const uint32_t all = __reduce_or_sync(peers, bits);
+  if ((int)(threadIdx.x & 31) == __ffs(peers) - 1 && all != 0u) {
+    atomicOr(word, all);
+  }
+}
+
+// The culled walk of one search for one lane (_culled_tris :371-470, split
+// by lane): boxes are cull_rows' rows (the root, then n_clu clusters), the
+// masks the (tile, search) words of the listed and passed bits, `seed` the
+// sphere/plane winner's t.
+__device__ void count_clusters(const float* __restrict__ boxes, int n_clu,
+                               const float* __restrict__ tri, int n_tri,
+                               float seed, float ox, float oy, float oz,
+                               float dx, float dy, float dz, float mint,
+                               uint32_t* listed, uint32_t* passed) {
+  const bvh::InvDir iv = bvh::inv_dir(dx, dy, dz);
+  float t0;
+  if (!bvh::slab(bvh::load_node(boxes, 0), ox, oy, oz, iv, mint, t0)) return;
+  Hit h = miss();
+  h.t = seed;
+  for (int w = 0; w * 32 < n_clu; ++w) {
+    uint32_t lb = 0u, pb = 0u;
+    const int hi = min(32, n_clu - 32 * w);
+    for (int k = 0; k < hi; ++k) {
+      const int c = 32 * w + k;
+      if (!bvh::slab(bvh::load_node(boxes, 1 + c), ox, oy, oz, iv, mint, t0)) {
+        continue;
+      }
+      lb |= 1u << k;
+      if (!(t0 < h.t)) continue;
+      pb |= 1u << k;
+      const int end = min(CULL_K * (c + 1), n_tri);
+      for (int j = CULL_K * c; j < end; ++j) {
+        bvh::test_triangle(tri, j, ox, oy, oz, dx, dy, dz, mint, h);
+      }
+    }
+    or_word(listed + w, lb);
+    or_word(passed + w, pb);
+  }
+}
+
+// Counters f32[3, grid] from the masks [grid][per_tile] words: listed,
+// processed (= listed, :470) and still passed per tile.
+__global__ void stats_sum_kernel(const uint32_t* __restrict__ listed,
+                                 const uint32_t* __restrict__ passed,
+                                 int grid, int per_tile,
+                                 float* __restrict__ out) {
+  const int tile = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tile >= grid) return;
+  int nl = 0, np = 0;
+  for (int k = 0; k < per_tile; ++k) {
+    nl += __popc(listed[(int64_t)tile * per_tile + k]);
+    np += __popc(passed[(int64_t)tile * per_tile + k]);
+  }
+  out[tile] = (float)nl;
+  out[grid + tile] = (float)nl;
+  out[2 * grid + tile] = (float)np;
+}
+
+template <int INTEG, bool COLLECT, bool BVH, bool STATS>
 __global__ void __launch_bounds__(THREADS) path_kernel(
     const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
     int n_mat, const float* __restrict__ nodes,
@@ -88,7 +177,10 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     const float* __restrict__ dz_in, float* __restrict__ out,
     float* __restrict__ rec_f, int32_t* __restrict__ rec_i, int n,
     uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
-    int max_bounces, int standard, int cam_mode, float mint) {
+    int max_bounces, int standard, int cam_mode, float mint, int n_clu,
+    const float* __restrict__ boxes, uint32_t* __restrict__ st_listed,
+    uint32_t* __restrict__ st_passed) {
+  static_assert(!STATS || BVH, "the counters belong to the BVH form");
   extern __shared__ float smem[];
   // cam_in is null when the rays are passed in.  The BVH form stages all
   // but the triangles, which its walk reads from device memory.
@@ -98,16 +190,35 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
           : stage(smem, cam_in, tables, n_tri, n_sph, n_pln, n_mat);
   const bvh::Mesh mesh{tables, nodes, n_tri};
   const float* cam = smem;
-  auto search = [&](float ox, float oy, float oz, float dx, float dy,
-                    float dz) -> Hit {
-    if constexpr (BVH) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // Counter slots: bounce b's search, then Whitted's shadow search of
+  // bounce b at max_bounces + b, Cook's tail at max_bounces
+  // (pathkernel.stats_slots); each slot holds ceil(n_clu / 32) words.
+  const int words = (n_clu + 31) / 32;
+  const int slots = INTEG == WHITTED ? 2 * max_bounces
+                    : INTEG == COOK  ? max_bounces + 1
+                                     : max_bounces;
+  auto search = [&](int slot, float ox, float oy, float oz, float dx,
+                    float dy, float dz) -> Hit {
+    if constexpr (STATS) {
+      // closest_hit_mesh, with the seed of the counting walk kept.
+      Hit h = miss();
+      search_spheres(s, ox, oy, oz, dx, dy, dz, mint, h);
+      search_planes(s, ox, oy, oz, dx, dy, dz, mint, h);
+      const float seed = h.t;
+      bvh::walk(mesh, ox, oy, oz, dx, dy, dz, mint, h);
+      const int64_t base =
+          ((int64_t)(i / CULL_TILE) * slots + slot) * words;
+      count_clusters(boxes, n_clu, tables, n_tri, seed, ox, oy, oz, dx, dy,
+                     dz, mint, st_listed + base, st_passed + base);
+      return h;
+    } else if constexpr (BVH) {
       return bvh::closest_hit_mesh(s, mesh, ox, oy, oz, dx, dy, dz, mint);
     } else {
       return closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
     }
   };
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint32_t pix = pix_ids ? (uint32_t)pix_ids[i] : (uint32_t)i;
 
@@ -141,7 +252,7 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
 
   for (int bounce = 0; bounce < max_bounces && active; ++bounce) {
     if (COLLECT) write_fields(bounce, 1.0f);
-    const Hit h = search(ox, oy, oz, dx, dy, dz);
+    const Hit h = search(bounce, ox, oy, oz, dx, dy, dz);
     if (COLLECT) {
       rec_i[((int64_t)bounce * 2) * n + i] = h.fam;
       rec_i[((int64_t)bounce * 2 + 1) * n + i] = h.idx;
@@ -175,8 +286,9 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     if (INTEG == WHITTED && kind == 0.0f) {
       // Lambert: a shadow ray toward the light, the direct term unless
       // shadowed, and the path ends.
-      const Hit sh = search(f.px + EPSILON * f.nX, f.py + EPSILON * f.nY,
-                            f.pz + EPSILON * f.nZ, LDIR_X, LDIR_Y, LDIR_Z);
+      const Hit sh = search(max_bounces + bounce, f.px + EPSILON * f.nX,
+                            f.py + EPSILON * f.nY, f.pz + EPSILON * f.nZ,
+                            LDIR_X, LDIR_Y, LDIR_Z);
       if (sh.fam >= 0) {
         rr = rr + cr;
         rg = rg + cg;
@@ -202,7 +314,7 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   if (INTEG == COOK && active && final_) {
     // A Lambert scatter on the last bounce still resolves: one more
     // search, ending on its emission or the sky (raw d.y).
-    const Hit h = search(ox, oy, oz, dx, dy, dz);
+    const Hit h = search(max_bounces, ox, oy, oz, dx, dy, dz);
     if (h.fam >= 0) {
       const float* M = material(s, h.mat);
       rr = rr + cr + tr * M[3];
@@ -232,28 +344,30 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   out[2 * (int64_t)n + i] = rb;
 }
 
-template <int INTEG, bool COLLECT, bool BVH>
+template <int INTEG, bool COLLECT, bool BVH, bool STATS>
 int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
            const float* nodes, const float* cam, const int64_t* pix_ids,
            const float* ox, const float* oy, const float* oz, const float* dx,
            const float* dy, const float* dz, float* out, float* rec_f, int32_t* rec_i, int n,
            uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
            int max_bounces, int standard, int cam_mode, float mint,
-           void* stream) {
+           void* stream, int n_clu, const float* boxes, uint32_t* st_listed,
+           uint32_t* st_passed) {
   const size_t smem =
       sizeof(float) * staged_floats(BVH ? 0 : n_tri, n_sph, n_pln, n_mat);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        path_kernel<INTEG, COLLECT, BVH>,
+        path_kernel<INTEG, COLLECT, BVH, STATS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (n + THREADS - 1) / THREADS;
-  path_kernel<INTEG, COLLECT, BVH>
+  path_kernel<INTEG, COLLECT, BVH, STATS>
       <<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       tables, n_tri, n_sph, n_pln, n_mat, nodes, cam, pix_ids, ox, oy, oz, dx,
       dy, dz, out, rec_f, rec_i, n, frame, salt_base, jitter_salt,
-      max_bounces, standard, cam_mode, mint);
+      max_bounces, standard, cam_mode, mint, n_clu, boxes, st_listed,
+      st_passed);
   return (int)cudaGetLastError();
 }
 
@@ -264,10 +378,13 @@ extern "C" {
 int rvpt_max_table_floats() { return max_table_floats(); }
 
 // Launch on `stream`; returns cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue for an unknown integrator or records asked of
-// Whitted or Cook.  With rec_f and rec_i non-null a Kajiya collect instance
-// writes the record; with `nodes` non-null (pack_bvh's rows) the BVH form
-// runs, collect or not.
+// cudaErrorInvalidValue for an unknown integrator, records asked of Whitted
+// or Cook, or counters asked of the row form.  With rec_f and rec_i
+// non-null a Kajiya collect instance writes the record; with `nodes`
+// non-null (pack_bvh's rows) the BVH form runs, collect or not; with
+// st_listed and st_passed non-null (zeroed int32[grid][slots][ceil(n_clu /
+// 32)] masks, pathkernel.stats_slots) its counting instance also sets the
+// cluster bits of the `boxes` (cull_rows) walk.
 int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
                     int n_mat, const float* nodes, const float* cam,
                     const int64_t* pix_ids,
@@ -276,34 +393,55 @@ int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
                     float* out, float* rec_f, int32_t* rec_i, int n,
                     uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
                     int max_bounces, int standard, int cam_mode, float mint,
-                    int integ, void* stream) {
+                    int integ, void* stream, int n_clu, const float* boxes,
+                    uint32_t* st_listed, uint32_t* st_passed) {
   if (n <= 0) return 0;
   const bool collect = rec_f != nullptr && rec_i != nullptr;
   const bool bvh_form = nodes != nullptr;
-#define RVPT_LAUNCH(I, C, B)                                                  \
-  launch<I, C, B>(tables, n_tri, n_sph, n_pln, n_mat, nodes, cam, pix_ids,  \
-                  ox, oy, oz, dx, dy, dz, out, rec_f, rec_i, n, frame,      \
-                  salt_base, jitter_salt, max_bounces, standard, cam_mode,  \
-                  mint, stream)
+  const bool stats = st_listed != nullptr && st_passed != nullptr;
+  if (stats && (!bvh_form || boxes == nullptr || n_clu <= 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define RVPT_LAUNCH(I, C, B, S)                                               \
+  launch<I, C, B, S>(tables, n_tri, n_sph, n_pln, n_mat, nodes, cam,        \
+                     pix_ids, ox, oy, oz, dx, dy, dz, out, rec_f, rec_i, n,   \
+                     frame, salt_base, jitter_salt, max_bounces, standard,    \
+                     cam_mode, mint, stream, n_clu, boxes, st_listed,         \
+                     st_passed)
   if (collect) {
     if (integ != KAJIYA) return (int)cudaErrorInvalidValue;
-    return bvh_form ? RVPT_LAUNCH(KAJIYA, true, true)
-                    : RVPT_LAUNCH(KAJIYA, true, false);
+    if (stats) return RVPT_LAUNCH(KAJIYA, true, true, true);
+    return bvh_form ? RVPT_LAUNCH(KAJIYA, true, true, false)
+                    : RVPT_LAUNCH(KAJIYA, true, false, false);
   }
   if (integ == KAJIYA) {
-    return bvh_form ? RVPT_LAUNCH(KAJIYA, false, true)
-                    : RVPT_LAUNCH(KAJIYA, false, false);
+    if (stats) return RVPT_LAUNCH(KAJIYA, false, true, true);
+    return bvh_form ? RVPT_LAUNCH(KAJIYA, false, true, false)
+                    : RVPT_LAUNCH(KAJIYA, false, false, false);
   }
   if (integ == WHITTED) {
-    return bvh_form ? RVPT_LAUNCH(WHITTED, false, true)
-                    : RVPT_LAUNCH(WHITTED, false, false);
+    if (stats) return RVPT_LAUNCH(WHITTED, false, true, true);
+    return bvh_form ? RVPT_LAUNCH(WHITTED, false, true, false)
+                    : RVPT_LAUNCH(WHITTED, false, false, false);
   }
   if (integ == COOK) {
-    return bvh_form ? RVPT_LAUNCH(COOK, false, true)
-                    : RVPT_LAUNCH(COOK, false, false);
+    if (stats) return RVPT_LAUNCH(COOK, false, true, true);
+    return bvh_form ? RVPT_LAUNCH(COOK, false, true, false)
+                    : RVPT_LAUNCH(COOK, false, false, false);
   }
 #undef RVPT_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// Sum the counting instance's masks ([grid][per_tile] words) into
+// out f32[3, grid]; returns cudaGetLastError() of the launch.
+int rvpt_path_stats_sum(const uint32_t* listed, const uint32_t* passed,
+                        int grid, int per_tile, float* out, void* stream) {
+  if (grid <= 0) return 0;
+  stats_sum_kernel<<<(grid + THREADS - 1) / THREADS, THREADS, 0,
+                     (cudaStream_t)stream>>>(listed, passed, grid, per_tile,
+                                             out);
+  return (int)cudaGetLastError();
 }
 
 const char* rvpt_error_string(int code) {

@@ -9,6 +9,7 @@ convention (glm, src/rvpt/camera.cpp:17-25):
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -16,6 +17,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.math import PI, TWO_PI, normalize, unit_spherical_to_cartesian
 from ..core.types import Ray
+from ..utils.checkpoint import STATIC
 
 PINHOLE = 0
 ORTHO = 1
@@ -30,8 +32,8 @@ class Camera:
     rotation: torch.Tensor  # f32[3], degrees (yaw about Y, pitch about X, roll about Z)
     fov: torch.Tensor  # f32 scalar, horizontal fov in degrees
     scale: torch.Tensor  # f32 scalar, ortho half-extent scale
-    aspect: float = 2.0
-    mode: int = PINHOLE
+    aspect: float = dataclasses.field(default=2.0, metadata=STATIC)
+    mode: int = dataclasses.field(default=PINHOLE, metadata=STATIC)
 
     @staticmethod
     def create(
@@ -125,3 +127,22 @@ def _spherical(cam: Camera, m: torch.Tensor, x, y) -> Ray:
     direction = local @ m[:3, :3].T
     origin = m[:3, 3].expand(direction.shape)
     return Ray(origin=origin, direction=direction)
+
+
+def translate(cam: Camera, delta) -> Camera:
+    """Camera-local translation (src/rvpt/camera.cpp:29-33): the delta is
+    rotated into world space by the camera matrix before it is added, so
+    +z moves forward, +x strafes right and +y rises."""
+    m = camera_matrix(cam)
+    world = m[:3, :3] @ torch.as_tensor(delta, dtype=torch.float32, device=cam.device)
+    return dataclasses.replace(cam, translation=cam.translation + world)
+
+
+def rotate(cam: Camera, delta, clamp_vertical: bool = False) -> Camera:
+    """Additive rotation in degrees (src/rvpt/camera.cpp:35-39);
+    ``clamp_vertical`` clamps the pitch to [-90, 90] as the reference's
+    ``vertical_view_angle_clamp`` (off by default, camera.h:46)."""
+    rot = cam.rotation + torch.as_tensor(delta, dtype=torch.float32, device=cam.device)
+    if clamp_vertical:
+        rot = torch.cat([rot[:1], torch.clamp(rot[1:2], -90.0, 90.0), rot[2:]])
+    return dataclasses.replace(cam, rotation=rot)

@@ -108,6 +108,16 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def unload() -> list[str]:
+    """Forget every loaded kernel library and its build record, so that
+    the next ``load_library`` loads it again, or builds it anew when its
+    sources changed (hot reload).  Returns the names dropped."""
+    names = sorted(_LIBS)
+    _LIBS.clear()
+    BUILD_INFO.clear()
+    return names
+
+
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise when a launch returned a CUDA error (a refused launch never
     runs, and a later synchronize would not report it)."""

@@ -44,6 +44,7 @@ rows of its own tables.
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
 from typing import NamedTuple
 
@@ -108,6 +109,13 @@ MAX_BWD_TRIANGLES = 1024
 # BigMeshTracer (B5, B6); one with fewer runs K1's and B3's BVH form.
 BIG_ROUTE_TRIS = 1024
 CULL_MAX_TRIS = 8192
+# The culled form's clusters (``pack_cull`` :118): CULL_K leaf-ordered
+# triangles to a cluster, CULL_G clusters to a supergroup; its stats count
+# per tile of CULL_TILE consecutive rays of the flat order (CULL_S x
+# CULL_L, ``_to_ctiles`` :2291).
+CULL_K = 16
+CULL_G = 64
+CULL_TILE = 8 * 1024
 # The per-thread stack of the kernels' BVH walk (csrc/bvh_search.cuh): the
 # deepest node's depth must stay below it.
 BVH_STACK = 64
@@ -179,7 +187,7 @@ def stages_tables(scene: Scene) -> bool:
     whose plain versions have no such limit; on the card, up to the
     kernels' opt-in limit there (about 3,400 triangles in Hopper's 227 KB).
     A BVH scene's triangles stay in device memory and are not staged."""
-    if scene.device.type != "cuda":
+    if scene.device.type != "cuda" or PLAIN_KERNELS.get():
         return True
     staged_tris = 0 if scene.bvh is not None else scene.num_triangles
     floats = (len(TRI_FIELDS) * staged_tris
@@ -230,6 +238,60 @@ def pack_bvh(scene: Scene) -> torch.Tensor:
     ints = torch.stack([bvh.first, bvh.count], dim=1).to(torch.int32)
     return torch.cat([bvh.bmin - eps, bvh.bmax + eps,
                       ints.view(torch.float32)], dim=1).contiguous()
+
+
+class CullBounds(NamedTuple):
+    """The bound tables of ``pack_cull`` (:146-160): supergroup and
+    cluster boxes as rows (lo xyz, hi xyz), padded by ``bvh_eps``."""
+
+    sup: torch.Tensor  # f32[n_sup, 6]
+    clu: torch.Tensor  # f32[n_clu, 6]
+    n_clu: int
+    n_sup: int
+
+
+def is_culled(scene: Scene) -> bool:
+    """Whether the JAX ``PathTracer`` takes its culled form for ``scene``
+    (:1692-1699): a BVH and 1 to CULL_MAX_TRIS triangles.  Only these
+    scenes have ``stats`` counters; the port's BVH form serves any size."""
+    return scene.bvh is not None and 0 < scene.num_triangles <= CULL_MAX_TRIS
+
+
+def pack_cull(scene: Scene) -> CullBounds:
+    """The cluster and supergroup boxes of ``pack_cull`` (:118): the
+    leaf-ordered triangles windowed into clusters of CULL_K (the last one
+    padded with the last triangle's bounds), the clusters into supergroups
+    of CULL_G (padded with the last cluster's box); cluster boxes padded by
+    ``bvh_eps``.  The port's triangle rows are ``pack_fwd``'s."""
+    t = scene.num_triangles
+    if not is_culled(scene):
+        raise ValueError(f"the culled form needs a BVH scene of 1..{CULL_MAX_TRIS} "
+                         f"triangles, got {t} (bvh: {scene.bvh is not None})")
+    bmin = torch.minimum(torch.minimum(scene.tri_v0, scene.tri_v1), scene.tri_v2)
+    bmax = torch.maximum(torch.maximum(scene.tri_v0, scene.tri_v1), scene.tri_v2)
+    eps = bvh_eps(scene)
+
+    def edge_pad(a, n):
+        return torch.cat([a, a[-1:].expand(n - a.shape[0], 3)]) if n > a.shape[0] else a
+
+    n_clu = -(-t // CULL_K)
+    cb0 = edge_pad(bmin, n_clu * CULL_K).reshape(n_clu, CULL_K, 3).amin(1) - eps
+    cb1 = edge_pad(bmax, n_clu * CULL_K).reshape(n_clu, CULL_K, 3).amax(1) + eps
+    n_sup = -(-n_clu // CULL_G)
+    sb0 = edge_pad(cb0, n_sup * CULL_G).reshape(n_sup, CULL_G, 3).amin(1)
+    sb1 = edge_pad(cb1, n_sup * CULL_G).reshape(n_sup, CULL_G, 3).amax(1)
+    return CullBounds(torch.cat([sb0, sb1], 1), torch.cat([cb0, cb1], 1),
+                      n_clu, n_sup)
+
+
+def cull_rows(cb: CullBounds) -> torch.Tensor:
+    """The stats walk's box rows f32[1 + n_clu, 8]: the root box (the fold
+    of the supergroup boxes, :389-393), then each cluster's; lo xyz, hi
+    xyz and two unused floats, so a row loads as two float4 like a
+    ``pack_bvh`` node."""
+    root = torch.cat([cb.sup[:, :3].amin(0), cb.sup[:, 3:].amax(0)])
+    rows = torch.cat([root[None], cb.clu])
+    return torch.cat([rows, torch.zeros_like(rows[:, :2])], 1).contiguous()
 
 
 def camera_params(cam, cfg) -> torch.Tensor:
@@ -428,6 +490,26 @@ def _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint):
 _PLAIN_BLOCK = 1 << 24
 
 
+def _tri_block(rows, oxb, oyb, ozb, dxb, dyb, dzb, mint):
+    """The metric-tensor test of every [T,17] triangle row against every
+    ray ([N,1] components) -> (t, hit) f32/bool[N, T]: ``_search_plain``'s
+    arithmetic, ``hit`` its validity test but the ``t < t_best`` one."""
+    (nx, ny, nz, e0x, e0y, e0z, e1x, e1y, e1z, v0n, v0e0, v0e1, g00, g11,
+     g01, inv_det, _) = (c[None, :] for c in rows.unbind(1))
+    dn = nx * dxb + ny * dyb + nz * dzb
+    on = nx * oxb + ny * oyb + nz * ozb
+    de0 = e0x * dxb + e0y * dyb + e0z * dzb
+    de1 = e1x * dxb + e1y * dyb + e1z * dzb
+    oe0 = e0x * oxb + e0y * oyb + e0z * ozb
+    oe1 = e1x * oxb + e1y * oyb + e1z * ozb
+    t = (v0n - on) / _safe_den(dn)
+    b0 = oe0 + t * de0 - v0e0
+    b1 = oe1 + t * de1 - v0e1
+    u = inv_det * (g11 * b0 - g01 * b1)
+    v = inv_det * (g00 * b1 - g01 * b0)
+    return t, (mint < t) & (u > 0.0) & (v > 0.0) & (u + v < 1.0)
+
+
 def _search_tris_last(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint, live=None):
     """Closest hit with the triangles LAST, the order of the culled and
     big-mesh searches (``_search`` :828-835, ``_culled_tris_rows``): the
@@ -453,21 +535,8 @@ def _search_tris_last(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint, live=None):
     oxb, oyb, ozb, dxb, dyb, dzb = (c[:, None] for c in (ox, oy, oz, dx, dy, dz))
     for base in range(0, n_tri, block):
         rows = tri[base:base + block]
-        (nx, ny, nz, e0x, e0y, e0z, e1x, e1y, e1z, v0n, v0e0, v0e1, g00, g11,
-         g01, inv_det, mat) = (c[None, :] for c in rows.unbind(1))
-        dn = nx * dxb + ny * dyb + nz * dzb
-        on = nx * oxb + ny * oyb + nz * ozb
-        de0 = e0x * dxb + e0y * dyb + e0z * dzb
-        de1 = e1x * dxb + e1y * dyb + e1z * dzb
-        oe0 = e0x * oxb + e0y * oyb + e0z * ozb
-        oe1 = e1x * oxb + e1y * oyb + e1z * ozb
-        t = (v0n - on) / _safe_den(dn)
-        b0 = oe0 + t * de0 - v0e0
-        b1 = oe1 + t * de1 - v0e1
-        u = inv_det * (g11 * b0 - g01 * b1)
-        v = inv_det * (g00 * b1 - g01 * b0)
-        valid = ((mint < t) & (t < t_best[:, None]) & (u > 0.0) & (v > 0.0)
-                 & (u + v < 1.0))
+        t, hit = _tri_block(rows, oxb, oyb, ozb, dxb, dyb, dzb, mint)
+        valid = hit & (t < t_best[:, None])
         cmin, first = _min_and_first_index(
             torch.where(valid, t, torch.full_like(t, _BIG)), dim=1)
         better = cmin < t_best
@@ -500,6 +569,98 @@ def _plain_search(tables, counts, mint, tris_last, on_search=None):
         return _search_tris_last(tri, sph, pln, *o3, *d3, mint, live)
 
     return search, mat
+
+
+def _slab_plain(rows, o3, iv, mint):
+    """Slab test of every ray against every box row (lo xyz, hi xyz) ->
+    (hit bool[N, B], entry t0 f32[N, B]): ``_culled_tris``' slab (:357)."""
+    lo = [rows[None, :, k] for k in range(3)]
+    hi = [rows[None, :, 3 + k] for k in range(3)]
+    f0 = [(lo[k] - o3[k][:, None]) * iv[k][:, None] for k in range(3)]
+    f1 = [(hi[k] - o3[k][:, None]) * iv[k][:, None] for k in range(3)]
+    mn = [torch.minimum(a, b) for a, b in zip(f0, f1)]
+    mx = [torch.maximum(a, b) for a, b in zip(f0, f1)]
+    t0 = torch.maximum(torch.maximum(mn[0], mn[1]),
+                       torch.clamp(mn[2], min=float(mint)))
+    t1 = torch.minimum(torch.minimum(mx[0], mx[1]), mx[2])
+    return t1 >= t0, t0
+
+
+def cull_stats_plain(tri, sph, pln, rows, o3, d3, live, mint=0.0):
+    """The clusters each ray of one search lists and still passes in the
+    culled walk (``_culled_tris`` :371-470), per lane -> (listed, passed)
+    bool[N, n_clu].
+
+    ``tri`` the leaf-ordered [T,17] rows, ``sph``/``pln`` the sphere and
+    plane rows (``_unpack_fwd``), ``rows`` the ``cull_rows`` boxes.  A
+    lane that is ``live`` and enters the root box lists every cluster
+    whose box it enters; it passes a listed cluster when its entry t0 is
+    below the lane's best t before that cluster: the sphere/plane winner
+    tightened by its triangle hits in the clusters before (an exclusive
+    running minimum in id order).  The tile's counts are the sizes of the
+    unions of these sets over its lanes (``cull_stats_hook``)."""
+    n, n_clu = o3[0].shape[0], rows.shape[0] - 1
+    iv = [1.0 / _safe_den(c) for c in d3]
+    root, _ = _slab_plain(rows[:1], o3, iv, mint)
+    hit, t0 = _slab_plain(rows[1:], o3, iv, mint)
+    listed = hit & (live & root[:, 0])[:, None]
+    seed = _search_plain([], sph, pln, *o3, *d3, mint)[0]
+    # Each lane's nearest triangle hit per cluster, the pad rows a miss.
+    tmin = torch.full((n, n_clu * CULL_K), _BIG, dtype=torch.float32,
+                      device=seed.device)
+    n_tri = tri.shape[0]
+    block = max(CULL_K, _PLAIN_BLOCK // max(n, 1) // CULL_K * CULL_K)
+    rb = [c[:, None] for c in (*o3, *d3)]
+    for base in range(0, n_tri, block):
+        t, ok = _tri_block(tri[base:base + block], *rb, mint)
+        tmin[:, base:base + t.shape[1]] = torch.where(ok, t, _BIG)
+    cmin = tmin.reshape(n, n_clu, CULL_K).amin(2)
+    before = torch.cummin(torch.cat([seed[:, None], cmin[:, :-1]], 1), 1)[0]
+    return listed, listed & (t0 < before)
+
+
+def cull_stats_hook(tables, counts, rows, n, acc, mint=0.0, work=None):
+    """An ``on_search`` hook that adds each search's culled-walk counters
+    to ``acc`` f32[3, ceil(n / CULL_TILE)] (listed, processed, still
+    passed), tile by tile of CULL_TILE consecutive rays: the number of
+    clusters some live lane of the tile lists, and still passes
+    (``cull_stats_plain``).  Processed equals listed (:470).  A dict passed
+    as ``work`` gets the tests the counting instance runs on these rays,
+    for a bound: "root" box tests (one per live lane), "clusters" (n_clu
+    per lane inside the root box), "bits" (listed and passed bits set) and
+    "tris" (each passed cluster's triangles)."""
+    tri, sph, pln, _ = _unpack_fwd(tables, counts, tri_rows=True)
+    n_clu = rows.shape[0] - 1
+    sizes = torch.clamp(counts[0] - CULL_K * torch.arange(n_clu, device=rows.device),
+                        max=CULL_K).to(torch.float32)
+
+    def count(key, value):
+        work[key] = work.get(key, 0) + int(value)
+
+    def on_search(o3, d3, live=None):
+        if live is None:
+            live = torch.ones_like(o3[0], dtype=torch.bool)
+        for k, start in enumerate(range(0, n, CULL_TILE)):
+            lanes = torch.nonzero(live[start:start + CULL_TILE]).squeeze(1) + start
+            if lanes.numel() == 0:
+                continue
+            o_t, d_t = tuple(c[lanes] for c in o3), tuple(c[lanes] for c in d3)
+            listed, passed = cull_stats_plain(
+                tri, sph, pln, rows, o_t, d_t,
+                torch.ones_like(lanes, dtype=torch.bool), mint)
+            if work is not None:
+                iv = [1.0 / _safe_den(c) for c in d_t]
+                inside = int(_slab_plain(rows[:1], o_t, iv, mint)[0].sum())
+                count("root", lanes.numel())
+                count("clusters", inside * n_clu)
+                count("bits", listed.sum() + passed.sum())
+                count("tris", (passed.to(torch.float32) @ sizes).sum())
+            n_listed = listed.any(0).sum().to(acc.dtype)
+            acc[0, k] += n_listed
+            acc[1, k] += n_listed
+            acc[2, k] += passed.any(0).sum().to(acc.dtype)
+
+    return on_search
 
 
 def _sky_add(rr, rg, rb, cr, cg, cb, tr, tg, tb, sky_t, mask):
@@ -999,9 +1160,11 @@ def _path_lib():
         lib.rvpt_path_trace.argtypes = [
             ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
             ptr, ptr, ptr, ptr, i32, u32, u32, u32, i32, i32, i32,
-            ctypes.c_float, i32, ptr,
+            ctypes.c_float, i32, ptr, i32, ptr, ptr, ptr,
         ]
         lib.rvpt_path_trace.restype = i32
+        lib.rvpt_path_stats_sum.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
+        lib.rvpt_path_stats_sum.restype = i32
         lib.rvpt_max_table_floats.argtypes = []
         lib.rvpt_max_table_floats.restype = i32
         lib._rvpt_bound = True
@@ -1052,19 +1215,19 @@ def _check_camera(pix, n, cam_params, dev):
     check_cuda(cam_params, torch.float32, "cam_params", 24, dev)
 
 
-def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
-                       style, rays=None, cam_params=None, cam_mode=PINHOLE,
-                       jitter_salt=0, mint=0.0, collect=False, integ="kajiya",
-                       nodes=None):
-    """Launch the CUDA kernel -> f32[3, n] on the tables' card, or
-    (f32[3, n], ``PathRecord``) with ``collect``.
+def stats_slots(max_bounces, integ) -> int:
+    """Searches per lane a launch may run, one counter slot each: a bounce
+    search per bounce, Whitted's shadow search per bounce, Cook's tail."""
+    nb = int(max_bounces)
+    return {"kajiya": nb, "whitted": 2 * nb, "cook": nb + 1}[integ]
 
-    ``pix`` int64[n] pixel ids, or None for the ids 0..n-1 (the raster
-    film).  ``nodes`` (``pack_bvh``) selects the BVH form, which walks the
-    tree for the triangles after the spheres and planes
-    (``trace_plain(tris_last=True)``); None the row form.  Other arguments
-    as ``trace_plain``.  Counts one launch in
-    ``launch_path_kernel.launches``."""
+
+def _launch_path(tables, counts, pix, n, frame, salt_base, max_bounces, style,
+                 rays, cam_params, cam_mode, jitter_salt, mint, collect,
+                 integ, nodes, cull):
+    """One launch of K1 -> (f32[3, n], ``PathRecord`` or None, f32[3,
+    ceil(n / CULL_TILE)] or None); ``cull`` (``cull_rows``, needs
+    ``nodes``) selects the counting instance and its summing kernel."""
     if integ not in INTEGS:
         raise ValueError(f"unknown integrator {integ!r}")
     if integ != "kajiya" and collect:
@@ -1090,6 +1253,19 @@ def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
         record = PathRecord(
             torch.empty((nb, len(RECORD_FIELDS), n), dtype=torch.float32, device=dev),
             torch.empty((nb, 2, n), dtype=torch.int32, device=dev))
+    n_clu, masks = 0, (None, None)
+    if cull is not None:
+        if nodes is None:
+            raise ValueError("the stats counters need the BVH form")
+        n_clu = cull.shape[0] - 1
+        check_cuda(cull, torch.float32, "cluster boxes", 8 * (n_clu + 1), dev)
+        if not 0 < n_clu <= CULL_MAX_TRIS // CULL_K:
+            raise ValueError(f"{n_clu} clusters: the culled form takes 1.."
+                             f"{CULL_MAX_TRIS // CULL_K}")
+        grid, words = -(-n // CULL_TILE), -(-n_clu // 32)
+        shape = (grid, stats_slots(nb, integ), words)
+        masks = (torch.zeros(shape, dtype=torch.int32, device=dev),
+                 torch.zeros(shape, dtype=torch.int32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rvpt_path_trace(
         tables.data_ptr(), t, s, p, nm, _ptr(nodes), cam_ptr, _ptr(pix),
@@ -1099,12 +1275,57 @@ def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
         int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
         int(jitter_salt) & 0xFFFFFFFF, nb,
         int(style == "standard"), int(cam_mode), float(mint), INTEGS[integ],
-        stream)
+        stream, n_clu, _ptr(cull), _ptr(masks[0]), _ptr(masks[1]))
     check_launch(lib, err, "path kernel")
+    if cull is None:
+        return out, record, None
+    agg = torch.empty((3, grid), dtype=torch.float32, device=dev)
+    err = lib.rvpt_path_stats_sum(masks[0].data_ptr(), masks[1].data_ptr(), grid,
+                                  shape[1] * words, agg.data_ptr(), stream)
+    check_launch(lib, err, "path stats sum")
+    return out, record, agg
+
+
+def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
+                       style, rays=None, cam_params=None, cam_mode=PINHOLE,
+                       jitter_salt=0, mint=0.0, collect=False, integ="kajiya",
+                       nodes=None):
+    """Launch the CUDA kernel -> f32[3, n] on the tables' card, or
+    (f32[3, n], ``PathRecord``) with ``collect``.
+
+    ``pix`` int64[n] pixel ids, or None for the ids 0..n-1 (the raster
+    film).  ``nodes`` (``pack_bvh``) selects the BVH form, which walks the
+    tree for the triangles after the spheres and planes
+    (``trace_plain(tris_last=True)``); None the row form.  Other arguments
+    as ``trace_plain``.  Counts one launch in
+    ``launch_path_kernel.launches``."""
+    out, record, _ = _launch_path(
+        tables, counts, pix, n, frame, salt_base, max_bounces, style, rays,
+        cam_params, cam_mode, jitter_salt, mint, collect, integ, nodes, None)
     launch_path_kernel.launches += 1
     return out if record is None else (out, record)
 
 
+def launch_path_stats(tables, counts, nodes, cull, pix, n, frame, salt_base,
+                      max_bounces, style, rays=None, cam_params=None,
+                      cam_mode=PINHOLE, jitter_salt=0, mint=0.0, collect=False,
+                      integ="kajiya"):
+    """K1's BVH form with the culled walk's counters (the ``stats`` form of
+    ``make_path_kernel`` :1116): its counting instance, whose lanes set the
+    bits of the clusters they list and still pass in per (tile, search)
+    masks after each search, then a kernel that counts the bits ->
+    (f32[3, n], f32[3, ceil(n / CULL_TILE)]), or with ``collect`` (f32[3,
+    n], ``PathRecord``, counters).  ``cull`` is ``cull_rows``; the
+    radiance and records are those of ``launch_path_kernel``, bit for bit.
+    Counts one launch (the pair) in ``launch_path_stats.launches``."""
+    out, record, agg = _launch_path(
+        tables, counts, pix, n, frame, salt_base, max_bounces, style, rays,
+        cam_params, cam_mode, jitter_salt, mint, collect, integ, nodes, cull)
+    launch_path_stats.launches += 1
+    return (out, agg) if record is None else (out, record, agg)
+
+
+launch_path_stats.launches = 0
 launch_path_kernel.launches = 0
 
 
@@ -1348,11 +1569,17 @@ def _raster(pix, n, dev):
     return torch.arange(n, dtype=torch.int64, device=dev) if pix is None else pix
 
 
+# True inside ``utils.debug.interpret_kernels``: the tracers run their
+# plain versions on the card too.
+PLAIN_KERNELS = contextvars.ContextVar("rvpt_plain_kernels", default=False)
+
+
 def _on_device(dev, kernel, plain):
     """Run ``kernel`` for tables on the card and ``plain`` for tables on
-    the CPU; no other device and no fallback."""
+    the CPU (or on the card inside ``interpret_kernels``); no other device
+    and no fallback."""
     if dev.type == "cuda":
-        return kernel()
+        return plain() if PLAIN_KERNELS.get() else kernel()
     if dev.type == "cpu":
         return plain()
     raise ValueError(f"no tracer for device {dev}")
@@ -1364,22 +1591,23 @@ class PathTracer(nn.Module):
     device.  Each entry runs its CUDA kernel for a scene on the card and
     its plain version for a scene on the CPU.
 
-    A BVH scene (of at most min(BIG_ROUTE_TRIS, CULL_MAX_TRIS) triangles;
-    a larger one is a big mesh, ``BigMeshTracer``) takes K1's and B3's BVH
-    form, the port of their culled form (``meta["culled"]`` :828-835): the
-    ``pack_bvh`` nodes are a buffer too, and the search walks the tree for
-    the triangles after the spheres and planes.  Hart runs B4 on the raw
-    vertex rows either way."""
+    A BVH scene of any size takes K1's and B3's BVH form, the port of
+    their culled form (``meta["culled"]`` :828-835): the ``pack_bvh``
+    nodes are a buffer too, and the search walks the tree for the
+    triangles after the spheres and planes.  (``render.make_tracer`` still
+    sends a big mesh, ``is_bigmesh``, to ``BigMeshTracer``.)  A scene that
+    JAX's tracer culls (``is_culled``: 1 to CULL_MAX_TRIS triangles) also
+    keeps the ``cull_rows`` boxes, for ``trace(stats=True)``.  Hart runs B4
+    on the raw vertex rows either way."""
 
     def __init__(self, scene: Scene, mint: float = 0.0):
         super().__init__()
-        if is_bigmesh(scene):
-            raise ValueError(f"a BVH scene of {scene.num_triangles} triangles "
-                             "is a big mesh: trace it with BigMeshTracer")
         tables, self.counts = pack_fwd(scene)
         self.register_buffer("tables", tables)
         self.bvh_form = scene.bvh is not None and scene.num_triangles > 0
         self.register_buffer("nodes", pack_bvh(scene) if self.bvh_form else None)
+        self.register_buffer(
+            "cull", cull_rows(pack_cull(scene)) if is_culled(scene) else None)
         htables, self.hart_count = pack_hart(scene)
         self.register_buffer("hart_tables", htables)
         self.mint = float(mint)
@@ -1387,7 +1615,7 @@ class PathTracer(nn.Module):
     def trace(self, pixel, origin, direction, frame, salt_base, max_bounces,
               style="reference", gen_rays=False, cam_params=None,
               cam_mode=PINHOLE, jitter_salt=0, collect_states=False,
-              integ="kajiya"):
+              integ="kajiya", stats=False):
         """Trace full paths -> (r, g, b), each f32[N] (the JAX
         ``PathTracer.trace`` interface), or ((r, g, b), ``PathRecord``)
         with ``collect_states``; ``forward`` returns the radiance as one
@@ -1398,18 +1626,30 @@ class PathTracer(nn.Module):
         inside the trace from ``cam_params`` (``camera_params``) and
         ``origin``/``direction`` are ignored; otherwise they are f32[N,3]
         tensors or (x, y, z) tuples of f32[N].  ``integ`` selects the
-        bounce integrator (kajiya/whitted/cook); records are Kajiya-only."""
+        bounce integrator (kajiya/whitted/cook); records are Kajiya-only.
+
+        ``stats`` (:1706-1764) adds the culled walk's counters, summed over
+        every search of the trace: ((r, g, b), (listed, processed, still
+        passed)), or with ``collect_states`` ((r, g, b), record, counters),
+        each counter f32[ceil(N / CULL_TILE)], one per tile of CULL_TILE
+        consecutive rays.  A scene JAX does not cull returns zeros.  JAX
+        pads the last tile with lanes that start live (:1188) and counts
+        them; the port counts only the N real lanes, so the two agree on
+        tiles of real rays (N a multiple of CULL_TILE)."""
         out = self(pixel, origin, direction, frame, salt_base, max_bounces,
                    style, gen_rays, cam_params, cam_mode, jitter_salt,
-                   collect_states, integ)
+                   collect_states, integ, stats)
+        if not stats:
+            return (out[0].unbind(0), out[1]) if collect_states else out.unbind(0)
+        agg = tuple(out[-1].unbind(0))
         if collect_states:
-            return out[0].unbind(0), out[1]
-        return out.unbind(0)
+            return out[0].unbind(0), out[1], agg
+        return out[0].unbind(0), agg
 
     def forward(self, pixel, origin, direction, frame, salt_base, max_bounces,
                 style="reference", gen_rays=False, cam_params=None,
                 cam_mode=PINHOLE, jitter_salt=0, collect_states=False,
-                integ="kajiya"):
+                integ="kajiya", stats=False):
         n, pix = _pixels(pixel)
         rays = None
         if not gen_rays:
@@ -1422,14 +1662,37 @@ class PathTracer(nn.Module):
         kw = dict(rays=rays, cam_params=cam_params, cam_mode=cam_mode,
                   jitter_salt=jitter_salt, mint=self.mint,
                   collect=collect_states, integ=integ)
-        return _on_device(
-            self.tables.device,
-            lambda: launch_path_kernel(self.tables, self.counts, pix, n, frame,
-                                       salt_base, max_bounces, style,
-                                       nodes=self.nodes, **kw),
-            lambda: trace_plain(self.tables, self.counts, _raster(pix, n, "cpu"),
-                                frame, salt_base, max_bounces, style,
-                                tris_last=self.bvh_form, **kw))
+        counted = stats and self.cull is not None
+
+        def kernel():
+            if counted:
+                return launch_path_stats(self.tables, self.counts, self.nodes,
+                                         self.cull, pix, n, frame, salt_base,
+                                         max_bounces, style, **kw)
+            return launch_path_kernel(self.tables, self.counts, pix, n, frame,
+                                      salt_base, max_bounces, style,
+                                      nodes=self.nodes, **kw)
+
+        def plain():
+            acc = hook = None
+            if counted:
+                acc = torch.zeros((3, -(-n // CULL_TILE)), dtype=torch.float32,
+                                  device=self.tables.device)
+                hook = cull_stats_hook(self.tables, self.counts, self.cull, n,
+                                       acc, self.mint)
+            out = trace_plain(self.tables, self.counts,
+                              _raster(pix, n, self.tables.device),
+                              frame, salt_base, max_bounces, style,
+                              tris_last=self.bvh_form, on_search=hook, **kw)
+            return out if acc is None else (
+                (*out, acc) if collect_states else (out, acc))
+
+        out = _on_device(self.tables.device, kernel, plain)
+        if stats and not counted:
+            zeros = torch.zeros((3, -(-n // CULL_TILE)), dtype=torch.float32,
+                                device=self.tables.device)
+            out = (*out, zeros) if collect_states else (out, zeros)
+        return out
 
     def trace_primary(self, pixel, frame, mode, *, cam_params, cam_mode,
                       salt_base, jitter_salt, nrays=1):
@@ -1445,7 +1708,7 @@ class PathTracer(nn.Module):
                 nrays, cam_params, cam_mode, jitter_salt, self.mint,
                 self.nodes),
             lambda: primary_plain(
-                self.tables, self.counts, _raster(pix, n, "cpu"), frame,
+                self.tables, self.counts, _raster(pix, n, self.tables.device), frame,
                 salt_base, mode, nrays, cam_params, cam_mode, jitter_salt,
                 self.mint, self.bvh_form))
 
@@ -1460,7 +1723,7 @@ class PathTracer(nn.Module):
                 self.hart_tables, self.hart_count, pix, n, frame, cam_params,
                 cam_mode, jitter_salt, self.mint),
             lambda: hart_plain(
-                self.hart_tables, self.hart_count, _raster(pix, n, "cpu"),
+                self.hart_tables, self.hart_count, _raster(pix, n, self.tables.device),
                 frame, cam_params, cam_mode, jitter_salt, self.mint))
 
     @staticmethod

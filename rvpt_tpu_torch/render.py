@@ -108,6 +108,14 @@ def render_sample_chw(scene, camera, settings: RenderSettings, cfg: FilmConfig,
     return sampled.T.reshape(3, cfg.height, cfg.width)
 
 
+def render_sample(scene, camera, settings: RenderSettings, cfg: FilmConfig,
+                  frame):
+    """One frame's sample image f32[H,W,3] (display layout) through the
+    plain path."""
+    return film_ops.chw_to_hwc(render_sample_chw(scene, camera, settings, cfg,
+                                                 frame))
+
+
 def _megakernel_eligible(scene, settings: RenderSettings) -> bool:
     """Whether the kernels serve this scene and settings
     (``render.py:119``, minus its platform sniffing): every quadrant's
@@ -212,7 +220,10 @@ def _rect_pixels(y0, y1, x0, x1, width, device):
 
 def make_tracer(scene):
     """The tracer of the kernels' route for ``scene``: ``BigMeshTracer`` for
-    a big mesh (``pathkernel.is_bigmesh``), else ``PathTracer``."""
+    a big mesh (``pathkernel.is_bigmesh``, the JAX route rule), else
+    ``PathTracer``.  ``PathTracer`` takes a BVH scene of any size, but the
+    display and training routes keep sending a big mesh here, to B5 and
+    B6."""
     from .ops.pathkernel import BigMeshTracer, PathTracer, is_bigmesh
 
     return BigMeshTracer(scene) if is_bigmesh(scene) else PathTracer(scene)

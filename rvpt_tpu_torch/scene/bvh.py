@@ -26,6 +26,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.checkpoint import STATIC
+
 BIN_COUNT = 16  # bvh_builder.h:49-50
 MIN_PRIMS_PER_LEAF = 2  # bvh_builder.h:45
 MAX_PRIMS_PER_LEAF = 8  # bvh_builder.h:46
@@ -41,9 +43,9 @@ class Bvh:
     count: torch.Tensor  # int32[M]: 0 for interior nodes, else leaf primitive count
     bmin: torch.Tensor  # f32[M,3]
     bmax: torch.Tensor  # f32[M,3]
-    max_leaf: int = MAX_PRIMS_PER_LEAF
-    depth: int = 0
-    builder: str = "numpy"
+    max_leaf: int = dataclasses.field(default=MAX_PRIMS_PER_LEAF, metadata=STATIC)
+    depth: int = dataclasses.field(default=0, metadata=STATIC)
+    builder: str = dataclasses.field(default="numpy", metadata=STATIC)
 
     @property
     def num_nodes(self) -> int:

@@ -106,10 +106,16 @@ def soup():
 
 
 def test_soup_is_a_big_mesh(soup):
+    """The route rule sends the soup to BigMeshTracer; PathTracer takes it
+    too (its BVH form serves any size, as JAX's culled form does up to
+    CULL_MAX_TRIS)."""
+    from rvpt_tpu_torch.render import make_tracer
+
     _, _, ts, _ = soup
     assert ts.num_triangles == 1500 and tpk.is_bigmesh(ts)
-    with pytest.raises(ValueError, match="BigMeshTracer"):
-        tpk.PathTracer(ts)
+    assert isinstance(make_tracer(ts), tpk.BigMeshTracer)
+    pt = tpk.PathTracer(ts)
+    assert pt.bvh_form and pt.cull is not None
 
 
 @pytest.mark.parametrize("style", ["reference", "standard"])

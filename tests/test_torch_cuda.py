@@ -2,8 +2,8 @@
 Whitted and Cook forms, K2 bwd_kernel, B8 closest_hit, B3 primary_kernel,
 B4 hart_kernel, K1's and B3's BVH forms and their records, B5
 bigmesh_kernel with its collect instance, B6 bigmesh_hart, B7
-replay_lookup's gather and segment sum) against their plain PyTorch
-versions, on the card.  Every
+replay_lookup's gather and segment sum, K1's stats counting instance)
+against their plain PyTorch versions, and the CLI, on the card.  Every
 test here needs an NVIDIA card and skips without one.  This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -24,7 +24,8 @@ and dielectric triangles; the BVH-form records and B5's hit records bit for
 bit; B7's gather bit for bit, its segment sum within rtol 1e-5, atol 1e-5
 of the float64 sum; the mesh fwd+bwd gradients within rtol 1e-3, atol
 1e-6 (in units of their scale) of autograd through kajiya_from_hits on the
-same records.  The kernels are
+same records; the stats counters equal per tile, the radiance and records
+of the counting instance bit for bit those of the launch without it.  The kernels are
 built with --fmad=false and round like the plain versions' unfused ops, so
 they usually agree exactly.
 """
@@ -1065,3 +1066,65 @@ def test_mesh_step_never_reaches_a_plain_version(dev, monkeypatch):
     assert (tpk.launch_bigmesh_kernel.launches - before[0],
             trs.launch_gather.launches - before[1],
             trs.launch_segsum.launches - before[2]) == (6, 3, 2)
+
+
+@pytest.mark.parametrize("integ", ["kajiya", "whitted", "cook"])
+@pytest.mark.parametrize("name", ["mesh_demo3", "soup"])
+def test_stats_instance_matches_plain(dev, name, integ):
+    """K1's counting instance (PathTracer.trace(stats=True)) on a film of
+    one whole and one partial 8,192-ray tile, camera rays made in the
+    kernel: the radiance bit for bit that of the launch without stats, the
+    per-tile counters equal to the plain version's (cull_stats_hook, run on
+    the card inside debug.interpret_kernels, which launches nothing), and
+    with records (Kajiya) the records of the collect instance."""
+    from rvpt_tpu_torch.utils import debug
+
+    cfg = FilmConfig(width=256, height=40)
+    if name == "soup":
+        scene, cam = _mixed_soup(600, dev)
+    else:
+        scene, cam = builtin.mesh_demo(3, aspect=cfg.aspect, device=dev)
+    pt = tpk.PathTracer(scene)
+    assert pt.cull is not None
+    n = cfg.num_pixels
+    kw = dict(gen_rays=True, cam_params=tpk.camera_params(cam, cfg), cam_mode=cam.mode,
+              jitter_salt=0, integ=integ)
+    rgb, agg = pt.trace(n, None, None, 2, 16, 6, "standard", stats=True, **kw)
+    want_rgb = pt.trace(n, None, None, 2, 16, 6, "standard", **kw)
+    launches = tpk.launch_path_stats.launches, tpk.launch_path_kernel.launches
+    with debug.interpret_kernels():
+        plain_rgb, plain = pt.trace(n, None, None, 2, 16, 6, "standard", stats=True, **kw)
+    torch.cuda.synchronize()
+    assert (tpk.launch_path_stats.launches, tpk.launch_path_kernel.launches) == launches
+    assert all(torch.equal(a, b) for a, b in zip(rgb, want_rgb))
+    got = torch.stack(agg)
+    assert got.shape == (3, 2) and got[0].sum() > 0
+    assert torch.equal(got, torch.stack(plain))
+    assert _share(torch.stack(rgb), torch.stack(plain_rgb)) >= 0.995
+    if integ == "kajiya":
+        rgb2, rec, agg2 = pt.trace(n, None, None, 2, 16, 6, "standard", stats=True,
+                                   collect_states=True, **kw)
+        _, rec0 = pt.trace(n, None, None, 2, 16, 6, "standard", collect_states=True,
+                           **kw)
+        assert all(torch.equal(a, b) for a, b in zip(rgb2, rgb))
+        assert torch.equal(rec.fields, rec0.fields) and torch.equal(rec.hits, rec0.hits)
+        assert torch.equal(torch.stack(agg2), got)
+
+
+def test_cli_renders_on_the_card_by_default(dev, tmp_path):
+    """python -m rvpt_tpu_torch.cli without --device: the card, through
+    the kernels (one K1 launch per frame), a checkpoint that resumes."""
+    from rvpt_tpu_torch import cli
+
+    tpk.launch_path_kernel.launches = 0
+    out, ck = str(tmp_path / "c.png"), str(tmp_path / "c.npz")
+    assert cli.main(["--size", "64x32", "--frames", "3", "--bounces", "2", "--out", out,
+                     "--checkpoint", ck]) == 0
+    assert tpk.launch_path_kernel.launches == 3
+    assert cli.main(["--size", "64x32", "--frames", "1", "--bounces", "2", "--out", out,
+                     "--resume", ck, "--checkpoint", ck]) == 0
+    assert tpk.launch_path_kernel.launches == 4
+    import numpy as np
+
+    with np.load(ck) as data:
+        assert int(data["['film']/.frame"]) == 4
