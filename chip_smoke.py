@@ -73,18 +73,23 @@ Phases, each of which raises on failure:
    probes), B5's bounce (8 bounces) and search-only instances on
    mesh_demo(3) at 1920x1080, and on mesh_demo(5) and terrain_demo(225)
    with the plain version on every 8th (16th) row of pixel ids (the RNG
-   keys by the global id, so the subsample is an exact check), one B6
-   march step on mesh_demo(5) (live lanes, every 8th row): >= 99.5% of
-   channels within 1e-4, B6 >= 99%; each timed with CUDA events beside its
+   keys by the global id, so the subsample is an exact check), one step
+   of B6's per-step instance on mesh_demo(5) (march step 4, live lanes,
+   every 8th row), and B6's march, the whole 1080p Hart march in one
+   launch, against bigmesh_march_plain on every 64th row (the plain march
+   runs 32 brute-force steps): >= 99.5% of channels within 1e-4, B6 >=
+   99% (bit-identity printed); each timed with CUDA events beside its
    bound, which counts the walks' node and triangle tests on this run's
    data with the kernels' counting instances (count_bvh_walk,
-   count_hart_walk);
+   count_hart_walk; for the march count_hart_march's warm-started walk up
+   to each ray's escape or stop, the parent's work, the cold-start walk of
+   every step, printed beside it);
 16. this slice's main path: Renderer.draw x8 at 1920x1080, 8 bounces,
    standard, Kajiya on mesh_demo(5) and mesh_demo(3) (8 B5 launches per
    frame), rabbit at 1024x512 x 8 (one K1 launch per frame) and in modes
    0-6 (one B3 launch per frame), on mesh_demo(5) each single mode 0-8 and
-   10 (Hart: 32 B6 launches per frame) and the split-screen (AO, Whitted,
-   Hart, Kajiya), terrain_demo(225) x2; every loop with zeroed counts,
+   10 (Hart: one B6 march launch per frame) and the split-screen (AO,
+   Whitted, Hart, Kajiya), terrain_demo(225) x2; every loop with zeroed counts,
    a finite film that is not black, and its ms/frame; then the
    rabbit_kajiya and mesh2_kajiya goldens through the kernels (printed,
    not asserted, as phase 4);
@@ -94,7 +99,10 @@ Phases, each of which raises on failure:
    tables at the 2,073,600 indices its 1080p replay reads at bounce 2, and
    on a 140,000-row table at 2,073,600 pixel-coherent ids; each timed
    beside its plain version, the PyTorch call (index_select, index_add_)
-   and its bound;
+   and its bound, the segment sum's memset, summing kernel and rounding
+   pass timed apart (torch.profiler), and its ids' rows counted (distinct
+   rows per warp and per chunk of 2,048 and 8,192 rays, the chunks' row
+   spans);
 18. records: K1's BVH form with records on rabbit at 1024x512 x 8 (rays
    in) and B5's collect instance on mesh_demo(5) at 1080p x 8 (every 8th
    row of pixel ids): bit-identical to trace_plain's and
@@ -111,7 +119,9 @@ Phases, each of which raises on failure:
    after 2)
    and its peak memory; and on mesh_demo(3) at 320x180 the gradients
    within rtol 2e-2, atol 1e-5 (in units of their scale) of autograd
-   through integrator_kajiya;
+   through integrator_kajiya; and the step's 7 segment sums: their ids'
+   rows counted as in phase 17, their device time inside the step
+   (torch.profiler);
 20. rabbit at 1024x512 x 8: the step through "auto" (K1's BVH-form
    records, then K2) and through "soa" (records, then the replay with B7),
    each against autograd through kajiya_from_hits as in phase 19;
@@ -145,7 +155,7 @@ Phases, each of which raises on failure:
 Prints the kernel record as a JSON line (launches of the main paths:
 the trainer for K1, K2 and B8, the split-screen draws for B3 and B4, the
 rabbit draws for K1's and B3's BVH forms, the mesh_demo(3) Kajiya and
-mesh_demo(5) Hart draws for B5 and B6, the mesh_demo(3) fwd+bwd step for
+mesh_demo(5) Hart draws for B5 and B6's march, the mesh_demo(3) fwd+bwd step for
 B7 and B5's collect instance, the rabbit step for K1's BVH-form records,
 the stats traces of phase 22 for the counting instance; times, bounds and
 errors of this run), a JSON line of the CLI runs and the viewer, the
@@ -264,6 +274,67 @@ def walk_counter(tables, counts, nodes, work):
         work["tri"] = work.get("tri", 0) + tri
 
     return on_search
+
+
+def device_ms(fn, iters, names):
+    """Device time per call of ``fn`` from a torch.profiler trace of
+    ``iters`` calls: ({name: ms of the device operations whose names hold
+    it}, ms of every device operation)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    parts = {k: sum(e["dur"] for e in dev if k in e["name"]) / 1e3 / iters
+             for k in names}
+    return parts, sum(e["dur"] for e in dev) / 1e3 / iters
+
+
+# The segment sum's device operations: the scratch's memset, the summing
+# kernel and the rounding pass.
+SEG_PARTS = ("Memset", "segsum_kernel", "round_kernel")
+
+
+def row_stats(idx, g):
+    """How the rows of ``idx`` int32[N] fall, over the rays whose
+    cotangent column of ``g`` f32[C, N] is not all zero (the rays that add
+    something): mean distinct rows per warp of 32 consecutive rays and per
+    chunk of 2,048 and of 8,192, and the mean and largest row span (max -
+    min + 1) of those chunks."""
+    import torch
+
+    adds = (g != 0).any(dim=0)
+    out = {"rays": int(idx.numel()), "adding": int(adds.sum().item())}
+    for size in (32, 2048, 8192):
+        m = idx.numel() // size * size
+        if m == 0:
+            continue
+        key = torch.where(adds[:m], idx[:m].long(), -1).view(-1, size)
+        srt = key.sort(dim=1).values
+        distinct = 1 + (srt[:, 1:] != srt[:, :-1]).sum(dim=1) - (srt[:, 0] < 0).long()
+        tag = "warp" if size == 32 else str(size)
+        out[f"distinct_per_{tag}"] = round(distinct.double().mean().item(), 2)
+        hi = srt[:, -1]
+        lo = torch.where(srt >= 0, srt, hi[:, None]).min(dim=1).values
+        ok = hi >= 0
+        if size > 32 and ok.any():
+            span = (hi - lo + 1)[ok].double()
+            out[f"span_mean_{tag}"] = round(span.mean().item(), 1)
+            out[f"span_max_{tag}"] = int(span.max().item())
+    return out
 
 
 def share_close(a, b, rtol, atol):
@@ -1167,7 +1238,67 @@ def mesh_phases(smi, dev, out_dir, here):
     out["b6"] = dict(max_abs_err=err, within_1e_4=close, bit_identical=same, ms=ms,
                      plain_ms=plain_ms, plain_points=sub.numel(), bound_ms=bnd,
                      bound_by=by)
-    del bt, p, d, done, live, ray, pixel, xs, ys
+
+    # The whole march in one launch (the Hart frame's path) against
+    # bigmesh_march_plain on every 64th row of pixel ids: the plain march
+    # runs 32 brute-force steps, too slow on every 8th row.
+    o3 = ray.origin.T.contiguous()
+
+    def march():
+        return pk.launch_bigmesh_march(bt.hart_tables, bt.hart_count, bt.nodes, o3, d)
+
+    steps = march()
+    sub = torch.nonzero(ys % 64 == 0).squeeze(1)
+
+    def march_plain():
+        return pk.bigmesh_march_plain(bt.hart_tables, bt.hart_count,
+                                      o3[:, sub].contiguous(), d[:, sub].contiguous())
+
+    want = march_plain()
+    torch.cuda.synchronize()
+    scale = 1.0 / (pk.MARCH_ITER - 1)
+    close, err, same = equal_share(steps[sub].to(torch.float32) * scale,
+                                   want.to(torch.float32) * scale)
+    ms = cuda_ms(march, 5)
+    plain_ms = cuda_ms(march_plain, 1)
+    csteps, mwork = pk.count_hart_march(bt.hart_tables, bt.hart_count, bt.nodes, o3, d)
+    check(torch.equal(csteps, steps), "B6's march counting instance changed the steps")
+    check(mwork["late"] == 0, f"{mwork['late']} rays stopped after B6's escape test "
+          f"had ended their march")
+    # The bound counts the work the march needs: its own warm-started walk
+    # up to each ray's escape or stop (mwork's warm distances, a point-step
+    # per walk), 24 B of ray in and 4 B of step out per ray, the tables
+    # once.  The parent's work (the per-step design: a cold-start walk at
+    # every step until the ray stops, past the escape too) is printed
+    # beside it, at the same rates, and is not the bound.
+    bnd, by = bound(hd.num_pixels * 28 + 4 * (bt.hart_tables.numel() + bt.nodes.numel()),
+                    mwork["warm_box"] * OPS_HBOX + mwork["warm_tri"] * OPS_HTRI
+                    + mwork["walks"] * OPS_HPOINT)
+    parent_steps = int(torch.clamp(steps.long() + 1, max=pk.MARCH_ITER).sum().item())
+    parent_ops = (mwork["cold_box"] * OPS_HBOX + mwork["cold_tri"] * OPS_HTRI
+                  + parent_steps * OPS_HPOINT)
+    parent_peak_ms = parent_ops / PEAK_FP32 * 1e3
+    print(f"[B6-march-vs-plain] mesh_demo(5), the whole march in one launch, "
+          f"{hd.width}x{hd.height}: {sub.numel()} rays checked (every 64th row): "
+          f"{close:.6f} within 1e-4 of the plain value (bar 0.99), max |err| {err:.3g}, "
+          f"bit-identical: {same}; kernel {ms:.4f} ms per Hart frame, plain "
+          f"{plain_ms:.4f} ms on the {sub.numel()}; the march's warm-started walk "
+          f"{mwork['warm_box']} box and {mwork['warm_tri']} triangle distances in "
+          f"{mwork['walks']} walks (up to each ray's escape or stop); parent work "
+          f"(the cold-start walk of every step the per-step design ran) "
+          f"{mwork['cold_box']} box and {mwork['cold_tri']} triangle distances, "
+          f"{parent_steps} point-steps, {parent_peak_ms:.4f} ms at peak; steps whose "
+          f"minima differ {mwork['differ']}, stops after an escape {mwork['late']}; "
+          f"bound {bnd:.4f} ms by {by} (the march's own walk), kernel at "
+          f"{bnd / ms:.1%} of it [{smi}]")
+    check(close >= 0.99, f"B6's march disagrees with plain: {close:.6f}")
+    out["b6_march"] = dict(max_abs_err=err, within_1e_4=close, bit_identical=same,
+                           ms=ms, plain_ms=plain_ms, plain_rays=sub.numel(),
+                           bound_ms=bnd, bound_by=by, walk=mwork,
+                           parent_work=dict(box=mwork["cold_box"], tri=mwork["cold_tri"],
+                                            point_steps=parent_steps,
+                                            ms_at_peak=parent_peak_ms))
+    del bt, p, d, o3, done, live, ray, pixel, xs, ys, steps, csteps
 
     # ---- 16. the slice: Renderer.draw on the mesh scenes
     kernels = {"path_kernel": pk.launch_path_kernel,
@@ -1176,7 +1307,8 @@ def mesh_phases(smi, dev, out_dir, here):
                "primary_kernel": pk.launch_primary_kernel,
                "hart_kernel": pk.launch_hart_kernel,
                "bigmesh_kernel": pk.launch_bigmesh_kernel,
-               "bigmesh_hart": pk.launch_bigmesh_hart}
+               "bigmesh_hart": pk.launch_bigmesh_hart,
+               "bigmesh_march": pk.launch_bigmesh_march}
 
     def draw_loop(label, scene, cam, cfg, st, frames, per_frame, png=None):
         r = Renderer(scene, cam, st, cfg)
@@ -1237,23 +1369,24 @@ def mesh_phases(smi, dev, out_dir, here):
     # Launches per frame on a big mesh at 8 bounces: a search per debug
     # frame, plus AO's 8 probes or Appel's shadow; Whitted a search and a
     # shadow search per bounce, Cook a search per bounce and the tail;
-    # Kajiya a bounce launch per bounce; Hart a distance launch per step.
+    # Kajiya a bounce launch per bounce; Hart one march launch per frame
+    # (B6's per-step instance never: it is not on the display path).
     per_mode = {0: 1, 1: 1, 2: 1, 3: 1, 4: 1, 5: 9, 6: 2, 7: 16, 8: 9, 9: 8}
     scene, cam = scenes["mesh_demo(5)"]
     for mode in (0, 1, 2, 3, 4, 5, 6, 7, 8, 10):
         st = hd8.replace(**dict.fromkeys(quads, mode))
-        per = ({"bigmesh_hart": pk.MARCH_ITER} if mode == 10
+        per = ({"bigmesh_march": 1} if mode == 10
                else {"bigmesh_kernel": per_mode[mode]})
         ms, ran = draw_loop(f"mesh_demo(5) mode {mode} ({names[mode]})", scene, cam, hd,
                             st, 2, per)
         out["draw_ms"][f"mesh_demo(5) {names[mode]}"] = ms
         if mode == 10:
-            launches["bigmesh_hart"] = ran["bigmesh_hart"]
+            launches["bigmesh_hart"] = ran["bigmesh_march"]
     split = hd8.replace(**dict(zip(quads, (5, 7, 10, 9))))
     ms, _ = draw_loop("mesh_demo(5) split-screen (AO, Whitted, Hart, Kajiya)", scene,
                       cam, hd, split, 2,
                       {"bigmesh_kernel": per_mode[5] + per_mode[7] + per_mode[9],
-                       "bigmesh_hart": pk.MARCH_ITER},
+                       "bigmesh_march": 1},
                       "torch_mesh_demo5_split_1080p.png")
     out["draw_ms"]["mesh_demo(5) split"] = ms
     scene, cam = scenes["terrain_demo(225)"]
@@ -1333,17 +1466,22 @@ def lookup_check(smi, label, tables, idx, n_seg, live=None):
     # cotangents per ray and the [C, T] result once, one add per cotangent.
     g_bnd, g_by = bound(n * (4 + 4 * c) + 4 * c * t, 0)
     s_bnd, s_by = bound(n * (4 + 4 * n_seg) + 4 * n_seg * t, n * n_seg)
+    parts, _ = device_ms(lambda: rs.launch_segsum(idx, g, t), 10, SEG_PARTS)
+    rows_seen = row_stats(idx, g)
     print(f"[time] B7 {label}: gather {g_ms:.4f} ms, plain {g_plain:.4f} ms, "
           f"index_select {g_lib:.4f} ms, bound {g_bnd:.4f} ms by {g_by} (kernel at "
           f"{g_bnd / g_ms:.1%}); segment sum {s_ms:.4f} ms, plain {s_plain:.4f} ms, "
           f"index_add_ {s_lib:.4f} ms, bound {s_bnd:.4f} ms by {s_by} (kernel at "
-          f"{s_bnd / s_ms:.1%}) [{smi}]")
+          f"{s_bnd / s_ms:.1%}); device ms of its memset, summing kernel and rounding "
+          f"pass {({k: round(v, 4) for k, v in parts.items()})} [{smi}]")
+    print(f"[B7-rows] {label}: {rows_seen}")
     return ({"max_abs_err": 0.0 if same else float("inf"), "bit_identical": same,
              "ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib, "bound_ms": g_bnd,
              "bound_by": g_by},
             {"max_abs_err": seg_err * scale, "max_abs_err_in_g_scale": seg_err,
              "repeat_bit_identical": rep_same, "ms": s_ms, "plain_ms": s_plain,
-             "library_ms": s_lib, "bound_ms": s_bnd, "bound_by": s_by})
+             "library_ms": s_lib, "bound_ms": s_bnd, "bound_by": s_by,
+             "parts_ms": parts, "rows": rows_seen})
 
 
 def mesh_step_check(smi, dev, label, scene, cam, cfg, nb, counters, backward="auto",
@@ -1362,6 +1500,7 @@ def mesh_step_check(smi, dev, label, scene, cam, cfg, nb, counters, backward="au
 
     from rvpt_tpu_torch.core.types import Ray
     from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops import replay_soa as rs
     from rvpt_tpu_torch.ops.fast_grad import kajiya_from_hits, make_fast_kajiya
     from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
     from rvpt_tpu_torch.train import inverse
@@ -1456,6 +1595,31 @@ def mesh_step_check(smi, dev, label, scene, cam, cfg, nb, counters, backward="au
         print(f"[mesh-step] {label}: fwd+bwd {res['step_ms']:.4f} ms/step, "
               f"{cfg.num_pixels * nb / res['step_ms'] / 1e3:.1f} Mrays/s "
               f"(W*H*aa*bounces per step) [{smi}]")
+        # B7's segment sums inside the step: their ids' rows (one more
+        # step, through a wrapper of the replay's segsum that counts them
+        # before each call) and their device time (torch.profiler over two
+        # more steps).
+        seen = []
+        real = rs.segsum
+
+        def counted(idx, g, t_rows):
+            seen.append(row_stats(idx, g))
+            return real(idx, g, t_rows)
+
+        rs.segsum = counted
+        try:
+            step(9)
+        finally:
+            rs.segsum = real
+        parts, total = device_ms(lambda: step(10), 2, SEG_PARTS)
+        res.update(segsum_rows=seen, segsum_parts_ms=parts, device_ms=total,
+                   segsum_ms=sum(parts.values()))
+        for k, rows in enumerate(seen):
+            print(f"[B7-rows] {label} step, segment sum {k}: {rows}")
+        print(f"[mesh-step] {label}: the step's {len(seen)} segment sums take "
+              f"{res['segsum_ms']:.4f} ms of its {total:.4f} ms device time (memset, "
+              f"summing kernel, rounding pass: "
+              f"{({k: round(v, 4) for k, v in parts.items()})}) [{smi}]")
     return res
 
 
@@ -1830,6 +1994,7 @@ def cli_phases(smi, dev, out_dir):
                 "hart_kernel": pk.launch_hart_kernel,
                 "bigmesh_kernel": pk.launch_bigmesh_kernel,
                 "bigmesh_hart": pk.launch_bigmesh_hart,
+                "bigmesh_march": pk.launch_bigmesh_march,
                 "path_kernel_stats": pk.launch_path_stats}
     cornell_bvh = pk.PathTracer(attach_bvh(builtin.cornell_box(device=dev)[0]))
     check(cornell_bvh.bvh_form, "--bvh cornell would not take K1's BVH form")
@@ -2097,6 +2262,7 @@ def main() -> int:
                 "hart_kernel": pk.launch_hart_kernel,
                 "bigmesh_kernel": pk.launch_bigmesh_kernel,
                 "bigmesh_hart": pk.launch_bigmesh_hart,
+                "bigmesh_march": pk.launch_bigmesh_march,
                 "replay_gather": rs.launch_gather,
                 "replay_segsum": rs.launch_segsum}
     grad = mesh_grad_phases(smi, dev, counters)
@@ -2171,11 +2337,14 @@ def main() -> int:
         # ray; the other meshes and the search-only instance beside them.
         **mesh["b5"]["mesh_demo(3)"], "library_ms": None, "b5": mesh["b5"],
     }, {
+        # Launches: the mesh_demo(5) Hart draws of phase 16, one march
+        # launch per frame; the numbers those of the march over one 1080p
+        # mesh_demo(5) Hart frame, the per-step instance's at step 4 beside.
         "name": "bigmesh_hart", "route": "cuda",
         "source": "rvpt_tpu_torch/csrc/bigmesh_hart.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:2820",
-        "launches": mesh["launches"]["bigmesh_hart"], **mesh["b6"],
-        "library_ms": None,
+        "launches": mesh["launches"]["bigmesh_hart"], **mesh["b6_march"],
+        "library_ms": None, "step": mesh["b6"],
     }, {
         # The launches of the main path of this slice, one mesh_demo(3)
         # fwd+bwd step at 1080p x 8; the numbers of mesh_demo(5)'s tables at
@@ -2193,6 +2362,7 @@ def main() -> int:
         "also_replaces": ["rvpt_tpu/ops/replay_soa.py:170",
                           "rvpt_tpu/ops/replay_soa.py:381"],
         "launches": main3["replay_segsum"], **grad["segsum"],
+        "ms_in_mesh_steps": {k: r["segsum_ms"] for k, r in grad["steps"].items()},
     }, {
         # Launches: one rabbit fwd+bwd step (auto: records, then K2).
         "name": "path_kernel_bvh_collect", "route": "cuda",

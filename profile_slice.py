@@ -81,7 +81,8 @@ def _display(a, dev):
                         **dict.fromkeys(quads, a.mode))
     r = Renderer(scene, cam, st, cfg)
     parts = {"path_kernel": ("path_kernel",), "primary_kernel": ("primary_kernel",),
-             "bigmesh_hart": ("bigmesh_hart",), "hart_kernel": ("hart_kernel",),
+             "bigmesh_hart": ("bigmesh_hart", "march_kernel"),
+             "hart_kernel": ("hart_kernel",),
              "bigmesh_kernel": ("bigmesh_kernel",)}
     name = ("profile_slice_trace.json" if a.scene == "cornell" and a.mode == 9
             else f"profile_slice_{a.scene}_mode{a.mode}_trace.json")

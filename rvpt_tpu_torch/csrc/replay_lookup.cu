@@ -27,26 +27,48 @@
 // back).
 //
 // Hot rows: neighbouring rays hit the same triangles (BVH leaf order and
-// pixel-coherent rays), and atomics on one address serialise.  A warp
-// first groups its lanes by row (__match_any_sync); the lowest lane of each
-// group sums the group's values in lane order and issues one atomicAdd per
-// column, none where that sum is zero.  That matters in the replay: the
-// lanes that did not hit a triangle read row 0 (the index is clipped) with
-// a cotangent of exactly zero, and adding zero changes no sum.
+// pixel-coherent rays), and atomics on one address serialise.  How the
+// rows fall (chip_smoke.py phase 17 counts them): on pixel-coherent ids
+// into 140,000 rows a warp holds about 31 distinct rows of 32, so
+// grouping within a warp saves almost no atomic, while a chunk of 2,048
+// rays holds about 640 over a span of about 720 and one of 8,192 about
+// 1,070 over 1,140; on a mesh replay's bounce ids the spans reach the
+// whole 20,482-row table (no window of rows fits) while whole warps sit
+// on one row (the miss lanes, clipped to row 0); in a mesh step most
+// warps carry only zero cotangents.  So the segment sum aggregates rows
+// across a whole block before it touches device memory: a block takes
+// SEG_RAYS consecutive rays and sums them into a hash table in shared
+// memory, `slots` rows of C float64 sums each, keyed by the row (seg_slots:
+// the largest power of two up to SEG_SLOTS that fits SEG_SMEM; 0 when not
+// one row fits, and then every row adds straight into device memory).  A
+// sweep on an H100 of 1,024-8,192 rays per block and 512-2,048 rows picked
+// 4,096 x 1,024, two blocks per SM.  The slot is k * 2654435761 mod slots,
+// a bijection on the low bits, so rows within any window of `slots`
+// consecutive ids never collide; other rows probe the next slots, and a
+// row that finds no free slot in PROBES adds straight into device memory.  Then the block
+// adds each occupied slot's non-zero sums into the float64 scratch: one
+// global atomic per (row, column) the block touched.  Within a warp the
+// lanes that add something are grouped by row (__match_any_sync) and each
+// group sums in a shuffle tree (reduce_peers, log2 of its size rounds),
+// so one lane per group and column touches the table: a whole warp on one
+// row is one shared atomic, not 32.  A warp whose rays all carry zero
+// cotangents (the lanes that hit no triangle carry an exact zero) does
+// nothing but read them.  Each ray's C cotangents are read into registers
+// once.
 //
 // Precision and order: the sums run in float64, into a [C, T] scratch that
 // a second launch rounds to the f32 result, as the plain version
 // (index_add_ in float64) does.  An f32 sum of the ~200 cotangents each
 // row of a 1,282-row table gets from 256K random ids was 1.7e-5 off the
-// float64 sum in units of their scale on an H100; in float64 the atomics'
-// order changes the sum by about 1e-16 of it, below the final rounding,
-// so a result is reproducible from call to call but for a value that
-// lands within that distance of an f32 rounding boundary.  The gather is
-// exact.
+// float64 sum in units of their scale on an H100; in float64 the order of
+// the atomics (shared and global) changes the sum by about 1e-16 of it,
+// below the final rounding, so a result is reproducible from call to call
+// but for a value that lands within that distance of an f32 rounding
+// boundary.  The gather is exact.
 //
 // An index outside [0, T) (the caller clips them) gathers 0 and adds
-// nothing; n = 0 launches nothing (the JAX side's idx[-1] padding is not
-// needed: there is no padding).
+// nothing; n = 0 launches no segment-sum kernel (the JAX side's idx[-1]
+// padding is not needed: there is no padding).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,7 +76,6 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 
 __global__ void __launch_bounds__(THREADS) gather_kernel(
     const float* __restrict__ tables, int n_col, int t_rows,
@@ -68,29 +89,114 @@ __global__ void __launch_bounds__(THREADS) gather_kernel(
   }
 }
 
-__global__ void __launch_bounds__(THREADS) segsum_kernel(
-    const int32_t* __restrict__ idx, const float* __restrict__ g, int n_col,
-    int n, int t_rows, double* __restrict__ acc) {
-  __shared__ float vals[WARPS][32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const bool valid = i < n;
-  int key = valid ? idx[i] : -1;
-  if (key >= t_rows) key = -1;
-  // Every lane of the warp takes part (the tail lanes with key -1), so the
-  // full mask is right for the match.
-  const unsigned peers = __match_any_sync(0xffffffffu, key);
-  const bool leader = key >= 0 && (__ffs(peers) - 1) == lane;
-  for (int c = 0; c < n_col; ++c) {
-    vals[warp][lane] = key >= 0 ? g[(int64_t)c * n + i] : 0.0f;
-    __syncwarp();
-    if (leader) {
-      double s = 0.0;
-      for (unsigned m = peers; m; m &= m - 1) s += vals[warp][__ffs(m) - 1];
-      if (s != 0.0) atomicAdd(&acc[(int64_t)c * t_rows + key], s);
+constexpr int SEG_THREADS = 512;
+constexpr int SEG_RAYS = 4096;     // rays per block
+constexpr int SEG_SLOTS = 1024;    // the most rows of a block's table
+constexpr int SEG_SMEM = 113 * 1024;  // its bytes: two blocks per SM
+constexpr int MAXC = 16;   // columns held in registers per pass
+constexpr int PROBES = 8;  // hash slots tried before a row goes to memory
+constexpr unsigned FULL = 0xffffffffu;
+
+// Sum v[0..nc) over the lanes of this lane's group `peers` (lanes with
+// the same row) into the group's lowest lane, in log2(group size) rounds
+// of shuffles; the order of the adds depends only on the grouping.  Every
+// lane of the warp takes part.
+__device__ __forceinline__ void reduce_peers(unsigned peers, double* v, int nc,
+                                             int lane) {
+  int rel = __popc(peers & ((1u << lane) - 1u));  // rank within the group
+  unsigned rest = peers & (0xfffffffeu << lane);  // the group's higher lanes
+  while (__any_sync(FULL, rest != 0)) {
+    const int next = __ffs(rest);  // the next higher lane still in, 1-based
+    const int src = next ? next - 1 : lane;
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      if (c < nc) {
+        const double t = __shfl_sync(FULL, v[c], src);
+        if (next) v[c] += t;
+      }
     }
-    __syncwarp();
+    rest &= ~__ballot_sync(FULL, rel & 1);  // odd ranks have handed theirs on
+    rel >>= 1;
+  }
+}
+
+// Add the cotangents v[0..nc) of row k (columns c0..c0+nc) into the
+// block's table, or into acc where the row finds no slot.
+__device__ __forceinline__ void add_row(int k, const double* v, int nc, int c0,
+                                        int slots, int* keys, double* vals,
+                                        double* acc, int t_rows) {
+  int s = -1;
+  unsigned h = (unsigned)k * 2654435761u;
+  for (int p = 0; p < PROBES && slots > 0; ++p, ++h) {
+    const int at = (int)(h & (unsigned)(slots - 1));
+    const int old = atomicCAS(&keys[at], -1, k);
+    if (old == -1 || old == k) {
+      s = at;
+      break;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    if (c < nc && v[c] != 0.0) {
+      if (s >= 0) {
+        atomicAdd(&vals[(int64_t)(c0 + c) * slots + s], v[c]);
+      } else {
+        atomicAdd(&acc[(int64_t)(c0 + c) * t_rows + k], v[c]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(SEG_THREADS) segsum_kernel(
+    const int32_t* __restrict__ idx, const float* __restrict__ g, int n_col,
+    int n, int t_rows, int slots, double* __restrict__ acc) {
+  extern __shared__ double smem[];
+  double* vals = smem;  // [C, slots]
+  int* keys = reinterpret_cast<int*>(vals + (int64_t)n_col * slots);
+  for (int64_t j = threadIdx.x; j < (int64_t)n_col * slots; j += blockDim.x) {
+    vals[j] = 0.0;
+  }
+  for (int j = threadIdx.x; j < slots; j += blockDim.x) keys[j] = -1;
+  __syncthreads();
+  const int64_t base = (int64_t)blockIdx.x * SEG_RAYS;
+  const int64_t left = (int64_t)n - base;
+  const int count = left < SEG_RAYS ? (int)left : SEG_RAYS;
+  const int lane = threadIdx.x & 31;
+  // Every thread runs the same number of rounds, so each warp stays whole
+  // for its votes and shuffles (the tail lanes hold row -1).
+  for (int r0 = 0; r0 < count; r0 += blockDim.x) {
+    const int r = r0 + threadIdx.x;
+    const int64_t i = base + r;
+    int k = r < count ? idx[i] : -1;
+    if (k >= t_rows || k < 0) k = -1;
+    for (int c0 = 0; c0 < n_col; c0 += MAXC) {
+      const int nc = min(MAXC, n_col - c0);
+      double v[MAXC];
+      bool any = false;
+#pragma unroll
+      for (int c = 0; c < MAXC; ++c) {
+        v[c] = (c < nc && k >= 0) ? (double)g[(int64_t)(c0 + c) * n + i] : 0.0;
+        any = any || v[c] != 0.0;
+      }
+      if (!__any_sync(FULL, any)) continue;  // the whole warp adds nothing
+      // Group the lanes that add something by row; one lane per group
+      // adds the group's sums.
+      const int key = any ? k : -1;
+      const unsigned peers = __match_any_sync(FULL, key);
+      reduce_peers(peers, v, nc, lane);
+      if (key >= 0 && __ffs(peers) - 1 == lane) {
+        add_row(key, v, nc, c0, slots, keys, vals, acc, t_rows);
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < slots; j += blockDim.x) {
+    const int k = keys[j];
+    if (k < 0) continue;
+    for (int c = 0; c < n_col; ++c) {
+      const double s = vals[(int64_t)c * slots + j];
+      if (s != 0.0) atomicAdd(&acc[(int64_t)c * t_rows + k], s);
+    }
   }
 }
 
@@ -101,6 +207,15 @@ __global__ void __launch_bounds__(THREADS) round_kernel(
 }
 
 int blocks_for(int64_t n) { return (int)((n + THREADS - 1) / THREADS); }
+
+// Rows of the segment sum's table for n_col columns: the largest power of
+// two up to SEG_SLOTS whose float64 sums and int32 key fit SEG_SMEM, or 0.
+int seg_slots(int n_col) {
+  const int64_t fit = SEG_SMEM / ((int64_t)sizeof(double) * n_col + 4);
+  int slots = 0;
+  for (int s = 1; s <= SEG_SLOTS && s <= fit; s *= 2) slots = s;
+  return slots;
+}
 
 }  // namespace
 
@@ -122,13 +237,20 @@ int rvpt_gather(const float* tables, int n_col, int t_rows,
 int rvpt_segsum(const int32_t* idx, const float* g, int n_col, int n,
                 int t_rows, double* acc, float* out, void* stream) {
   if (n_col <= 0 || t_rows <= 0) return 0;
+  const int slots = seg_slots(n_col);
+  const size_t smem = (size_t)slots * (sizeof(double) * n_col + sizeof(int));
   const int64_t size = (int64_t)n_col * t_rows;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(acc, 0, sizeof(double) * (size_t)size, s);
   if (e != cudaSuccess) return (int)e;
   if (n > 0) {
-    segsum_kernel<<<blocks_for(n), THREADS, 0, s>>>(idx, g, n_col, n, t_rows,
-                                                     acc);
+    e = cudaFuncSetAttribute(segsum_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = (int)(((int64_t)n + SEG_RAYS - 1) / SEG_RAYS);
+    segsum_kernel<<<blocks, SEG_THREADS, smem, s>>>(idx, g, n_col, n, t_rows,
+                                                    slots, acc);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -11,9 +11,10 @@ triangle SDF for the Hart heat map (make_hart_kernel :3564, _hart_call
 :3632); traces BVH meshes of more than 1,024 triangles one bounce or one
 search per launch (make_bigmesh_dma_kernel :2366 and make_bigmesh_kernel
 :2061, BigMeshTracer :2927) with their Hart distance per march step
-(make_bigmesh_hart_kernel :2820); and pulls an image cotangent back through
-the whole chain from the records (make_bwd_kernel :1346, _bwd_call :1609,
-bwd_path :1801).  Here each function has two versions:
+(make_bigmesh_hart_kernel :2820; here the whole march is one launch); and
+pulls an image cotangent back through the whole chain from the records
+(make_bwd_kernel :1346, _bwd_call :1609, bwd_path :1801).  Here each
+function has two versions:
 
 * ``csrc/path_kernel.cu`` (K1), ``csrc/primary_kernel.cu`` (B3),
   ``csrc/hart_kernel.cu`` (B4), ``csrc/bigmesh_kernel.cu`` (B5),
@@ -21,12 +22,13 @@ bwd_path :1801).  Here each function has two versions:
   hand-written CUDA for Hopper, one thread per ray, pixel or point
   (``launch_path_kernel``, ``launch_primary_kernel``,
   ``launch_hart_kernel``, ``launch_bigmesh_kernel``,
-  ``launch_bigmesh_hart``, ``launch_bwd_kernel``);
+  ``launch_bigmesh_hart``, ``launch_bigmesh_march``,
+  ``launch_bwd_kernel``);
 * ``trace_plain``, ``primary_plain``, ``hart_plain``,
   ``bigmesh_bounce_plain``, ``bigmesh_search_plain``,
-  ``bigmesh_distance_plain`` and ``bwd_plain``: the same functions in plain
-  PyTorch on flat [N] tensors, the references the kernels are held
-  against.
+  ``bigmesh_distance_plain``, ``bigmesh_march_plain`` and ``bwd_plain``:
+  the same functions in plain PyTorch on flat [N] tensors, the references
+  the kernels are held against.
 
 ``PathTracer``, ``BigMeshTracer`` and ``bwd_path`` dispatch on the device
 of their tables: a CPU tensor takes the plain version, a CUDA tensor
@@ -1148,6 +1150,26 @@ def bigmesh_distance_plain(htables, n_tri, p, live, tri_chunk=None):
     return out
 
 
+def bigmesh_march_plain(htables, n_tri, o, d, mint=0.0, live=None):
+    """The plain version of the big-mesh Hart march: rays ``o``/``d``
+    f32[3, N], ``live`` bool[N] (None: every lane) -> int32[N], the step
+    at which each ray's march from o + mint d stops (the scene distance,
+    ``bigmesh_distance_plain``, below MARCH_EPS), MARCH_ITER where it never
+    does and on a lane outside ``live`` (``trace_hart`` :3237)."""
+    p = o + mint * d
+    iters = torch.full_like(p[0], MARCH_ITER, dtype=torch.int32)
+    done = (torch.zeros_like(p[0], dtype=torch.bool) if live is None
+            else ~live)
+    for i in range(MARCH_ITER):
+        dist = bigmesh_distance_plain(htables, n_tri, p, ~done)
+        stop = dist < MARCH_EPS
+        iters = torch.where(~done & stop, i, iters)
+        adv = ~done & ~stop
+        p = torch.where(adv, p + dist * d, p)
+        done = done | stop
+    return iters
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
@@ -1501,27 +1523,35 @@ launch_bigmesh_kernel.launches = 0
 def _bigmesh_hart_lib():
     lib = load_library("bigmesh_hart")
     if not hasattr(lib, "_rvpt_bound"):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rvpt_bigmesh_hart.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr,
                                           i32, ptr]
         lib.rvpt_bigmesh_hart.restype = i32
+        lib.rvpt_bigmesh_march.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, f32,
+                                           f32, f32, f32, f32, ptr, ptr, i32,
+                                           ptr]
+        lib.rvpt_bigmesh_march.restype = i32
         lib._rvpt_bound = True
     return lib
+
+
+def _check_hart(htables, n_tri, nodes, p, what):
+    dev = htables.device
+    check_cuda(htables, torch.float32, "Hart tables", 9 * n_tri)
+    _check_nodes(nodes, dev)
+    if p.dim() != 2 or p.shape[0] != 3:
+        raise ValueError(f"{what}: need [3, N], got {tuple(p.shape)}")
+    check_cuda(p, torch.float32, what, device=dev)
+    if n_tri == 0:
+        raise ValueError("the big-mesh Hart kernel needs triangles")
 
 
 def _run_bigmesh_hart(htables, n_tri, nodes, p, live, count=False):
     """One launch of the big-mesh Hart kernel, or (with ``count``) of its
     counting instance -> (f32[N], int32[2, N] or None)."""
-    dev = htables.device
-    check_cuda(htables, torch.float32, "Hart tables", 9 * n_tri)
-    _check_nodes(nodes, dev)
-    if p.dim() != 2 or p.shape[0] != 3:
-        raise ValueError(f"points: need [3, N], got {tuple(p.shape)}")
-    n = p.shape[1]
-    check_cuda(p, torch.float32, "points", device=dev)
+    _check_hart(htables, n_tri, nodes, p, "points")
+    dev, n = htables.device, p.shape[1]
     check_cuda(live, torch.float32, "live", n, dev)
-    if n_tri == 0:
-        raise ValueError("the big-mesh Hart kernel needs triangles")
     lib = _bigmesh_hart_lib()
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     out_c = torch.empty((2, n), dtype=torch.int32, device=dev) if count else None
@@ -1543,11 +1573,85 @@ def launch_bigmesh_hart(htables, n_tri, nodes, p, live):
     return out
 
 
+# Margin of the march's escape ball over the mesh's bound: ten times
+# MARCH_EPS, far above any rounding of a distance.
+ESCAPE_MARGIN = 1.0
+
+
+def march_escape(nodes: torch.Tensor) -> tuple[float, float, float, float]:
+    """The escape ball of B6's march: the centre (x, y, z) of the padded
+    root box of ``nodes`` (``pack_bvh``) and the squared radius of the ball
+    around it grown by ``ESCAPE_MARGIN`` and by the f32 rounding of the
+    centre, computed in float64 on the host."""
+    lo, hi = nodes[0, :3].double().cpu(), nodes[0, 3:6].double().cpu()
+    c = (lo + hi) / 2
+    r = float(torch.linalg.vector_norm(hi - lo)) / 2
+    r += ESCAPE_MARGIN + 1e-6 * (float(c.abs().max()) + r)
+    return (*c.tolist(), r * r)
+
+
+def _run_bigmesh_march(htables, n_tri, nodes, o, d, mint, live, escape,
+                       count=False):
+    """One launch of the big-mesh Hart march, or (with ``count``) of its
+    counting instance -> (int32[N], int32[7, N] or None)."""
+    _check_hart(htables, n_tri, nodes, o, "origins")
+    dev, n = htables.device, o.shape[1]
+    check_cuda(d, torch.float32, "directions", 3 * n, dev)
+    if live is not None:
+        check_cuda(live, torch.float32, "live", n, dev)
+    if escape is None:
+        escape = march_escape(nodes)
+    lib = _bigmesh_hart_lib()
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    out_c = torch.empty((7, n), dtype=torch.int32, device=dev) if count else None
+    err = lib.rvpt_bigmesh_march(
+        htables.data_ptr(), nodes.data_ptr(), n_tri, o.data_ptr(), d.data_ptr(),
+        _ptr(live), float(mint), *escape, out.data_ptr(), _ptr(out_c), n,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, err, "big-mesh Hart march")
+    return out, out_c
+
+
+def launch_bigmesh_march(htables, n_tri, nodes, o, d, mint=0.0, live=None,
+                         escape=None):
+    """Launch the CUDA big-mesh Hart march (B6's march instance) on the
+    tables' card: rays ``o``/``d`` f32[3, N], ``live`` f32[N] (0/1) or None
+    -> int32[N] as ``bigmesh_march_plain``, the whole march in one launch.
+    ``escape`` is ``march_escape(nodes)`` (computed here when None, which
+    reads the root box back to the host).  Counts one launch in
+    ``launch_bigmesh_march.launches`` (none for no rays, which launch
+    nothing)."""
+    out, _ = _run_bigmesh_march(htables, n_tri, nodes, o, d, mint, live, escape)
+    if out.numel():
+        launch_bigmesh_march.launches += 1
+    return out
+
+
+launch_bigmesh_march.launches = 0
+
+
+def count_hart_march(htables, n_tri, nodes, o, d, mint=0.0, live=None):
+    """The march's walks' work on the card, for a bound: its counting
+    instance on rays ``o``/``d`` f32[3, N] -> (steps, a dict of the
+    warm-started walk's node box and triangle distances up to the escape
+    (the march's own work) and its walks (the steps at which it walked),
+    the cold-start walk's at every step the per-step design ran (marching
+    on past the escape: the parent's work), the steps whose two minima
+    differ, and the rays that stopped after their escape (0 unless the
+    escape test fails)), summed over the rays; ``steps`` int32[N] as
+    ``launch_bigmesh_march``'s.  Adds no launch of the march."""
+    steps, c = _run_bigmesh_march(htables, n_tri, nodes, o.contiguous(),
+                                  d.contiguous(), mint, live, None, count=True)
+    cb, ct, wb, wt, differ, late, walks = c.sum(dim=1, dtype=torch.int64).tolist()
+    return steps, {"warm_box": wb, "warm_tri": wt, "walks": walks,
+                   "cold_box": cb, "cold_tri": ct, "differ": differ, "late": late}
+
+
 def count_hart_walk(htables, n_tri, nodes, p, live):
-    """B6's walk's work on the card, for a bound: its counting instance on
-    points ``p`` f32[3, N] where ``live`` (bool[N]) -> (node box
-    distances, the root's included; triangle distances), summed over the
-    points.  Adds no launch of B6."""
+    """B6's per-step walk's work on the card, for a bound: its counting
+    instance on points ``p`` f32[3, N] where ``live`` (bool[N]) -> (node
+    box distances, the root's included; triangle distances), summed over
+    the points.  Adds no launch of B6."""
     _, c = _run_bigmesh_hart(htables, n_tri, nodes, p.contiguous(),
                              live.to(torch.float32).contiguous(), count=True)
     box, tri = c.sum(dim=1, dtype=torch.int64).tolist()
@@ -1746,8 +1850,9 @@ class BigMeshTracer(nn.Module):
       B5's search-only instance (``search``) for every search, with the
       finalize and shading of the small-scene kernels running between
       launches as plain PyTorch (``_primary_finalize``, ``_shade_plain``);
-    * ``trace_hart``: the 32-step march in PyTorch, each step's scene
-      distance one launch of B6 (``distance``).
+    * ``trace_hart``: the whole 32-step march in one launch of B6's march
+      instance; ``distance`` is one step's scene distance (B6's per-step
+      instance).
 
     On a scene on the CPU every launch is its plain version.  Not ported:
     the TPU kernels' chunk streams, work lists and wavefront sorts, which
@@ -1764,6 +1869,7 @@ class BigMeshTracer(nn.Module):
         self.register_buffer("nodes", pack_bvh(scene))
         htables, self.hart_count = pack_hart(scene)
         self.register_buffer("hart_tables", htables)
+        self.escape = march_escape(self.nodes)
         self.mint = float(mint)
 
     @property
@@ -1884,20 +1990,19 @@ class BigMeshTracer(nn.Module):
 
     def trace_hart(self, pixel, origin, direction, *, mint=0.0):
         """The Hart heat map -> f32[3, N] (:3237): MARCH_ITER steps of the
-        scene distance (``distance``), stopping below MARCH_EPS; the value
-        is the step of the stop times 1/(MARCH_ITER-1), 32/31 where the
-        march never stopped.  ``pixel`` is unused (no random draws)."""
+        scene distance, stopping below MARCH_EPS, in one launch of B6's
+        march instance (``bigmesh_march_plain`` on the CPU); the value is
+        the step of the stop times 1/(MARCH_ITER-1), 32/31 where the march
+        never stopped.  ``pixel`` is unused (no random draws)."""
+        o = origin.T.contiguous()
         d = direction.T.contiguous()
-        p = origin.T + mint * d
-        iters = torch.full_like(p[0], MARCH_ITER, dtype=torch.int32)
-        done = torch.zeros_like(p[0], dtype=torch.bool)
-        for i in range(MARCH_ITER):
-            dist = self.distance(p, ~done)
-            stop = dist < MARCH_EPS
-            iters = torch.where(~done & stop, i, iters)
-            adv = ~done & ~stop
-            p = torch.where(adv, p + dist * d, p)
-            done = done | stop
+        iters = _on_device(
+            self.tables.device,
+            lambda: launch_bigmesh_march(self.hart_tables, self.hart_count,
+                                         self.nodes, o, d, mint,
+                                         escape=self.escape),
+            lambda: bigmesh_march_plain(self.hart_tables, self.hart_count, o, d,
+                                        mint))
         val = iters.to(torch.float32) * (1.0 / (MARCH_ITER - 1))
         return torch.stack([val, val, val])
 

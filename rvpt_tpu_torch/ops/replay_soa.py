@@ -112,9 +112,10 @@ launch_gather.launches = 0
 
 def launch_segsum(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tensor:
     """Launch the CUDA segment sum on ``g``'s card -> f32[C, T], as
-    ``segsum_plain``: summed in float64 (by atomics, in no fixed order)
-    into a scratch this wrapper allocates, then rounded to f32.  Counts one
-    launch in ``launch_segsum.launches``."""
+    ``segsum_plain``: each block of 4,096 rays sums into a table of rows
+    in shared memory (``csrc/replay_lookup.cu``), then into a float64
+    scratch this wrapper allocates, by atomics in no fixed order; then
+    rounded to f32.  Counts one launch in ``launch_segsum.launches``."""
     if g.dim() != 2:
         raise ValueError(f"g: need [C, N], got {tuple(g.shape)}")
     check_cuda(g, torch.float32, "g")

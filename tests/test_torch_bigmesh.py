@@ -161,6 +161,82 @@ def test_bigmesh_hart_matches_jax(soup):
     assert share >= 0.99, f"only {share:.4%} of channels match"
 
 
+def _march_rays(ts, o, d):
+    """The soup's camera rays, then rays whose origins lie on a triangle's
+    centroid or 0.05 off it along +z (within MARCH_EPS of the mesh), each
+    pointing somewhere."""
+    k = torch.arange(0, ts.num_triangles, 97)
+    cen = (ts.tri_v0[k] + ts.tri_v1[k] + ts.tri_v2[k]) / 3.0
+    near = torch.cat([cen, cen + torch.tensor([0.0, 0.0, 0.05])])
+    aim = torch.nn.functional.normalize(
+        torch.from_numpy(np.random.default_rng(5).normal(size=(near.shape[0], 3))
+                         .astype(np.float32)), dim=1)
+    return torch.cat([o, near]), torch.cat([d, aim])
+
+
+@pytest.fixture(scope="module")
+def jax_march(soup):
+    """JAX BigMeshTracer.trace_hart (its per-step Pallas distance kernel in
+    interpret mode, under the soup's chunk shrink) on the rays of
+    ``_march_rays``, at mint 0 and 0.7 -> {mint: f32[N] value}."""
+    js, cam, ts, _ = soup
+    _, _, _, o, d = _rays(cam)
+    o, d = _march_rays(ts, o, d)
+    mp = pytest.MonkeyPatch()
+    for k, v in (("BIG_CHUNK_T", 1024), ("BIG_CULL_K", 16),
+                 ("BIG_CHUNK_CLU", 1024 // 16),
+                 ("BIG_CHUNK_SUP", 1024 // 16 // jpk.CULL_G)):
+        mp.setattr(jpk, k, v)
+    try:
+        bt = jpk.BigMeshTracer(js)
+        pix = jnp.arange(o.shape[0], dtype=jnp.uint32)
+        return {mint: np.asarray(bt.trace_hart(pix, jnp.asarray(o.numpy()),
+                                               jnp.asarray(d.numpy()), mint=mint,
+                                               interpret=True)[0])
+                for mint in (0.0, 0.7)}
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize("mint", [0.0, 0.7])
+def test_bigmesh_march_plain_matches_jax_trace_hart(soup, jax_march, mint):
+    """bigmesh_march_plain, the CPU route of BigMeshTracer.trace_hart,
+    against JAX's BigMeshTracer.trace_hart on the soup's camera rays and on
+    origins within MARCH_EPS of a triangle (they stop at step 0 when mint
+    is 0), by the Hart bar (>= 99% within 1e-4)."""
+    _, cam, ts, _ = soup
+    _, _, pix, o, d = _rays(cam)
+    o, d = _march_rays(ts, o, d)
+    bt = tpk.BigMeshTracer(ts)
+    steps = tpk.bigmesh_march_plain(bt.hart_tables, bt.hart_count, o.T.contiguous(),
+                                    d.T.contiguous(), mint)
+    got = bt.trace_hart(torch.arange(o.shape[0]), o, d, mint=mint)
+    assert torch.equal(got[0], steps.to(torch.float32) * (1.0 / (tpk.MARCH_ITER - 1)))
+    share = _share(got[0].numpy(), jax_march[mint])
+    assert share >= 0.99, f"only {share:.4%} of rays match"
+    n_near = 2 * len(range(0, ts.num_triangles, 97))
+    if mint == 0.0:
+        assert (steps[-n_near:] == 0).all()
+    assert (steps < tpk.MARCH_ITER).any() and (steps == tpk.MARCH_ITER).any()
+
+
+def test_bigmesh_march_plain_dead_lanes_and_empty(soup):
+    """A lane outside ``live`` writes MARCH_ITER and the live lanes march
+    as without the mask; no rays give an empty result."""
+    _, cam, ts, _ = soup
+    _, _, _, o, d = _rays(cam)
+    bt = tpk.BigMeshTracer(ts)
+    o3, d3 = o.T.contiguous(), d.T.contiguous()
+    live = torch.arange(o.shape[0]) % 3 != 0
+    every = tpk.bigmesh_march_plain(bt.hart_tables, bt.hart_count, o3, d3)
+    got = tpk.bigmesh_march_plain(bt.hart_tables, bt.hart_count, o3, d3, live=live)
+    assert torch.equal(got[live], every[live])
+    assert (got[~live] == tpk.MARCH_ITER).all()
+    empty = tpk.bigmesh_march_plain(bt.hart_tables, bt.hart_count,
+                                    torch.zeros(3, 0), torch.zeros(3, 0))
+    assert empty.shape == (0,) and empty.dtype == torch.int32
+
+
 def test_bigmesh_search_misses_and_dead_lanes(soup):
     """search: fam -1 and t 3e38 on rays that miss everything and on every
     lane that is not live; the bounce passes dead lanes through exactly."""
@@ -369,3 +445,35 @@ def test_walk_counts_need_the_card():
     with pytest.raises(ValueError, match="CUDA"):
         tpk.count_hart_walk(bt.hart_tables, bt.hart_count, bt.nodes,
                             torch.zeros(3, 8), live)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpk.count_hart_march(bt.hart_tables, bt.hart_count, bt.nodes,
+                             torch.zeros(3, 8), torch.zeros(3, 8))
+
+
+def test_march_escape_ball_bounds_the_mesh(soup):
+    """B6's escape ball holds every vertex with ESCAPE_MARGIN to spare,
+    and its radius is the padded root box's half diagonal plus that
+    margin, to within the slack for the centre's rounding."""
+    _, _, ts, _ = soup
+    bt = tpk.BigMeshTracer(ts)
+    cx, cy, cz, r2 = tpk.march_escape(bt.nodes)
+    assert bt.escape == (cx, cy, cz, r2)
+    c = torch.tensor([cx, cy, cz], dtype=torch.float64)
+    v = torch.cat([ts.tri_v0, ts.tri_v1, ts.tri_v2]).double()
+    far = float(torch.linalg.vector_norm(v - c, dim=1).max())
+    assert far + tpk.ESCAPE_MARGIN <= r2 ** 0.5
+    lo, hi = bt.nodes[0, :3].double(), bt.nodes[0, 3:6].double()
+    half = float(torch.linalg.vector_norm(hi - lo)) / 2
+    assert r2 ** 0.5 == pytest.approx(half + tpk.ESCAPE_MARGIN, rel=1e-5)
+
+
+def test_march_launcher_refuses_cpu_tensors():
+    """launch_bigmesh_march, B6's march instance, takes CUDA tensors only
+    (a CPU tensor goes to bigmesh_march_plain through trace_hart)."""
+    ts, _ = tbuiltin.mesh_demo(3, aspect=1.0, device="cpu")
+    bt = tpk.BigMeshTracer(ts)
+    before = tpk.launch_bigmesh_march.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tpk.launch_bigmesh_march(bt.hart_tables, bt.hart_count, bt.nodes,
+                                 torch.zeros(3, 8), torch.zeros(3, 8))
+    assert tpk.launch_bigmesh_march.launches == before

@@ -752,6 +752,156 @@ def test_soup_bigmesh_kernels_match_plain(dev):
     assert _share(got[live], want[live]) >= 0.99
 
 
+def _caterpillar(depth, dev):
+    """A BVH scene whose tree is a chain of ``depth`` interior nodes (the
+    deepest pack_bvh takes at depth BVH_STACK - 1): interior node k holds
+    leaf k (triangle k, at x = k) and interior node k + 1 (triangles k..),
+    the last one two leaves.  Triangles are in leaf order."""
+    from rvpt_tpu_torch.scene.bvh import Bvh
+
+    b = SceneBuilder()
+    mat = b.add_material(albedo=(0.5, 0.5, 0.5))
+    for k in range(depth + 1):
+        x = float(k)
+        b.add_triangle((x, 0.0, 0.0), (x + 0.5, 0.0, 0.0), (x, 0.5, 0.2), mat)
+    scene = b.build(dev)
+    lo = torch.minimum(torch.minimum(scene.tri_v0, scene.tri_v1), scene.tri_v2)
+    hi = torch.maximum(torch.maximum(scene.tri_v0, scene.tri_v1), scene.tri_v2)
+    first, count, bmin, bmax = [], [], [], []
+    for k in range(depth):  # interior k at 2k, leaf k at 2k + 1
+        first += [2 * k + 1, k]
+        count += [0, 1]
+        bmin += [lo[k:].min(dim=0).values, lo[k]]
+        bmax += [hi[k:].max(dim=0).values, hi[k]]
+    first.append(depth)
+    count.append(1)
+    bmin.append(lo[depth])
+    bmax.append(hi[depth])
+    i32 = dict(dtype=torch.int32, device=dev)
+    bvh = Bvh(torch.tensor(first, **i32), torch.tensor(count, **i32),
+              torch.stack(bmin), torch.stack(bmax), max_leaf=1, depth=depth)
+    return dataclasses.replace(scene, bvh=bvh)
+
+
+def _march_rays(scene, n_cam, dev, seed=3):
+    """Rays for the march: ``n_cam`` from a point above the mesh toward
+    random points of its box; then from each 97th triangle's centroid and
+    from 0.05 off it (within MARCH_EPS: they stop at step 0 without mint),
+    and from far out pointing away (they never stop)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    lo = torch.minimum(torch.minimum(scene.tri_v0, scene.tri_v1), scene.tri_v2)
+    hi = torch.maximum(torch.maximum(scene.tri_v0, scene.tri_v1), scene.tri_v2)
+    lo, hi = lo.min(dim=0).values, hi.max(dim=0).values
+    u = torch.from_numpy(r.uniform(size=(n_cam, 3)).astype(np.float32)).to(dev)
+    target = lo + u * (hi - lo)
+    eye = (lo + hi) / 2 + torch.tensor([0.3, 1.0, -2.0], device=dev) * (hi - lo).norm()
+    k = torch.arange(0, scene.num_triangles, 97, device=dev)
+    cen = (scene.tri_v0[k] + scene.tri_v1[k] + scene.tri_v2[k]) / 3.0
+    near = torch.cat([cen, cen + torch.tensor([0.0, 0.0, 0.05], device=dev)])
+    far = (hi + 50.0 * (hi - lo).norm()).expand(64, 3)
+    o = torch.cat([eye.expand(n_cam, 3), near, far])
+    aim = torch.from_numpy(r.normal(size=(near.shape[0], 3)).astype(np.float32)).to(dev)
+    d = torch.cat([target - eye, aim, torch.ones(64, 3, device=dev)])
+    d = torch.nn.functional.normalize(d, dim=1)
+    return o.T.contiguous(), d.T.contiguous(), near.shape[0]
+
+
+@pytest.mark.parametrize("mint", [0.0, 1.5])
+@pytest.mark.parametrize("scene_name", ["mesh_demo3", "soup", "caterpillar"])
+def test_bigmesh_march_matches_plain(dev, scene_name, mint):
+    """B6's march instance, the whole Hart march in one launch, against
+    bigmesh_march_plain: camera-like rays, lanes dead from the start, rays
+    from on or next to a triangle (inside its padded boxes; step 0 without
+    mint), rays that never stop, mint > 0, and the deepest tree pack_bvh
+    takes; >= 99% of rays on the plain version's step (the B6 bar), one
+    launch counted."""
+    cfg = FilmConfig(width=320, height=180)
+    if scene_name == "mesh_demo3":
+        scene, _ = _mesh("mesh_demo3", cfg, dev)
+    elif scene_name == "soup":
+        scene, _ = _mixed_soup(1500, dev)
+    else:
+        scene = _caterpillar(tpk.BVH_STACK - 1, dev)
+    bt = tpk.BigMeshTracer(scene)
+    o, d, n_near = _march_rays(scene, 4000, dev)
+    n = o.shape[1]
+    live = torch.arange(n, device=dev) % 5 != 1
+    before = tpk.launch_bigmesh_march.launches
+    got = tpk.launch_bigmesh_march(bt.hart_tables, bt.hart_count, bt.nodes, o, d,
+                                   mint, live.to(torch.float32))
+    every = tpk.launch_bigmesh_march(bt.hart_tables, bt.hart_count, bt.nodes, o, d,
+                                     mint)
+    want = tpk.bigmesh_march_plain(bt.hart_tables, bt.hart_count, o, d, mint, live)
+    want_every = tpk.bigmesh_march_plain(bt.hart_tables, bt.hart_count, o, d, mint)
+    torch.cuda.synchronize()
+    assert tpk.launch_bigmesh_march.launches == before + 2
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    for a, b in ((got, want), (every, want_every)):
+        share = (a == b).float().mean().item()
+        assert share >= 0.99, f"only {share:.4%} of rays on the plain step"
+    assert (got[~live] == tpk.MARCH_ITER).all()
+    assert (every[-64:] == tpk.MARCH_ITER).all()
+    if mint == 0.0:
+        assert (every[n - 64 - n_near:n - 64] == 0).all()
+    assert (every < tpk.MARCH_ITER).any()
+
+
+def test_bigmesh_march_empty_and_trace_hart(dev):
+    """No rays launch nothing; trace_hart on the card is the march's steps
+    times 1/(MARCH_ITER - 1), in one launch."""
+    cfg = FilmConfig(width=160, height=90)
+    scene, cam = _mesh("mesh_demo3", cfg, dev)
+    bt = tpk.BigMeshTracer(scene)
+    empty = torch.zeros(3, 0, device=dev)
+    before = tpk.launch_bigmesh_march.launches
+    out = tpk.launch_bigmesh_march(bt.hart_tables, bt.hart_count, bt.nodes, empty,
+                                   empty)
+    assert out.shape == (0,) and tpk.launch_bigmesh_march.launches == before
+    pixel, ray = _bigmesh_rays(scene, cam, cfg, dev)
+    val = bt.trace_hart(pixel, ray.origin, ray.direction)
+    steps = tpk.launch_bigmesh_march(bt.hart_tables, bt.hart_count, bt.nodes,
+                                     ray.origin.T.contiguous(),
+                                     ray.direction.T.contiguous())
+    assert tpk.launch_bigmesh_march.launches == before + 2
+    assert torch.equal(val[0], steps.to(torch.float32) * (1.0 / (tpk.MARCH_ITER - 1)))
+
+
+def test_march_counting_instance(dev):
+    """count_hart_march: the steps of the march, the warm-started walk's
+    tests (up to each ray's escape) no more than the cold walk's (every
+    step), its walks k + 1 for a ray that stops at step k and at most
+    MARCH_ITER for one that does not, no ray that stops after its escape,
+    the cold walk at step 0 within count_hart_walk's, and no launch
+    counted."""
+    cfg = FilmConfig(width=160, height=90)
+    scene, cam = _mesh("mesh_demo3", cfg, dev)
+    bt = tpk.BigMeshTracer(scene)
+    _, ray = _bigmesh_rays(scene, cam, cfg, dev)
+    o, d = ray.origin.T.contiguous(), ray.direction.T.contiguous()
+    launches = tpk.launch_bigmesh_march.launches
+    steps, work = tpk.count_hart_march(bt.hart_tables, bt.hart_count, bt.nodes, o, d)
+    want = tpk.launch_bigmesh_march(bt.hart_tables, bt.hart_count, bt.nodes, o, d)
+    assert torch.equal(steps, want)
+    assert tpk.launch_bigmesh_march.launches == launches + 1
+    assert 0 < work["warm_box"] < work["cold_box"]
+    assert 0 < work["warm_tri"] <= work["cold_tri"]
+    assert work["late"] == 0  # no ray stops after its escape
+    ran = steps.long() + 1
+    stopped = steps < tpk.MARCH_ITER
+    assert int(ran[stopped].sum()) <= work["walks"]
+    assert work["walks"] <= int(ran.clamp(max=tpk.MARCH_ITER).sum())
+    _, one = tpk.count_hart_march(bt.hart_tables, bt.hart_count, bt.nodes, o, d,
+                                  live=(torch.arange(o.shape[1], device=dev) < 0)
+                                  .to(torch.float32))
+    assert one == dict.fromkeys(work, 0)
+    # One step: the cold walk of the march's first step is count_hart_walk's.
+    live = torch.ones(o.shape[1], dtype=torch.bool, device=dev)
+    box, tri = tpk.count_hart_walk(bt.hart_tables, bt.hart_count, bt.nodes, o, live)
+    assert box <= work["cold_box"] and tri <= work["cold_tri"]
+
+
 def test_walk_counting_instances(dev):
     """count_bvh_walk and count_hart_walk, the kernels' counting instances
     for the bounds: no work on lanes that are not live, at least the root
@@ -790,8 +940,9 @@ def test_walk_counting_instances(dev):
 @pytest.mark.parametrize("mode", [9, 3, 5, 7, 8, 10])
 def test_bigmesh_draw_launches_and_matches_cpu(dev, mode, monkeypatch):
     """Renderer.draw on mesh_demo(3): Kajiya launches B5 once per bounce,
-    Hart B6 once per march step; no plain version runs on the card; the
-    film agrees with the CPU's plain route of the same frame."""
+    Hart B6's march once per frame (and its per-step instance never); no
+    plain version runs on the card; the film agrees with the CPU's plain
+    route of the same frame."""
     from rvpt_tpu_torch.renderer import Renderer
 
     def refuse(*a, **k):
@@ -805,19 +956,22 @@ def test_bigmesh_draw_launches_and_matches_cpu(dev, mode, monkeypatch):
     cpu_scene, cpu_cam = _mesh("mesh_demo3", cfg, "cpu")
     want = render_sample_fast_chw(cpu_scene, cpu_cam, st, cfg, 0)
     for name in ("bigmesh_bounce_plain", "bigmesh_search_plain",
-                 "bigmesh_distance_plain", "trace_plain", "primary_plain"):
+                 "bigmesh_distance_plain", "bigmesh_march_plain", "trace_plain",
+                 "primary_plain"):
         monkeypatch.setattr(tpk, name, refuse)
-    counts = (tpk.launch_bigmesh_kernel.launches, tpk.launch_bigmesh_hart.launches)
+    counters = (tpk.launch_bigmesh_kernel, tpk.launch_bigmesh_hart,
+                tpk.launch_bigmesh_march)
+    counts = [k.launches for k in counters]
     r = Renderer(scene, cam, st, cfg)
     assert isinstance(r.tracer, tpk.BigMeshTracer)
     img = r.draw()
     r.flush()
-    b5 = tpk.launch_bigmesh_kernel.launches - counts[0]
-    b6 = tpk.launch_bigmesh_hart.launches - counts[1]
+    b5, b6_step, b6 = (k.launches - c for k, c in zip(counters, counts))
+    assert b6_step == 0
     if mode == 9:
         assert (b5, b6) == (3, 0)
     elif mode == 10:
-        assert (b5, b6) == (0, tpk.MARCH_ITER)
+        assert (b5, b6) == (0, 1)
     else:
         assert b5 >= 1 and b6 == 0
     share = _share(img.cpu(), want)
@@ -913,6 +1067,105 @@ def test_replay_lookup_group_on_the_card(dev):
     empty = torch.zeros(0, dtype=torch.int32, device=dev)
     assert trs.gather(tabs, empty).shape == (5, 0)
     assert not trs.segsum(empty, torch.zeros(5, 0, device=dev), 5597).any()
+
+
+# The segment sum's blocks (csrc/replay_lookup.cu): SEG_RAYS rays each, a
+# table of SEG_SLOTS rows while C <= 14; C = NO_TABLE columns of float64
+# sums do not fit one row in SEG_SMEM, and ONE_SLOT fit exactly one.
+SEG_RAYS, SEG_SLOTS = 4096, 1024
+NO_TABLE, ONE_SLOT = 14_464, 14_463
+
+
+def _segsum_ids(case, n, t_rows, dev):
+    import numpy as np
+
+    r = np.random.default_rng(13)
+    ray = np.arange(n, dtype=np.int64)
+    if case == "one_row":
+        idx = np.full(n, t_rows // 2)
+    elif case == "distinct":
+        idx = r.permutation(t_rows)[:n]
+    elif case == "out_of_range":
+        idx = r.integers(-50, t_rows + 50, n)
+    elif case in ("span_in", "span_out"):
+        # each block's chunk spans exactly SEG_SLOTS rows (no two collide
+        # in its table) or one more (two share a slot)
+        span = SEG_SLOTS + (case == "span_out")
+        idx = (ray // SEG_RAYS) * 3 * span + ray % span
+    elif case == "overflow":  # more rows per chunk than the table holds
+        idx = (ray // SEG_RAYS) * 50 * SEG_SLOTS + r.integers(0, 50 * SEG_SLOTS, n)
+    else:
+        idx = r.integers(0, t_rows, n)
+    return torch.from_numpy(idx.astype(np.int32) % np.int32(t_rows)
+                            if case not in ("out_of_range",) else
+                            idx.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("case,n_col,t_rows,n", [
+    ("one_row", 9, 50, 100_003),
+    ("distinct", 9, 70_000, 70_000),
+    ("out_of_range", 9, 5000, 300_001),
+    ("span_in", 9, 500_000, 300_000),
+    ("span_out", 9, 500_000, 300_000),
+    ("overflow", 9, 2_000_000, 300_000),
+    ("random", NO_TABLE, 300, 5000),
+    ("random", ONE_SLOT, 300, 5000),
+    ("random", 1, 5000, 300_000),
+    ("random", 10, 5000, 300_000),
+    ("random", 17, 5000, 300_000),
+    ("one_row", 9, 1, 50_000),
+    ("random", 9, 140_000, 2_073_600),
+    ("random", 9, 5000, 0),
+])
+def test_segsum_block_table_matches_plain(dev, case, n_col, t_rows, n):
+    """B7's segment sum (block tables in shared memory) against
+    segsum_plain's float64 sum of the in-range ids, within rtol 1e-5, atol
+    1e-5 (g of scale 1), twice: every id on one row, every id distinct, ids
+    out of range, a chunk span just inside and just outside the table, more
+    rows per chunk than it holds, so many columns that no table fits or
+    one row does, C = 1, 10 and 17 (more columns than one register pass),
+    T = 1, T > 131,072, n = 0."""
+    import numpy as np
+
+    from rvpt_tpu_torch.ops import replay_soa as trs
+
+    idx = _segsum_ids(case, n, t_rows, dev)
+    g = torch.from_numpy(np.random.default_rng(n_col).standard_normal((n_col, n))
+                         .astype(np.float32)).to(dev)
+    before = trs.launch_segsum.launches
+    s1 = trs.launch_segsum(idx, g, t_rows)
+    s2 = trs.launch_segsum(idx, g, t_rows)
+    ok = (idx >= 0) & (idx < t_rows)
+    ref = trs.segsum_plain(idx[ok], g[:, ok].contiguous(), t_rows)
+    torch.cuda.synchronize()
+    assert trs.launch_segsum.launches == before + 2
+    assert s1.shape == (n_col, t_rows) and s1.dtype == torch.float32
+    torch.testing.assert_close(s1, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s2, ref, rtol=1e-5, atol=1e-5)
+    if n and case != "out_of_range":
+        assert ref.abs().max() > 0
+    if case == "out_of_range":
+        assert not ok.all() and ok.any()
+
+
+@pytest.mark.parametrize("n", [1, SEG_RAYS - 1, SEG_RAYS + 1, 1_000_003])
+def test_segsum_partial_blocks(dev, n):
+    """A last block of fewer than SEG_RAYS rays (and a partial last round
+    of the block's threads) gives the float64 sum."""
+    import numpy as np
+
+    from rvpt_tpu_torch.ops import replay_soa as trs
+
+    t_rows = 140_000
+    base = np.arange(n, dtype=np.int64) * t_rows // n
+    r = np.random.default_rng(n)
+    idx = torch.from_numpy(np.clip(base + r.integers(-300, 300, n), 0, t_rows - 1)
+                           .astype(np.int32)).to(dev)
+    g = torch.from_numpy(r.standard_normal((9, n)).astype(np.float32)).to(dev)
+    got = trs.launch_segsum(idx, g, t_rows)
+    ref = trs.segsum_plain(idx, g, t_rows)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_soup_bvh_form_records_match_plain(dev):

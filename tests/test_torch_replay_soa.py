@@ -267,6 +267,37 @@ def test_huge_table_lookup_matches_numpy():
     assert not trs.segsum(empty, torch.zeros(c, 0), t_rows).any()
 
 
+@pytest.mark.parametrize("case,n_col,t_rows,n", [
+    ("one_row", 9, 50, 5000),
+    ("distinct", 9, 3000, 3000),
+    ("window", 9, 20482, 9000),
+    ("random", 1, 700, 5000),
+    ("random", 10, 700, 5000),
+    ("one_row", 9, 1, 5000),
+    ("random", 9, 700, 0),
+])
+def test_segsum_cases_match_numpy(case, n_col, t_rows, n):
+    """The segment sum's CPU route (segsum_plain) on the inputs its kernel's
+    card tests use: every id on one row, every id distinct, ids in a
+    sliding window of rows, C = 1 and 10, T = 1, n = 0; against np.add.at
+    in float64."""
+    r = np.random.default_rng(n_col * 1000 + n)
+    if case == "one_row":
+        idx = np.full(n, t_rows // 2)
+    elif case == "distinct":
+        idx = r.permutation(t_rows)[:n]
+    elif case == "window":
+        idx = np.arange(n) * (t_rows - 600) // n + r.integers(0, 600, n)
+    else:
+        idx = r.integers(0, t_rows, n)
+    idx = idx.astype(np.int32)
+    g = r.standard_normal((n_col, n)).astype(np.float32)
+    got = trs.segsum(torch.from_numpy(idx), torch.from_numpy(g), t_rows)
+    assert got.shape == (n_col, t_rows) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _add_at(idx, g, t_rows), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_lookup_launchers_refuse_cpu_tensors():
     tabs = torch.zeros(2, 100)
     idx = torch.zeros(8, dtype=torch.int32)
