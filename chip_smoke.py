@@ -31,7 +31,9 @@ Phases, each of which raises on failure:
    units of g's scale, >= 99.5% within rtol 1e-4, atol 1e-6, over all
    entries and over those the plain version makes non-zero (at least 0.1%
    of them); the 24 table columns within rtol 1e-3, atol 1e-7 (f32 sums of
-   2M terms in other orders);
+   2M terms in other orders); timed beside its bound (the record's slots
+   counted by kind: dead, miss, triangle, sphere or plane hit, dielectric),
+   with the distinct family and material rows per warp at each bounce;
 8. B8 against closest_hit_triangles on 1080p camera rays and bounced rays:
    index equal on >= 99.9%, t within rtol 1e-5 where they agree;
 9. the headline step (bench.py:63-90 on the port): value and gradient of
@@ -50,16 +52,21 @@ Phases, each of which raises on failure:
 11. the other integrators' kernels against their plain versions on the
    1080p Cornell box, camera rays made in the kernels: B3 in modes 0-6 (AO
    with 4 probes) and K1's Whitted and Cook forms (4 bounces, standard),
-   >= 99.5% of pixel channels within 1e-4, and B4, >= 99%; each timed
-   with CUDA events (the plain version over 1-2 iterations) beside its
-   bound;
+   >= 99.5% of pixel channels within 1e-4; each timed with CUDA events
+   (the plain version over 1-2 iterations) beside its bound; B4 bit for bit
+   on the 1080p Cornell box, rabbit at 1024x512 and a 600-triangle soup
+   (two staged chunks; every 8th row), its counting instance
+   (count_hart_sweep) with the same film, no skipped triangle below the
+   running minimum and no stop after an escape, timed beside the bound of
+   its own work and the parent's full sweep; sphere_plane 32/31;
 12. goldens, for the record: the kernel route against the 10 analytic
    goldens of the other integrators (printed, not asserted, as phase 4);
 13. this slice's main path: one split frame (AO, Whitted, Hart, Kajiya) of
    render_sample_fast_chw at 1920x1080 against the plain versions of its
    quadrants' kernels on the same pixel ids (B3 and K1 >= 99.5% of
-   channels within 1e-4, B4 >= 99%; the quadrants must reproduce
-   _mode_masks), then Renderer.draw x16 with that split-screen, 4
+   channels within 1e-4, B4 bit for bit; the quadrants must reproduce
+   _mode_masks), each quadrant's kernel pass timed on its pixel ids
+   (CUDA events), then Renderer.draw x16 with that split-screen, 4
    bounces, standard: the
    launch counts are zeroed before it and read after it, and must show one
    B3, one B4 and two K1 launches per frame; the film is finite and not
@@ -201,7 +208,16 @@ def cuda_ms(fn, iters):
 # winner's geometry and shading recomputed plus their adjoint.
 OPS_TRI, OPS_SPH, OPS_PLN = 53, 40, 15
 OPS_SHADE, OPS_PCG, OPS_CAMERA = 120, 33, 69
-OPS_BWD_BOUNCE = 300
+# K2 per slot of the record, by kind of lane (csrc/bwd_kernel.cu, counted
+# from its code): a dead slot tests its active flag (1); a miss adds the
+# sky's pullback (28); a hit recomputes its winner's t and normal
+# (triangle 33, sphere 46, plane 16) and the shading's forward (44), runs
+# the shading's reverse for a Lambert or mirror hit (93) and the
+# geometry's (triangle 89, sphere 87, plane 46), and tests its two row
+# gradients for the warp's row groups (16); a dielectric hit adds the
+# Fresnel draw and the refraction's reverse (96).
+OPS_BWD = {"dead": 1, "miss": 28, "tri": 33 + 89, "sph": 46 + 87, "pln": 16 + 46}
+OPS_BWD_HIT, OPS_BWD_GLASS = 44 + 93 + 16, 96
 # K1 per lane that does not scatter: a Whitted Lambert hit (emission 6,
 # hit point 6, normal and view normalized 20, facing 10, shadow origin 6,
 # the shadowed sum 3; its shadow search is counted as a search), and a
@@ -220,6 +236,20 @@ OPS_LAMBERT, OPS_END = 51, 9
 OPS_FINALIZE = {0: 11, 1: 11, 2: 20, 3: 20, 4: 33, 5: 44, 6: 49}
 OPS_PROBE = 16
 OPS_HART_TRI, OPS_HART_STEP = 92, 8
+# B4's full distance on its edge branch as the parent computed it: the
+# face branch's set-up and signs (78) and three clamped edge distances
+# (|e|^2 6, projection 8, residual and its square 11: 75), and the min.
+OPS_HART_TRI_EDGE = 156
+# B4 since its redesign, per unit of work its counting instance counts:
+# a skip test, its plane half (p - a, dn, the bound and its test: 13) and
+# sphere half (11); a full distance from the staged invariants on the face
+# branch (p - b, p - c, three signs and their test, dn^2 / |nor|^2: 32) or
+# the edge branch (the signs 30, three edge distances 57, the min 2); a
+# warm seed's p - a and dn (8); per live ray-step of its own the escape
+# test (15), the reach of the minimum (9), the square root, stop test and
+# advance (8).
+OPS_HART_TEST, OPS_HART_SPHERE = 13, 11
+OPS_HART_FACE, OPS_HART_EDGE, OPS_HART_SEED, OPS_HART_OWN_STEP = 32, 89, 8, 32
 # The BVH walk (csrc/bvh_search.cuh) per search: the reciprocal direction
 # (9); per node slab test: 6 differences, 6 products, the entry's 6 and the
 # exit's 5 min/max, the two tests (25); per triangle the metric-tensor test
@@ -334,6 +364,61 @@ def row_stats(idx, g):
             span = (hi - lo + 1)[ok].double()
             out[f"span_mean_{tag}"] = round(span.mean().item(), 1)
             out[f"span_max_{tag}"] = int(span.max().item())
+    return out
+
+
+def k2_work(tables, counts, rec):
+    """K2's slots of the record ``rec`` by kind (pack_bwd ``tables``): dead,
+    miss, a triangle, sphere or plane hit, and the hits on a dielectric."""
+    import torch
+
+    from rvpt_tpu_torch.ops import pathkernel as pk
+
+    live = rec.fields[:, 12] > 0.0
+    fam, idx = rec.hits[:, 0].long(), rec.hits[:, 1].long()
+    rows = pk._split_rows(tables, counts, pk.BWD_WIDTHS)
+    kind = rows[3][:, 7]
+    mat = torch.zeros_like(idx)
+    for f in range(3):
+        if counts[f]:
+            on = fam == f
+            mat = torch.where(on, rows[f][idx.clamp(0, counts[f] - 1), -1].long(), mat)
+    hit = live & (fam >= 0)
+    glass = hit & (kind[mat.clamp(0, counts[3] - 1)] == 2.0)
+    out = {"dead": int((~live).sum()), "miss": int((live & (fam < 0)).sum()),
+           "glass": int(glass.sum())}
+    for f, name in enumerate(("tri", "sph", "pln")):
+        out[name] = int((hit & (fam == f)).sum())
+    return out, fam, idx, mat, hit
+
+
+def k2_ops(work):
+    """K2's operations on a record's slots counted by ``k2_work``."""
+    hits = work["tri"] + work["sph"] + work["pln"]
+    return (sum(OPS_BWD[k] * work[k] for k in OPS_BWD) + hits * OPS_BWD_HIT
+            + work["glass"] * OPS_BWD_GLASS)
+
+
+def k2_rows(tables, counts, rec):
+    """Per bounce: the live hits, and the mean distinct family rows and
+    material rows per warp of 32 consecutive rays among them (K2's row
+    groups), over the warps that hold any."""
+    import torch
+
+    _, fam, idx, mat, hit = k2_work(tables, counts, rec)
+    t, s = counts[0], counts[1]
+    key = idx + torch.where(fam == 1, t, 0) + torch.where(fam == 2, t + s, 0)
+    out = []
+    for b in range(fam.shape[0]):
+        n = fam.shape[1] // 32 * 32
+        line = {"hits": int(hit[b].sum())}
+        for name, k in (("rows", key[b]), ("mat_rows", mat[b])):
+            w = torch.where(hit[b, :n], k[:n], -1).view(-1, 32)
+            srt = w.sort(dim=1).values
+            distinct = 1 + (srt[:, 1:] != srt[:, :-1]).sum(dim=1) - (srt[:, 0] < 0).long()
+            any_hit = srt[:, -1] >= 0
+            line[f"{name}_per_warp"] = round(distinct[any_hit].double().mean().item(), 2)
+        out.append(line)
     return out
 
 
@@ -479,13 +564,18 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
     # The record slots K2 reads: 48 B per live ray-bounce (o, d, thr, the
     # active flag and the hit; it never reads the gathered color) and the
     # active flag (4 B) of a dead one; per ray g (12), the pixel id (8) and
-    # the o/d cotangents written (24).
+    # the o/d cotangents written (24).  Its operations by kind of slot.
+    k2w, *_ = k2_work(tables, counts, rec)
     k2_bound, k2_by = bound(live * 48 + (n * nb - live) * 4 + n * (12 + 8 + 24),
-                            live * OPS_BWD_BOUNCE)
+                            k2_ops(k2w))
+    rows = k2_rows(tables, counts, rec)
     print(f"[time] K2 {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
-          f"{k2_bound:.4f} ms by {k2_by}, kernel at {k2_bound / k2_ms:.1%} of it [{smi}]")
+          f"{k2_bound:.4f} ms by {k2_by} ({k2_ops(k2w)} operations on the slots "
+          f"{k2w}; the parent's count, 300 per live ray-bounce, "
+          f"{live * 300}), kernel at {k2_bound / k2_ms:.1%} of it; per bounce the "
+          f"live hits and distinct family and material rows per warp {rows} [{smi}]")
     out["k2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
-                     bound_ms=k2_bound, bound_by=k2_by)
+                     bound_ms=k2_bound, bound_by=k2_by, work=k2w, rows_per_bounce=rows)
 
     # ---- 8. B8 against closest_hit_triangles, camera and bounced rays
     v = (scene.tri_v0, scene.tri_v1, scene.tri_v2)
@@ -641,6 +731,87 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
     return out
 
 
+def hart_soup(dev, n_tri, cfg, seed=7):
+    """A seeded soup of n_tri triangles in front of a pinhole camera (more
+    than B4's 512-row chunk: the march restages its table every step)."""
+    import numpy as np
+
+    from rvpt_tpu_torch.models import camera as camera_mod
+    from rvpt_tpu_torch.scene.scene import SceneBuilder
+
+    r = np.random.default_rng(seed)
+    b = SceneBuilder()
+    m = b.add_material(albedo=(0.7, 0.6, 0.5))
+    size = 2.0 * (12.0 / n_tri) ** 0.5
+    for _ in range(n_tri):
+        c = r.uniform(-2, 2, 3)
+        c[2] += 4.0
+        b.add_triangle(tuple(c), tuple(c + r.normal(0, size, 3)),
+                       tuple(c + r.normal(0, size, 3)), m)
+    cam = camera_mod.Camera.create(fov=90.0, aspect=cfg.aspect, device=dev)
+    return b.build(dev), cam
+
+
+def hart_check(smi, dev, label, pt, cfg, cp, cam_mode, every=1):
+    """Phase 11's B4 check on one scene: the kernel's frame bit for bit
+    against hart_plain on the pixel ids of every ``every``-th row, its
+    counting instance's film equal to it with no skipped triangle below
+    the running minimum and no stop after an escape; its time (CUDA
+    events) beside the plain version's and beside its bound, the march's
+    own work from the counting instance (live steps to each stop or
+    escape, skip tests, full distances by branch, seeds); the parent's
+    full sweep (every triangle's full distance at every step it ran) is
+    printed beside it at peak, not as the bound."""
+    import torch
+
+    from rvpt_tpu_torch.ops import pathkernel as pk
+
+    n = cfg.num_pixels
+
+    def b4():
+        return pk.launch_hart_kernel(pt.hart_tables, pt.hart_count, None, n, 1, cp,
+                                     cam_mode, 0)
+
+    rows = torch.arange(n, device=dev).view(cfg.height, cfg.width)[::every].reshape(-1)
+
+    def b4_plain():
+        return pk.hart_plain(pt.hart_tables, pt.hart_count, rows, 1, cp, cam_mode, 0)
+
+    got, want = b4(), b4_plain()
+    counted, work = pk.count_hart_sweep(pt.hart_tables, pt.hart_count, None, n, 1,
+                                        cp, cam_mode, 0)
+    torch.cuda.synchronize()
+    close, err, same = equal_share(got[:, rows], want)
+    same_count = bool(torch.equal(counted, got))
+    ms = cuda_ms(b4, 20)
+    plain_ms = cuda_ms(b4_plain, 1)
+    own = (work["steps"] * OPS_HART_OWN_STEP + work["tests"] * OPS_HART_TEST
+           + (work["tests"] - work["plane_skips"]) * OPS_HART_SPHERE
+           + work["face"] * OPS_HART_FACE + work["edge"] * OPS_HART_EDGE
+           + work["seeds"] * OPS_HART_SEED + n * OPS_CAMERA)
+    parent = (work["parent_steps"] * OPS_HART_STEP + work["all_face"] * OPS_HART_TRI
+              + work["all_edge"] * OPS_HART_TRI_EDGE + n * OPS_CAMERA)
+    bnd, by = bound(12 * n, own)
+    parent_ms = parent / PEAK_FP32 * 1e3
+    print(f"[B4-vs-plain] Hart, {label}, {cfg.width}x{cfg.height}, {pt.hart_count} "
+          f"triangles: bit-identical to hart_plain on {rows.numel()} pixels: {same} "
+          f"({close:.6f} within 1e-4, max |err| {err:.3g}); counting instance's film "
+          f"equal: {same_count}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bnd:.4f} ms by {by} (its own work {own} operations: {work}), kernel at "
+          f"{bnd / ms:.1%} of it; the parent's full sweep {parent} operations, "
+          f"{parent_ms:.4f} ms at peak (not the bound) [{smi}]")
+    check(bool(torch.isfinite(got).all().item()), f"B4 on {label} not finite")
+    check(same, f"B4 on {label} is not bit for bit hart_plain: {close:.6f}")
+    check(same_count, f"B4's counting instance on {label} wrote another film")
+    check(work["bad"] == 0, f"B4 on {label} skipped {work['bad']} triangles below "
+          f"the running minimum")
+    check(work["late"] == 0, f"B4 on {label}: {work['late']} rays stopped after "
+          f"their escape")
+    return dict(max_abs_err=err, within_1e_4=close, bit_identical=same, ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd, bound_by=by, parent_work_ms=parent_ms,
+                work=work)
+
+
 def equal_share(got, want):
     """(share of channels within rtol/atol 1e-4, max |err|, bit-identical)
     of a kernel's film against its plain version."""
@@ -656,13 +827,16 @@ def split_frame_against_plain(smi, dev, cfg, scene, cam, split, nb):
     quadrant's pixel ids and placed into the film by those ids (not by the
     rectangle the frame writes); the quadrants must cover the film as
     _mode_masks selects it.  Bars: B3 and K1 >= 99.5% of channels within
-    1e-4, B4 >= 99%."""
+    1e-4, B4 bit for bit.  Then each quadrant's kernel pass
+    (render._trace_mode_kernel on its pixel ids) and the whole sample are
+    timed with CUDA events -> {"quadrants": {mode name: ms}, "sample_ms"}."""
     import torch
 
     from rvpt_tpu_torch.models.integrators import INTEGRATOR_NAMES
     from rvpt_tpu_torch.ops import pathkernel as pk
     from rvpt_tpu_torch.render import (_mode_masks, _pixel_grid, _rect_pixels,
-                                       _split_partition, render_sample_fast_chw)
+                                       _split_partition, _trace_mode_kernel,
+                                       render_sample_fast_chw)
 
     names = {v: k for k, v in INTEGRATOR_NAMES.items()}
     frame, salt_base = 5, 16  # AA sample 0: jitter salt 0, integrator salt 16
@@ -672,9 +846,10 @@ def split_frame_against_plain(smi, dev, cfg, scene, cam, split, nb):
                                  cam_params=cp).reshape(3, -1)
     _, xs, ys = _pixel_grid(cfg, dev)
     part = torch.full((cfg.num_pixels,), -1, dtype=torch.int64, device=dev)
-    lines = []
+    lines, quads = [], {}
     for m, rect in _split_partition(cfg, split):
         pix = _rect_pixels(*rect, cfg.width, dev)
+        quads[names[m]] = (m, pix)
         part[pix] = m
         if m == 10:
             want, bar = pk.hart_plain(pt.hart_tables, pt.hart_count, pix, frame,
@@ -690,10 +865,11 @@ def split_frame_against_plain(smi, dev, cfg, scene, cam, split, nb):
                                        cam_mode=cam.mode, jitter_salt=0,
                                        integ=integ), 0.995
         close, err, same = equal_share(got[:, pix], want)
-        lines.append(f"{names[m]} {rect}: {close:.6f} within 1e-4 (bar {bar}), max "
-                     f"|err| {err:.3g}, bit-identical: {same}")
-        check(close >= bar, f"split quadrant {names[m]} {rect} disagrees with "
-              f"plain: {close:.6f}")
+        lines.append(f"{names[m]} {rect}: {close:.6f} within 1e-4 (bar "
+                     f"{'bit for bit' if m == 10 else bar}), max |err| {err:.3g}, "
+                     f"bit-identical: {same}")
+        check(same if m == 10 else close >= bar, f"split quadrant {names[m]} "
+              f"{rect} disagrees with plain: {close:.6f}, bit-identical {same}")
     covered = torch.equal(part, _mode_masks(split, xs, ys, cfg).to(torch.int64))
     print(f"[split-vs-plain] render_sample_fast_chw, {cfg.width}x{cfg.height}, "
           f"frame {frame}, against the quadrants' plain versions on their pixel "
@@ -701,6 +877,16 @@ def split_frame_against_plain(smi, dev, cfg, scene, cam, split, nb):
           f"[{smi}]")
     check(covered, "the split quadrants do not reproduce _mode_masks")
     check(bool(torch.isfinite(got).all().item()), "split frame not finite")
+    times = {name: cuda_ms(lambda m=m, pix=pix: _trace_mode_kernel(
+        pt, cam, split, cp, pix, frame, 0, m), 20) for name, (m, pix) in quads.items()}
+    sample_ms = cuda_ms(lambda: render_sample_fast_chw(scene, cam, split, cfg, frame,
+                                                       tracer=pt, cam_params=cp), 20)
+    print(f"[split-quadrants] each quadrant's kernel pass on its pixel ids, "
+          f"{cfg.width}x{cfg.height} (CUDA events, x20): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+          + f"; their sum {sum(times.values()):.4f} ms; the whole sample "
+          f"(render_sample_fast_chw) {sample_ms:.4f} ms [{smi}]")
+    return {"quadrants": times, "sample_ms": sample_ms}
 
 
 def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
@@ -797,31 +983,16 @@ def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
                                     bit_identical=same, ms=ms, plain_ms=plain_ms,
                                     bound_ms=bnd, bound_by=by)
 
-    def b4():
-        return pk.launch_hart_kernel(pt.hart_tables, pt.hart_count, None, n, 1, cp,
-                                     cam.mode, 0)
-
-    def b4_plain():
-        return pk.hart_plain(pt.hart_tables, pt.hart_count, pixel, 1, cp, cam.mode, 0)
-
-    got, want = b4(), b4_plain()
-    torch.cuda.synchronize()
-    close, err, same = equal_share(got, want)
-    ms = cuda_ms(b4, 20)
-    plain_ms = cuda_ms(b4_plain, 1)
-    # Live ray-steps from the kernel's own output: a march that stopped at
-    # step k evaluated k + 1 distances, one that never stopped 32.
-    iters = torch.round(got[0] * (pk.MARCH_ITER - 1)).to(torch.int64)
-    steps = int(torch.clamp(iters + 1, max=pk.MARCH_ITER).sum().item())
-    tris = pt.hart_count
-    bnd, by = bound(12 * n, steps * (tris * OPS_HART_TRI + OPS_HART_STEP)
-                    + n * OPS_CAMERA)
-    print(f"[B4-vs-plain] Hart: {close:.6f} of channels within 1e-4 (bar 0.99), "
-          f"max |err| {err:.3g}, bit-identical: {same}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bnd:.4f} ms by {by} ({steps} live ray-steps x "
-          f"{tris} triangles), kernel at {bnd / ms:.1%} of it [{smi}]")
-    check(bool(torch.isfinite(got).all().item()), "B4 not finite")
-    check(close >= 0.99, f"B4 disagrees with plain: {close:.6f}")
+    out["hart"] = hart_check(smi, dev, "Cornell", pt, cfg, cp, cam.mode)
+    rcfg = FilmConfig(1024, 512)
+    rabbit, rcam = builtin.rabbit(aspect=rcfg.aspect, device=dev)
+    rpt = pk.PathTracer(rabbit)
+    out["hart"]["rabbit"] = hart_check(smi, dev, "rabbit", rpt, rcfg,
+                                       pk.camera_params(rcam, rcfg), rcam.mode)
+    soup, scam = hart_soup(dev, 600, cfg)
+    out["hart"]["soup600"] = hart_check(smi, dev, "a 600-triangle soup (2 chunks)",
+                                        pk.PathTracer(soup), cfg,
+                                        pk.camera_params(scam, cfg), scam.mode, every=8)
     sp_scene, sp_cam = builtin.sphere_plane(aspect=cfg.aspect, device=dev)
     sp = pk.PathTracer(sp_scene)
     flat = sp.trace_hart(n, 1, cam_params=pk.camera_params(sp_cam, cfg),
@@ -830,8 +1001,6 @@ def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
     check(bool((flat == 32.0 / 31.0).all().item()),
           "B4 on the scene without triangles is not 32/31 everywhere")
     print("[B4] sphere_plane (no triangles): 32/31 on every pixel")
-    out["hart"] = dict(max_abs_err=err, within_1e_4=close, bit_identical=same,
-                       ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
 
     # ---- 12. goldens, for the record
     goldens = {
@@ -869,7 +1038,7 @@ def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
                "hart_kernel": pk.launch_hart_kernel}
     split = RenderSettings(max_bounces=nb, style="standard",
                            **dict(zip(modes, (5, 7, 10, 9))))
-    split_frame_against_plain(smi, dev, cfg, scene, cam, split, nb)
+    quads = split_frame_against_plain(smi, dev, cfg, scene, cam, split, nb)
     r = Renderer(scene, cam, split, cfg)
     r.draw()  # the first draw of a Renderer builds its camera vector
     r.flush()
@@ -897,8 +1066,9 @@ def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
           "saved split image has the wrong shape")
     print(f"[slice] Renderer.draw x16 split-screen (AO, Whitted, Hart, Kajiya), "
           f"{cfg.width}x{cfg.height}, {nb} bounces, standard: {split_ms:.4f} ms/frame; "
-          f"launches {launches}; film mean {accum.mean().item():.6f}; saved {png} [{smi}]")
-    out["split"] = dict(ms=split_ms, launches=launches)
+          f"launches {launches}; film mean {accum.mean().item():.6f}; saved {png}; "
+          f"its Hart quadrant {quads['quadrants']['hart']:.4f} ms [{smi}]")
+    out["split"] = dict(ms=split_ms, launches=launches, **quads)
 
     out["modes_ms"] = {}
     for mode in (0, 1, 2, 3, 4, 5, 6, 7, 8, 10):

@@ -1,9 +1,12 @@
-"""Before/after timings of B6 (the big-mesh Hart march) and B7's segment
-sum on one NVIDIA card, for the tree of rvpt_tpu_torch at ``--tree`` (the
-checkout root by default; a parent commit unpacked by ``git archive``
-into a gitignored directory for "before").  It drives only entry points
-that every tree of the port has: ``BigMeshTracer.trace_hart``,
-``replay_soa.launch_segsum`` and ``make_fast_kajiya``.
+"""Before/after timings of the redesigned kernels on one NVIDIA card: B4
+(the Hart march) and K2 (the whole-chain pullback), B6 (the big-mesh Hart
+march) and B7's segment sum, for the tree of rvpt_tpu_torch at ``--tree``
+(the checkout root by default; a parent commit unpacked by ``git
+archive`` into a gitignored directory for "before").  It drives only
+entry points that every tree of the port has: ``PathTracer.trace_hart``,
+``launch_path_kernel``, ``launch_bwd_kernel``, ``Renderer.draw``,
+``BigMeshTracer.trace_hart``, ``replay_soa.launch_segsum`` and
+``make_fast_kajiya``.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME]
 
@@ -20,7 +23,20 @@ kernels from that tree's ``csrc/`` into that tree's ``build/``.  Prints:
   kernel and rounding pass (torch.profiler), and ``index_add_``'s time;
   and the 7 segment sums' device time inside one such step;
 * B6: the mesh_demo(5) Hart frame at 1920x1080 through
-  ``BigMeshTracer.trace_hart``, its time per frame (CUDA events).
+  ``BigMeshTracer.trace_hart``, its time per frame (CUDA events);
+* B4: the Cornell box's Hart frame at 1920x1080 and rabbit's at 1024x512
+  through ``PathTracer.trace_hart`` (CUDA events), and ``Renderer.draw``
+  of the Cornell Hart frame and of the split-screen frame (AO, Whitted,
+  Hart, Kajiya) at 1080p x 4 bounces, with the Kajiya frame's draw as a
+  control that neither redesign touches (host clock over synchronised
+  draws, and each draw's device time from torch.profiler: the split
+  frame's wall time is the host's);
+* K2: its launch alone on a captured 1080p x 4 Cornell record (K1's
+  collect launch on the camera rays, g = 1/(3N)), and its device time
+  (the pullback and its table sum, torch.profiler) inside one Cornell
+  fwd+bwd step at 1080p x 4 (``bench.py``'s mean-image loss over albedo
+  and emission) and one rabbit step at 1024x512 x 8 (``backward="auto"``:
+  K1's BVH-form records, then K2), beside each step's device time.
 
 The last line is one JSON object with every number.
 """
@@ -35,6 +51,9 @@ import sys
 import time
 
 from chip_smoke import SEG_PARTS, cuda_ms, device_ms
+
+# K2's device operations: the pullback and the partials' fixed-order sum.
+BWD_PARTS = ("bwd_kernel", "table_sum_kernel")
 
 
 def segsum_inputs(dev, rs, pk, builtin, hd):
@@ -103,6 +122,110 @@ def segsum_inputs(dev, rs, pk, builtin, hd):
     return inputs, step
 
 
+def draw_ms(scene, cam, cfg, modes, bounces, frames):
+    """Renderer.draw with the four quadrants in ``modes`` -> (ms per frame
+    on the host clock over synchronised draws after a warm-up draw, device
+    ms per frame from torch.profiler)."""
+    import torch
+
+    from rvpt_tpu_torch import RenderSettings
+    from rvpt_tpu_torch.renderer import Renderer
+
+    keys = ("top_left_render_mode", "top_right_render_mode",
+            "bottom_left_render_mode", "bottom_right_render_mode")
+    r = Renderer(scene, cam, RenderSettings(max_bounces=bounces, style="standard",
+                                            **dict(zip(keys, modes))), cfg)
+    r.draw()
+    r.flush()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        r.draw()
+    r.flush()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / frames * 1e3
+    _, device = device_ms(r.draw, frames, ())
+    return wall, device
+
+
+def hart_timings(dev, hd, pk, builtin):
+    """B4's Hart frames through PathTracer.trace_hart, and the draws."""
+    from rvpt_tpu_torch import FilmConfig
+
+    out = {}
+    for name, make, cfg in (("cornell_1080p", builtin.cornell_box, hd),
+                            ("rabbit_1024x512", builtin.rabbit, FilmConfig(1024, 512))):
+        scene, cam = make(aspect=cfg.aspect, device=dev)
+        pt = pk.PathTracer(scene)
+        cp = pk.camera_params(cam, cfg)
+        n = cfg.num_pixels
+
+        def frame(pt=pt, cp=cp, n=n, cam=cam):
+            return pt.trace_hart(n, 1, cam_params=cp, cam_mode=cam.mode, jitter_salt=0)
+
+        val = frame()
+        out[name] = {"frame_ms": [cuda_ms(frame, 10) for _ in range(2)],
+                     "value_mean": val[0].mean().item()}
+    scene, cam = builtin.cornell_box(aspect=hd.aspect, device=dev)
+    for name, modes in (("hart", (10,) * 4), ("split", (5, 7, 10, 9)),
+                        ("kajiya", (9,) * 4)):
+        out[f"draw_{name}_ms"], out[f"draw_{name}_device_ms"] = draw_ms(
+            scene, cam, hd, modes, 4, 16)
+    return out
+
+
+def bwd_timings(dev, hd, pk, builtin):
+    """K2 alone on a captured 1080p Cornell record, and its device time
+    inside a Cornell and a rabbit fwd+bwd step."""
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig
+    from rvpt_tpu_torch.ops.fast_grad import make_fast_kajiya
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
+    from rvpt_tpu_torch.train import inverse
+
+    out = {}
+    scene, cam = builtin.cornell_box(aspect=hd.aspect, device=dev)
+    pt = pk.PathTracer(scene)
+    pixel, xs, ys = _pixel_grid(hd, dev)
+    ray = jittered_camera_rays(cam, hd, pixel, xs, ys, 1, 0)
+    rays = tuple(c.contiguous() for c in (*ray.origin.T, *ray.direction.T))
+    n = hd.num_pixels
+    _, record = pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 1, 16, 4,
+                                      "standard", rays=rays, collect=True)
+    tables, counts = pk.pack_bwd(scene)
+    g = torch.full((n, 3), 1.0 / (3 * n), device=dev)
+
+    def k2():
+        return pk.launch_bwd_kernel(tables, counts, record, pixel, 1, 16, "standard", g)
+
+    k2()
+    out["cornell_record_ms"] = [cuda_ms(k2, 20) for _ in range(2)]
+    parts, total = device_ms(k2, 10, BWD_PARTS)
+    out["cornell_record_device"] = {"total_ms": total, **parts}
+    del record
+    for name, cfg, nb in (("cornell_step", hd, 4),
+                          ("rabbit_step", FilmConfig(1024, 512), 8)):
+        if name == "rabbit_step":
+            scene, cam = builtin.rabbit(aspect=cfg.aspect, device=dev)
+            pixel, xs, ys = _pixel_grid(cfg, dev)
+            ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, 1, 0)
+        trace = make_fast_kajiya(scene, 16, nb, style="standard")
+        params = {k: x.detach().clone().requires_grad_(True)
+                  for k, x in inverse.trainable_params(scene).items()}
+        frame = [0]
+
+        def step(trace=trace, params=params, scene=scene, ray=ray, pixel=pixel):
+            frame[0] += 1
+            img = trace(inverse.apply_params(scene, params), ray.origin,
+                        ray.direction, pixel, frame[0])
+            return torch.autograd.grad(torch.mean(img), list(params.values()))
+
+        parts, total = device_ms(step, 5, BWD_PARTS)
+        out[name] = {"device_ms": total, **parts}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
@@ -135,7 +258,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(("bigmesh_hart", "replay_lookup", "bigmesh_kernel"))
     print(f"[ab] {label}: built in {time.perf_counter() - t0:.1f} s")
-    rec = {"label": label, "card": smi, "b7": {}, "b6": {}}
+    rec = {"label": label, "card": smi, "b7": {}, "b6": {}, "b4": {}, "k2": {}}
     hd = FilmConfig(1920, 1080)
 
     # ---- B7
@@ -169,6 +292,14 @@ def main() -> int:
                               for _ in range(2)],
                  "value_mean": val[0].mean().item()}
     print(f"[ab] {label} B6: {json.dumps(rec['b6'])}")
+    del bt, scene, pixel, ray, o, d, val
+    torch.cuda.empty_cache()
+
+    build.build_all(("hart_kernel", "bwd_kernel", "path_kernel", "primary_kernel"))
+    rec["b4"] = hart_timings(dev, hd, pk, builtin)
+    print(f"[ab] {label} B4: {json.dumps(rec['b4'])}")
+    rec["k2"] = bwd_timings(dev, hd, pk, builtin)
+    print(f"[ab] {label} K2: {json.dumps(rec['k2'])}")
     print(json.dumps(rec))
     return 0
 

@@ -49,7 +49,7 @@
 // adds each occupied slot's non-zero sums into the float64 scratch: one
 // global atomic per (row, column) the block touched.  Within a warp the
 // lanes that add something are grouped by row (__match_any_sync) and each
-// group sums in a shuffle tree (reduce_peers, log2 of its size rounds),
+// group sums in a shuffle tree (warp_sum.cuh, log2 of its size rounds),
 // so one lane per group and column touches the table: a whole warp on one
 // row is one shared atomic, not 32.  A warp whose rays all carry zero
 // cotangents (the lanes that hit no triangle carry an exact zero) does
@@ -73,6 +73,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_sum.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -95,30 +97,7 @@ constexpr int SEG_SLOTS = 1024;    // the most rows of a block's table
 constexpr int SEG_SMEM = 113 * 1024;  // its bytes: two blocks per SM
 constexpr int MAXC = 16;   // columns held in registers per pass
 constexpr int PROBES = 8;  // hash slots tried before a row goes to memory
-constexpr unsigned FULL = 0xffffffffu;
-
-// Sum v[0..nc) over the lanes of this lane's group `peers` (lanes with
-// the same row) into the group's lowest lane, in log2(group size) rounds
-// of shuffles; the order of the adds depends only on the grouping.  Every
-// lane of the warp takes part.
-__device__ __forceinline__ void reduce_peers(unsigned peers, double* v, int nc,
-                                             int lane) {
-  int rel = __popc(peers & ((1u << lane) - 1u));  // rank within the group
-  unsigned rest = peers & (0xfffffffeu << lane);  // the group's higher lanes
-  while (__any_sync(FULL, rest != 0)) {
-    const int next = __ffs(rest);  // the next higher lane still in, 1-based
-    const int src = next ? next - 1 : lane;
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < nc) {
-        const double t = __shfl_sync(FULL, v[c], src);
-        if (next) v[c] += t;
-      }
-    }
-    rest &= ~__ballot_sync(FULL, rel & 1);  // odd ranks have handed theirs on
-    rel >>= 1;
-  }
-}
+using warp_sum::FULL;
 
 // Add the cotangents v[0..nc) of row k (columns c0..c0+nc) into the
 // block's table, or into acc where the row finds no slot.
@@ -183,7 +162,7 @@ __global__ void __launch_bounds__(SEG_THREADS) segsum_kernel(
       // adds the group's sums.
       const int key = any ? k : -1;
       const unsigned peers = __match_any_sync(FULL, key);
-      reduce_peers(peers, v, nc, lane);
+      warp_sum::reduce_peers<MAXC>(peers, v, nc, lane);
       if (key >= 0 && __ffs(peers) - 1 == lane) {
         add_row(key, v, nc, c0, slots, keys, vals, acc, t_rows);
       }

@@ -1404,8 +1404,45 @@ def _hart_lib():
         lib.rvpt_hart.argtypes = [ptr, i32, ptr, ptr, ptr, i32, u32, u32, i32,
                                   f32, ptr]
         lib.rvpt_hart.restype = i32
+        lib.rvpt_hart_count.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, u32,
+                                        u32, i32, f32, ptr]
+        lib.rvpt_hart_count.restype = i32
         lib._rvpt_bound = True
     return lib
+
+
+# The rows of B4's counting instance: the march's own live ray-steps, skip
+# tests, full distances on the face and the edge branch and warm seeds (up
+# to each ray's stop or escape); skipped triangles whose distance is below
+# the running minimum; the branch of every triangle's distance at every
+# step the parent ran (marching on past the escape), and those steps; the
+# rays that stopped after their escape; and the march's own tests that the
+# plane decided (the rest also test the bounding sphere).
+HART_COUNTS = ("steps", "tests", "face", "edge", "seeds", "bad", "all_face",
+               "all_edge", "parent_steps", "late", "plane_skips")
+
+
+def _run_hart(htables, n_tri, pix, n, frame, cam_params, cam_mode, jitter_salt,
+              mint, count=False):
+    """One launch of the Hart march kernel, or (with ``count``) of its
+    counting instance -> (f32[3, n], int32[len(HART_COUNTS), n] or None)."""
+    dev = htables.device
+    check_cuda(htables, torch.float32, "Hart tables", 9 * n_tri)
+    _check_camera(pix, n, cam_params, dev)
+    lib = _hart_lib()
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    args = (htables.data_ptr() if n_tri else None, n_tri, cam_params.data_ptr(),
+            None if pix is None else pix.data_ptr(), out.data_ptr())
+    tail = (n, int(frame) & 0xFFFFFFFF, int(jitter_salt) & 0xFFFFFFFF,
+            int(cam_mode), float(mint), torch.cuda.current_stream(dev).cuda_stream)
+    if count:
+        out_c = torch.zeros((len(HART_COUNTS), n), dtype=torch.int32, device=dev)
+        err = lib.rvpt_hart_count(*args, out_c.data_ptr(), *tail)
+    else:
+        out_c = None
+        err = lib.rvpt_hart(*args, *tail)
+    check_launch(lib, err, "Hart kernel")
+    return out, out_c
 
 
 def launch_hart_kernel(htables, n_tri, pix, n, frame, cam_params,
@@ -1414,19 +1451,21 @@ def launch_hart_kernel(htables, n_tri, pix, n, frame, cam_params,
     card.  ``htables``/``n_tri`` from ``pack_hart`` (zero triangles
     allowed); ``pix`` int64[n] pixel ids, or None for the ids 0..n-1.
     Counts one launch in ``launch_hart_kernel.launches``."""
-    dev = htables.device
-    check_cuda(htables, torch.float32, "Hart tables", 9 * n_tri)
-    _check_camera(pix, n, cam_params, dev)
-    lib = _hart_lib()
-    out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    err = lib.rvpt_hart(
-        htables.data_ptr() if n_tri else None, n_tri, cam_params.data_ptr(),
-        None if pix is None else pix.data_ptr(), out.data_ptr(), n,
-        int(frame) & 0xFFFFFFFF, int(jitter_salt) & 0xFFFFFFFF, int(cam_mode),
-        float(mint), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, err, "Hart kernel")
+    out, _ = _run_hart(htables, n_tri, pix, n, frame, cam_params, cam_mode,
+                       jitter_salt, mint)
     launch_hart_kernel.launches += 1
     return out
+
+
+def count_hart_sweep(htables, n_tri, pix, n, frame, cam_params,
+                     cam_mode=PINHOLE, jitter_salt=0, mint=0.0):
+    """B4's work on the card, for a bound: its counting instance, with the
+    arguments of ``launch_hart_kernel`` -> (f32[3, n] as that launch's, a
+    dict of the ``HART_COUNTS`` summed over the pixels).  Adds no launch of
+    B4."""
+    out, c = _run_hart(htables, n_tri, pix, n, frame, cam_params, cam_mode,
+                       jitter_salt, mint, count=True)
+    return out, dict(zip(HART_COUNTS, c.sum(dim=1, dtype=torch.int64).tolist()))
 
 
 launch_hart_kernel.launches = 0
@@ -2277,9 +2316,10 @@ def _bwd_lib():
 def launch_bwd_kernel(tables, counts, record: PathRecord, pix, frame,
                       salt_base, style, g):
     """Launch the CUDA pullback K2 on the tables' card; arguments and
-    result as ``bwd_plain``.  The table gradient is summed per block in
-    shared memory and the per-block partials reduced by a second kernel
-    in a fixed order.  Counts one launch (the pair) in
+    result as ``bwd_plain``.  The table gradient is summed by each warp's
+    row groups, into shared memory (one copy per warp for small tables,
+    one per block for large ones), and the per-block partials reduced by a
+    second kernel in a fixed order.  Counts one launch (the pair) in
     ``launch_bwd_kernel.launches``."""
     t, s, p, nm = counts
     dev = tables.device
