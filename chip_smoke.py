@@ -90,13 +90,21 @@ Phases, each of which raises on failure:
    data with the kernels' counting instances (count_bvh_walk,
    count_hart_walk; for the march count_hart_march's warm-started walk up
    to each ray's escape or stop, the parent's work, the cold-start walk of
-   every step, printed beside it);
+   every step, printed beside it); then the big-mesh route, one K1 or B3
+   BVH-form launch per frame on rays passed in (BigMeshTracer), in modes
+   0-9 at 1080p x 8, standard, on mesh_demo(5) and terrain_demo(225): bit
+   for bit B5's per-bounce route (BigMeshTracer.search and .bounce) on the
+   whole film and its plain composition (bigmesh_bounce_plain,
+   bigmesh_search_plain and the shading between) on every 8th (16th) row
+   of pixel ids; both routes timed, the launch beside its bound (this
+   frame's searches, walks and shading, counted on the card);
 16. this slice's main path: Renderer.draw x8 at 1920x1080, 8 bounces,
-   standard, Kajiya on mesh_demo(5) and mesh_demo(3) (8 B5 launches per
+   standard, Kajiya on mesh_demo(5) and mesh_demo(3) (one K1 launch per
    frame), rabbit at 1024x512 x 8 (one K1 launch per frame) and in modes
    0-6 (one B3 launch per frame), on mesh_demo(5) each single mode 0-8 and
-   10 (Hart: one B6 march launch per frame) and the split-screen (AO,
-   Whitted, Hart, Kajiya), terrain_demo(225) x2; every loop with zeroed counts,
+   10 (one B3 launch per mode 0-6 frame, one K1 launch per Whitted or Cook
+   frame, Hart one B6 march launch; no B5 launch in any draw) and the
+   split-screen (AO, Whitted, Hart, Kajiya), terrain_demo(225) x2; every loop with zeroed counts,
    a finite film that is not black, and its ms/frame; then the
    rabbit_kajiya and mesh2_kajiya goldens through the kernels (printed,
    not asserted, as phase 4);
@@ -111,15 +119,18 @@ Phases, each of which raises on failure:
    rows per warp and per chunk of 2,048 and 8,192 rays, the chunks' row
    spans);
 18. records: K1's BVH form with records on rabbit at 1024x512 x 8 (rays
-   in) and B5's collect instance on mesh_demo(5) at 1080p x 8 (every 8th
-   row of pixel ids): bit-identical to trace_plain's and
+   in), K1's hits-only collect instance on the Cornell box (row form,
+   1080p x 4), rabbit and mesh_demo(5) (1080p x 8, every 8th row of pixel
+   ids for the plain version), and B5's collect instance on mesh_demo(5)
+   at 1080p x 8 (every 8th row): bit-identical to trace_plain's (the
+   hits-only instance also to the full collect instance's rec_i) and
    bigmesh_bounce_plain(collect=True)'s, the radiance and states those of
    the instances without records; each timed beside its bound;
 19. this slice's main path: one fwd+bwd step of the mean image over
    albedo, emission and the vertices through make_fast_kajiya on
    mesh_demo(3) and on mesh_demo(5) at 1920x1080 x 8, standard, with the
-   launch counts zeroed before it and read after it (8 B5 collect
-   launches, 8 gathers, 7 segment sums); the primal bit-identical to the
+   launch counts zeroed before it and read after it (one K1 hits-only
+   collect launch, 8 gathers, 7 segment sums, no B5); the primal bit-identical to the
    tracer without records, the gradients within rtol 1e-3, atol 1e-6 (in
    units of each gradient's scale) of autograd through kajiya_from_hits
    in float64 on the same records; the step time (CUDA events over 5 steps
@@ -134,9 +145,9 @@ Phases, each of which raises on failure:
    each against autograd through kajiya_from_hits as in phase 19;
 21. the trainer on mesh_demo(3) at 1920x1080 x 8: target = mean of 4
    kernel-route frames, init albedo 0.5 and emission x 1.2,
-   recover(steps=30, learning_rate=3e-2) with zeroed counts (two B5
-   frames and one replay's 8 gathers per step); the loss and both mean
-   parameter errors fall;
+   recover(steps=30, learning_rate=3e-2) with zeroed counts (two K1
+   launches, a trace and a hits-only collect, and one replay's 8 gathers
+   per step, no B5); the loss and both mean parameter errors fall;
 22. K1's stats form: PathTracer.trace(stats=True) on rabbit at 1024x512 x 8
    and mesh_demo(3) at 1920x1080 x 8, camera rays passed in, Kajiya,
    Whitted and Cook, with the counts zeroed before the six traces and
@@ -153,7 +164,7 @@ Phases, each of which raises on failure:
    Hart, Kajiya) 8 frames, mesh:5 x 8 bounces 8 frames with --checkpoint,
    then --resume of it for 4 more (the film reaches frame 12); the counts
    zeroed before each run and read after it (K1 row form, K1 BVH form,
-   B3 + K1 + B4, and B5 must each have run), ms/frame and rays/s of each
+   B3 + K1 + B4, and K1 on mesh:5 must each have run), ms/frame and rays/s of each
    run from --stats, every PNG of the right shape and not black;
 24. the viewer, headless: Viewer(Renderer, backend=callable) x32 steps on
    the 1080p Cornell box, a scripted W press at step 16 moves the camera
@@ -161,11 +172,13 @@ Phases, each of which raises on failure:
 
 Prints the kernel record as a JSON line (launches of the main paths:
 the trainer for K1, K2 and B8, the split-screen draws for B3 and B4, the
-rabbit draws for K1's and B3's BVH forms, the mesh_demo(3) Kajiya and
-mesh_demo(5) Hart draws for B5 and B6's march, the mesh_demo(3) fwd+bwd step for
-B7 and B5's collect instance, the rabbit step for K1's BVH-form records,
-the stats traces of phase 22 for the counting instance; times, bounds and
-errors of this run), a JSON line of the CLI runs and the viewer, the
+rabbit draws for K1's and B3's BVH forms, the mesh_demo(5) draws for the
+big-mesh route's K1 and B3 launches and B6's march, the mesh_demo(3)
+fwd+bwd step for B7 and K1's hits-only collect instance, the rabbit step
+for K1's BVH-form records, the stats traces of phase 22 for the counting
+instance; B5, on no main path, with the launches of its own checks in
+phases 15 and 18; times, bounds and errors of this run), a JSON line of
+the CLI runs and the viewer, the
 card's name and power limit, then, last, one JSON line {"ok": true,
 "device": {...}}.
 """
@@ -1120,6 +1133,10 @@ def bigmesh_check(smi, dev, name, scene, cam, cfg, nb, every, collect=False):
     start = pk._start_state(bt._rays(ray.origin, ray.direction), "kajiya")
     states = [torch.stack([*start[:15], start[15].to(torch.float32)])]
     hits = []
+    # B5's launches in this check's frame (the bounce or collect instance,
+    # and with collect the bounce instance beside it), reported as
+    # check_launches: the kernels line's launches are the main path's.
+    launches = pk.launch_bigmesh_kernel.launches
     for b in range(nb):
         st = pk.launch_bigmesh_kernel(bt.tables, bt.counts, bt.nodes, pixel,
                                       states[-1], 1, 16 + 4 * b, collect=collect)
@@ -1131,6 +1148,7 @@ def bigmesh_check(smi, dev, name, scene, cam, cfg, nb, every, collect=False):
             st, h = st
             hits.append(h)
         states.append(st)
+    launches = pk.launch_bigmesh_kernel.launches - launches
     sub = torch.nonzero(ys % every == 0).squeeze(1)
     plain = states[0][:, sub]
     worst = 1.0
@@ -1221,11 +1239,140 @@ def bigmesh_check(smi, dev, name, scene, cam, cfg, nb, every, collect=False):
           f"bound {bnd:.4f} ms by {by} (walk {work}), kernel at {bnd / frame_ms:.1%} of "
           f"it; search-only {search_ms:.4f} ms, bound {s_bnd:.4f} ms by {s_by} "
           f"({s_work}), at {s_bnd / search_ms:.1%} [{smi}]")
-    return dict(max_abs_err=max(err, s_err), within_1e_4=worst, bit_identical=same,
-                ms=frame_ms,
+    return dict(check_launches=launches, max_abs_err=max(err, s_err), within_1e_4=worst,
+                bit_identical=same, ms=frame_ms,
                 plain_ms=plain_ms, plain_rays=sub.numel(), bound_ms=bnd, bound_by=by,
                 search_ms=search_ms, search_bound_ms=s_bnd, search_bound_by=s_by,
                 walk=work)
+
+
+def route_work(bt, mode, pix, rays, frame, salt_base, nb, nrays):
+    """The work of one frame of ``mode`` on this run's rays, for a bound:
+    the per-bounce route on the card (B5's search-only launches) with every
+    search's walk counted by count_bvh_walk ("box", "tri") and the lanes of
+    each kind of work counted as trace_plain(work=...) counts them
+    ("search", "scatter", "lambert", "end"); for modes 0-6 the searches
+    and the hit pixels ("hits")."""
+    import torch
+
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops.bigmesh_route import per_bounce
+
+    work = {}
+    walk = walk_counter(bt.tables, bt.counts, bt.nodes, work)
+
+    def count(key, mask):
+        work[key] = work.get(key, 0) + int(mask.sum().item())
+
+    def search(o3, d3, live=None):
+        walk(o3, d3, live)
+        if mode < 7:  # K1's searches are counted where they run
+            count("search", torch.ones_like(o3[0], dtype=torch.bool)
+                  if live is None else live)
+        return bt.search(o3, d3, live)
+
+    if mode < 7:
+        winner = search(rays[:3], rays[3:])
+        count("hits", winner[5] >= 0)
+        pk._primary_finalize(mode, nrays, bt._mat, pix, frame, salt_base, rays, winner,
+                             search)
+    else:
+        per_bounce(bt, mode, pix, rays, frame, salt_base, nb, "standard", nrays, search,
+                   count=count)
+    return work
+
+
+def route_bound(bt, mode, work, n, nrays):
+    """(bound_ms, bound_by) of one frame of ``mode`` through the one-launch
+    route: per ray its six components in (24 B), the pixel id (8) and the
+    film (12), the tables and nodes once; the operations of ``work``
+    (route_work): K1's searches, walks and shading (k1_ops), or B3's
+    finalize per pixel, its searches and walks and AO's probes."""
+    t_, s_, p_, _ = bt.counts
+    seed = s_ * OPS_SPH + p_ * OPS_PLN + OPS_INV
+    table_bytes = 4 * (bt.tables.numel() + bt.nodes.numel())
+    if mode >= 7:
+        ops = k1_ops(work, seed) + walk_ops(work)
+    else:
+        ops = n * OPS_FINALIZE[mode] + work["search"] * seed + walk_ops(work)
+        if mode == 5:
+            ops += work["hits"] * nrays * (OPS_PCG + OPS_PROBE)
+    return bound(n * (24 + 8 + 12) + table_bytes, ops)
+
+
+def route_check(smi, dev, name, scene, cam, cfg, nb, every):
+    """Phase 15's check of the big-mesh route on one mesh, modes 0-9
+    (standard, AO with ``nb`` probes as the draw casts them): the
+    one-launch route (K1's or B3's BVH form, rays in, BigMeshTracer) on the
+    whole 1080p film against the per-bounce route composed of B5's launches
+    (BigMeshTracer.search and .bounce) on the whole film and against its
+    plain composition (bigmesh_bounce_plain, bigmesh_search_plain and the
+    shading) on the pixel ids of every ``every``-th row, bit for bit; each
+    route timed with CUDA events, the one-launch route beside its bound of
+    this frame's work (route_work, route_bound)."""
+    import torch
+
+    from rvpt_tpu_torch.models.integrators import INTEGRATOR_NAMES
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops.bigmesh_route import per_bounce, plain_bounce
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
+
+    names = {v: k for k, v in INTEGRATOR_NAMES.items()}
+    bt = pk.BigMeshTracer(scene)
+    n = cfg.num_pixels
+    pixel, xs, ys = _pixel_grid(cfg, dev)
+    ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, 1, 0)
+    o, d = ray.origin, ray.direction
+    rays = bt._rays(o, d)
+    sub = torch.nonzero(ys % every == 0).squeeze(1)
+    sub_rays = tuple(c[sub] for c in rays)
+    big = scene.num_triangles > 50_000
+    out = {}
+    for mode in range(10):
+        nrays = nb if mode == 5 else 1
+        args = (1, 16, nb, "standard", nrays)
+
+        def route(mode=mode, nrays=nrays):
+            return bt.trace_mode(pixel, o, d, 1, mode, salt_base=16, max_bounces=nb,
+                                 style="standard", nrays=nrays)
+
+        def b5_route(mode=mode, args=args):
+            return per_bounce(bt, mode, pixel, rays, *args, bt.search, bt.bounce)
+
+        got = route()
+        b5 = b5_route()
+        t0 = time.perf_counter()
+        want = per_bounce(bt, mode, pixel[sub], sub_rays, *args,
+                          bounce=plain_bounce(bt))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same_b5 = bool(torch.equal(got, b5))
+        close, err, same = equal_share(got[:, sub], want)
+        check(bool(torch.isfinite(got).all().item()), f"{name} mode {mode}: not finite")
+        check(same_b5, f"{name} mode {mode}: the one-launch route differs from B5's "
+              f"per-bounce route ({equal_share(got, b5)[0]:.6f} within 1e-4)")
+        check(same, f"{name} mode {mode}: the one-launch route differs from the "
+              f"per-bounce plain composition ({close:.6f} within 1e-4)")
+        iters = 4 if big else 10
+        ms = cuda_ms(route, iters)
+        b5_ms = cuda_ms(b5_route, 2 if big or mode in (5, 7, 8) else 4)
+        work = route_work(bt, mode, pixel, rays, *args[:3], nrays)
+        bnd, by = route_bound(bt, mode, work, n, nrays)
+        kernel = "B3" if mode < 7 else "K1"
+        print(f"[route-vs-per-bounce] {name}, {cfg.width}x{cfg.height} x {nb}, mode {mode} "
+              f"({names[mode]}{f', {nrays} probes' if mode == 5 else ''}): one {kernel} "
+              f"BVH-form launch, rays in, bit-identical to B5's per-bounce route on the "
+              f"film: {same_b5}, to its plain composition on {sub.numel()} pixel ids "
+              f"(every {every}th row): {same}; {ms:.4f} ms per frame, B5's route "
+              f"{b5_ms:.4f} ms, plain {plain_ms:.1f} ms on the {sub.numel()}; bound "
+              f"{bnd:.4f} ms by {by} (work {work}), the launch at {bnd / ms:.1%} of it "
+              f"[{smi}]")
+        out[names[mode]] = dict(max_abs_err=err, bit_identical=same and same_b5, ms=ms,
+                                b5_route_ms=b5_ms, plain_ms=plain_ms,
+                                plain_rays=sub.numel(), bound_ms=bnd, bound_by=by,
+                                walk={k: work.get(k, 0) for k in ("box", "tri")})
+        del got, b5, want
+    return out
 
 
 def mesh_phases(smi, dev, out_dir, here):
@@ -1364,6 +1511,11 @@ def mesh_phases(smi, dev, out_dir, here):
                         ("terrain_demo(225)", 16)):
         scene, cam = scenes[name]
         out["b5"][name] = bigmesh_check(smi, dev, name, scene, cam, hd, 8, every)
+    # The big-mesh route: one K1 or B3 launch per frame, against B5's.
+    out["route"] = {}
+    for name, every in (("mesh_demo(5)", 8), ("terrain_demo(225)", 16)):
+        scene, cam = scenes[name]
+        out["route"][name] = route_check(smi, dev, name, scene, cam, hd, 8, every)
 
     # One B6 step on mesh_demo(5): the march's points after 3 steps.
     scene, cam = scenes["mesh_demo(5)"]
@@ -1494,6 +1646,7 @@ def mesh_phases(smi, dev, out_dir, here):
         torch.cuda.synchronize()
         frame_ms = (time.perf_counter() - t0) / frames * 1e3
         ran = {name: c for name, k in kernels.items() if (c := k.launches)}
+        launches["bigmesh_kernel"] += pk.launch_bigmesh_kernel.launches
         want = {k: v * frames for k, v in per_frame.items()}
         check(ran == want, f"{label}: {frames} draws launched {ran}, expected {want}")
         accum = r.film.accum
@@ -1514,16 +1667,16 @@ def mesh_phases(smi, dev, out_dir, here):
         return frame_ms, ran
 
     hd8 = RenderSettings(max_bounces=8, style="standard")
-    launches = {}
+    launches = {"bigmesh_kernel": 0}  # B5: on no draw, so 0
     out["draw_ms"] = {}
     for name in ("mesh_demo(5)", "mesh_demo(3)"):
         scene, cam = scenes[name]
         png = f"torch_{name.replace('(', '').replace(')', '')}_1080p.png"
         ms, ran = draw_loop(f"{name} Kajiya", scene, cam, hd, hd8, 8,
-                            {"bigmesh_kernel": 8}, png)
+                            {"path_kernel": 1}, png)
         out["draw_ms"][f"{name} kajiya"] = ms
-        if name == "mesh_demo(3)":
-            launches["bigmesh_kernel"] = ran["bigmesh_kernel"]
+        if name == "mesh_demo(5)":
+            launches["path_kernel_bigmesh"] = ran["path_kernel"]
     rst = RenderSettings(max_bounces=8)
     ms, ran = draw_loop("rabbit Kajiya", rscene, rcam, rcfg, rst, 8,
                         {"path_kernel": 1}, "torch_rabbit_1024x512.png")
@@ -1536,32 +1689,33 @@ def mesh_phases(smi, dev, out_dir, here):
                             st, 2, {"primary_kernel": 1})
         launches["primary_kernel_bvh"] += ran["primary_kernel"]
         out["draw_ms"][f"rabbit {names[mode]}"] = ms
-    # Launches per frame on a big mesh at 8 bounces: a search per debug
-    # frame, plus AO's 8 probes or Appel's shadow; Whitted a search and a
-    # shadow search per bounce, Cook a search per bounce and the tail;
-    # Kajiya a bounce launch per bounce; Hart one march launch per frame
-    # (B6's per-step instance never: it is not on the display path).
-    per_mode = {0: 1, 1: 1, 2: 1, 3: 1, 4: 1, 5: 9, 6: 2, 7: 16, 8: 9, 9: 8}
+    # Launches per frame on a big mesh, any bounce count: one B3 launch
+    # (BVH form, rays in) per debug frame, AO's probes and Appel's shadow
+    # rays in it; one K1 launch (BVH form, rays in) per Whitted, Cook or
+    # Kajiya frame; Hart one march launch per frame (B6's per-step
+    # instance never: it is not on the display path); B5 never.
     scene, cam = scenes["mesh_demo(5)"]
+    launches["primary_kernel_bigmesh"] = 0
     for mode in (0, 1, 2, 3, 4, 5, 6, 7, 8, 10):
         st = hd8.replace(**dict.fromkeys(quads, mode))
-        per = ({"bigmesh_march": 1} if mode == 10
-               else {"bigmesh_kernel": per_mode[mode]})
+        per = ({"bigmesh_march": 1} if mode == 10 else {"path_kernel": 1} if mode >= 7
+               else {"primary_kernel": 1})
         ms, ran = draw_loop(f"mesh_demo(5) mode {mode} ({names[mode]})", scene, cam, hd,
                             st, 2, per)
         out["draw_ms"][f"mesh_demo(5) {names[mode]}"] = ms
         if mode == 10:
             launches["bigmesh_hart"] = ran["bigmesh_march"]
+        if mode < 7:
+            launches["primary_kernel_bigmesh"] += ran["primary_kernel"]
     split = hd8.replace(**dict(zip(quads, (5, 7, 10, 9))))
     ms, _ = draw_loop("mesh_demo(5) split-screen (AO, Whitted, Hart, Kajiya)", scene,
                       cam, hd, split, 2,
-                      {"bigmesh_kernel": per_mode[5] + per_mode[7] + per_mode[9],
-                       "bigmesh_march": 1},
+                      {"primary_kernel": 1, "path_kernel": 2, "bigmesh_march": 1},
                       "torch_mesh_demo5_split_1080p.png")
     out["draw_ms"]["mesh_demo(5) split"] = ms
     scene, cam = scenes["terrain_demo(225)"]
     ms, _ = draw_loop("terrain_demo(225) Kajiya", scene, cam, hd, hd8, 2,
-                      {"bigmesh_kernel": 8}, "torch_terrain_1080p.png")
+                      {"path_kernel": 1}, "torch_terrain_1080p.png")
     out["draw_ms"]["terrain_demo(225) kajiya"] = ms
     out["launches"] = launches
 
@@ -1652,6 +1806,78 @@ def lookup_check(smi, label, tables, idx, n_seg, live=None):
              "repeat_bit_identical": rep_same, "ms": s_ms, "plain_ms": s_plain,
              "library_ms": s_lib, "bound_ms": s_bnd, "bound_by": s_by,
              "parts_ms": parts, "rows": rows_seen})
+
+
+def hits_check(smi, dev, label, scene, cam, cfg, nb, every, timed=True):
+    """Phase 18's check of K1's hits-only collect instance on one scene
+    (rays in, standard): its hits bit for bit the full collect instance's
+    rec_i on the whole film and trace_plain(collect=True)'s on the pixel
+    ids of every ``every``-th row, its radiance that of the launches with
+    the full record and without records; with ``timed`` (a BVH scene) it
+    and the full collect instance timed beside its bound: the rays (24 B),
+    pixel id (8), film (12) and 8 B of hits per ray-bounce, the tables and
+    nodes once, and the work of the same trace (route_work)."""
+    import torch
+
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
+
+    pt = pk.PathTracer(scene)
+    n = cfg.num_pixels
+    pixel, xs, ys = _pixel_grid(cfg, dev)
+    ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, 1, 0)
+    rays = tuple(c.contiguous() for c in (*ray.origin.T, *ray.direction.T))
+
+    def k1(collect=False):
+        return pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 1, 16, nb,
+                                     "standard", rays=rays, collect=collect,
+                                     nodes=pt.nodes)
+
+    got, hits = k1("hits")
+    full, rec = k1(True)
+    bare = k1()
+    sub = torch.nonzero(ys % every == 0).squeeze(1)
+    want, wrec = pk.trace_plain(pt.tables, pt.counts, pixel[sub], 1, 16, nb, "standard",
+                                rays=tuple(c[sub] for c in rays), collect=True,
+                                tris_last=pt.bvh_form)
+    torch.cuda.synchronize()
+    same_full = bool(torch.equal(hits, rec.hits))
+    same_plain = bool(torch.equal(hits[:, :, sub], wrec.hits))
+    radiance = bool(torch.equal(got, bare) and torch.equal(got, full))
+    close, err, _ = equal_share(got[:, sub], want)
+    form = "BVH" if pt.bvh_form else "row"
+    print(f"[records] K1's hits-only collect, {form} form, {label} {cfg.width}x{cfg.height} "
+          f"x {nb}, rays in: hits bit-identical to the full collect instance's: "
+          f"{same_full}, to trace_plain's on {sub.numel()} pixel ids: {same_plain}; "
+          f"radiance equal to the launches with the full record and without: {radiance}, "
+          f"{close:.6f} of channels within 1e-4 of plain; "
+          f"{(hits[:, 0] == 0).float().mean().item():.4f} of ray-bounces on a triangle")
+    check(same_full and same_plain, f"{label}: K1's hits-only records differ")
+    check(radiance, f"{label}: K1's hits-only instance changes the radiance")
+    check(close >= 0.995, f"{label}: K1 with hits disagrees with plain: {close:.6f}")
+    del full, rec, bare, want, wrec
+    if not timed:
+        return dict(bit_identical=same_full and same_plain, max_abs_err=err)
+    iters = 10
+    ms = cuda_ms(lambda: k1("hits"), iters)
+    full_ms = cuda_ms(lambda: k1(True), iters)
+    t0 = time.perf_counter()
+    pk.trace_plain(pt.tables, pt.counts, pixel[sub], 1, 16, nb, "standard",
+                   rays=tuple(c[sub] for c in rays), collect="hits", tris_last=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bt = pk.BigMeshTracer(scene)
+    work = route_work(bt, 9, pixel, rays, 1, 16, nb, 1)
+    t_, s_, p_, _ = bt.counts
+    seed = s_ * OPS_SPH + p_ * OPS_PLN + OPS_INV
+    bnd, by = bound(n * (24 + 8 + 12 + 8 * nb) + 4 * (bt.tables.numel() + bt.nodes.numel()),
+                    k1_ops(work, seed) + walk_ops(work))
+    print(f"[time] K1 hits-only collect, {label}: {ms:.4f} ms, the full collect instance "
+          f"{full_ms:.4f} ms, plain {plain_ms:.1f} ms on {sub.numel()} rays; bound "
+          f"{bnd:.4f} ms by {by} (work {work}), kernel at {bnd / ms:.1%} [{smi}]")
+    return dict(max_abs_err=err, bit_identical=same_full and same_plain, ms=ms,
+                full_collect_ms=full_ms, plain_ms=plain_ms, plain_rays=sub.numel(),
+                bound_ms=bnd, bound_by=by)
 
 
 def mesh_step_check(smi, dev, label, scene, cam, cfg, nb, counters, backward="auto",
@@ -1899,6 +2125,13 @@ def mesh_grad_phases(smi, dev, counters):
           f"bound {bnd:.4f} ms by {by} (work {work}), kernel at {bnd / ms:.1%} [{smi}]")
     out["k1_bvh_collect"] = dict(max_abs_err=err, bit_identical=same, ms=ms,
                                  plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+    # K1's hits-only collect instance: the row form on the Cornell box,
+    # the BVH form on rabbit and on mesh_demo(5), the mesh step's records.
+    cornell, ccam = builtin.cornell_box(aspect=hd.aspect, device=dev)
+    hits_check(smi, dev, "cornell", cornell, ccam, hd, 4, 8, timed=False)
+    hits_check(smi, dev, "rabbit", rabbit, rcam, rcfg, nb, 1, timed=False)
+    out["k1_hits"] = hits_check(smi, dev, "mesh_demo(5)", mesh5, cam5, hd, nb, 8)
+    del cornell
     out["b5_collect"] = bigmesh_check(smi, dev, "mesh_demo(5)", mesh5, cam5, hd, nb, 8,
                                       collect=True)
 
@@ -1907,11 +2140,11 @@ def mesh_grad_phases(smi, dev, counters):
     for label, scene, cam in (("mesh_demo(3)", mesh3, cam3),
                               ("mesh_demo(5)", mesh5, cam5)):
         res = mesh_step_check(smi, dev, label, scene, cam, hd, nb, counters)
-        want = {"bigmesh_kernel": nb, "replay_gather": nb, "replay_segsum": nb - 1}
+        want = {"path_kernel": 1, "replay_gather": nb, "replay_segsum": nb - 1}
         ran = {k: v for k, v in res["launches"].items() if v}
-        check(ran == want, f"{label}: a step launched {ran}, expected {want} (one B5 "
-              f"collect launch and one gather per bounce, one segment sum per bounce "
-              f"whose vertices reach the image)")
+        check(ran == want, f"{label}: a step launched {ran}, expected {want} (one K1 "
+              f"hits-only collect launch, one gather per bounce, one segment sum per "
+              f"bounce whose vertices reach the image, no B5)")
         out["steps"][label] = res
     # ... and at 320x180 against autograd through integrator_kajiya (B8)
     small = FilmConfig(320, 180)
@@ -1992,10 +2225,11 @@ def mesh_grad_phases(smi, dev, counters):
           f"{losses[-1]:.6f}")
     check(alb < alb0, f"mesh albedo error did not fall: {alb0:.4f} -> {alb:.4f}")
     check(em < em0, f"mesh emission error did not fall: {em0:.4f} -> {em:.4f}")
-    check(launches == {"bigmesh_kernel": 2 * nb * train_steps,
+    check(launches == {"path_kernel": 2 * train_steps,
                        "replay_gather": nb * train_steps},
-          f"the mesh trainer launched {launches}: expected two B5 frames and one "
-          f"replay's gathers per step (no vertex gradient, no segment sum)")
+          f"the mesh trainer launched {launches}: expected two K1 launches (a trace "
+          f"and a hits-only collect) and one replay's gathers per step (no vertex "
+          f"gradient, no segment sum), and no B5")
     out["train"] = dict(ms_per_step=train_ms, losses=(losses[0], losses[-1]),
                         albedo_err=(alb0, alb), emission_err=(em0, em), launches=launches)
     return out
@@ -2179,9 +2413,9 @@ def cli_phases(smi, dev, out_dir):
         ("split", ["--split", "ao,whitted,hart,kajiya", "--frames", "8"],
          {"primary_kernel": 8, "path_kernel": 16, "hart_kernel": 8}),
         ("mesh:5", ["--scene", "mesh:5", "--bounces", "8", "--frames", "8",
-                    "--checkpoint", ck], {"bigmesh_kernel": 64}),
+                    "--checkpoint", ck], {"path_kernel": 8}),
         ("mesh:5 --resume", ["--scene", "mesh:5", "--bounces", "8", "--frames", "4",
-                             "--resume", ck, "--checkpoint", ck2], {"bigmesh_kernel": 32}),
+                             "--resume", ck, "--checkpoint", ck2], {"path_kernel": 4}),
     ]
     out = {"runs": {}, "launches": {}}
     for label, args, want in runs:
@@ -2442,6 +2676,13 @@ def main() -> int:
     stats = stats_phase(smi, dev)
     app = cli_phases(smi, dev, out_dir)
 
+    # B5's launches on the main paths, each run's counts zeroed before it.
+    b5_draws = mesh["launches"]["bigmesh_kernel"] + app["launches"].get("bigmesh_kernel", 0)
+    b5_steps = (sum(r["launches"]["bigmesh_kernel"] for r in grad["steps"].values())
+                + sum(r["launches"]["bigmesh_kernel"] for r in grad["rabbit"].values())
+                + grad["train"]["launches"].get("bigmesh_kernel", 0))
+    check(b5_draws == b5_steps == 0, f"B5 ran on a main path: {b5_draws} launches in "
+          f"draws and CLI runs, {b5_steps} in steps and recover")
     kernels = [{
         "name": "path_kernel", "route": "cuda",
         "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
@@ -2498,14 +2739,40 @@ def main() -> int:
         # The headline numbers are AO's, as for the row form.
         **mesh["b3_bvh"]["ao"], "library_ms": None, "modes": mesh["b3_bvh"],
     }, {
+        # The big-mesh route's Kajiya, Whitted and Cook frames: K1's BVH
+        # form with rays in, one launch per frame.  Launches: the
+        # mesh_demo(5) Kajiya draws of phase 16; the numbers those of one
+        # 1080p x 8 mesh_demo(5) Kajiya frame (phase 15), every mode and
+        # terrain beside them.
+        "name": "path_kernel_bigmesh", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:2366",
+        "launches": mesh["launches"]["path_kernel_bigmesh"],
+        **mesh["route"]["mesh_demo(5)"]["kajiya"], "library_ms": None,
+        "routes": mesh["route"],
+    }, {
+        # The big-mesh route's modes 0-6: B3's BVH form with rays in.
+        # Launches: the mesh_demo(5) draws of modes 0-6 in phase 16; the
+        # numbers those of one mesh_demo(5) AO frame (8 probes).
+        "name": "primary_kernel_bigmesh", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/primary_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:2061",
+        "launches": mesh["launches"]["primary_kernel_bigmesh"],
+        **mesh["route"]["mesh_demo(5)"]["ao"], "library_ms": None,
+    }, {
+        # B5 is on no draw, step or recover: its launches are those of
+        # the main paths (the draws of phase 16, the steps of phases 19
+        # and 20, the recover of phase 21 and the CLI runs of phase 23,
+        # each counted from 0), and read 0.  The numbers are those of its
+        # own check in phase 15 (one 1080p frame of 8 bounce launches on
+        # mesh_demo(3), where the plain version runs on every ray), the
+        # check's own launches under check_launches; the other meshes and
+        # the search-only instance beside them.
         "name": "bigmesh_kernel", "route": "cuda",
         "source": "rvpt_tpu_torch/csrc/bigmesh_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:2366",
-        "launches": mesh["launches"]["bigmesh_kernel"],
-        # ms, plain_ms and bound_ms are for one 1080p frame of 8 bounce
-        # launches on mesh_demo(3), where the plain version runs on every
-        # ray; the other meshes and the search-only instance beside them.
-        **mesh["b5"]["mesh_demo(3)"], "library_ms": None, "b5": mesh["b5"],
+        "launches": b5_draws + b5_steps, **mesh["b5"]["mesh_demo(3)"],
+        "library_ms": None, "b5": mesh["b5"],
     }, {
         # Launches: the mesh_demo(5) Hart draws of phase 16, one march
         # launch per frame; the numbers those of the march over one 1080p
@@ -2541,13 +2808,23 @@ def main() -> int:
         "launches": rabbit_auto["path_kernel"], **grad["k1_bvh_collect"],
         "library_ms": None,
     }, {
+        # K1's hits-only collect instance, the mesh step's records.
         # Launches: one mesh_demo(3) fwd+bwd step; times and bound of one
-        # 1080p frame of 8 collect launches on mesh_demo(5).
+        # 1080p x 8 mesh_demo(5) trace (phase 18).
+        "name": "path_kernel_hits", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
+        "replaces": "rvpt_tpu/ops/pathkernel.py:2366",
+        "launches": main3["path_kernel"], **grad["k1_hits"], "library_ms": None,
+    }, {
+        # B5's collect instance, on no step since its records come from
+        # K1's hits-only instance: launches those of the steps of phases
+        # 19 and 20 and the recover of phase 21 (0); numbers, and the
+        # check's own launches, those of its check in phase 18 (one 1080p
+        # frame of 8 collect launches on mesh_demo(5)).
         "name": "bigmesh_kernel_collect", "route": "cuda",
         "source": "rvpt_tpu_torch/csrc/bigmesh_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:2366",
-        "launches": main3["bigmesh_kernel"], **grad["b5_collect"],
-        "library_ms": None,
+        "launches": b5_steps, **grad["b5_collect"], "library_ms": None,
     }, {
         # Launches: the six PathTracer.trace(stats=True) calls of phase 22;
         # the headline numbers mesh_demo(3)'s Kajiya, every run beside them.

@@ -1,18 +1,32 @@
-"""Before/after timings of the redesigned kernels on one NVIDIA card: B4
-(the Hart march) and K2 (the whole-chain pullback), B6 (the big-mesh Hart
-march) and B7's segment sum, for the tree of rvpt_tpu_torch at ``--tree``
-(the checkout root by default; a parent commit unpacked by ``git
-archive`` into a gitignored directory for "before").  It drives only
+"""Before/after timings of the redesigned kernels on one NVIDIA card: the
+big-mesh route (B5's function folded into one K1 or B3 launch per frame),
+B4 (the Hart march) and K2 (the whole-chain pullback), B6 (the big-mesh
+Hart march) and B7's segment sum, for the tree of rvpt_tpu_torch at
+``--tree`` (the checkout root by default; a parent commit unpacked by
+``git archive`` into a gitignored directory for "before").  It drives only
 entry points that every tree of the port has: ``PathTracer.trace_hart``,
 ``launch_path_kernel``, ``launch_bwd_kernel``, ``Renderer.draw``,
 ``BigMeshTracer.trace_hart``, ``replay_soa.launch_segsum`` and
-``make_fast_kajiya``.
+``make_fast_kajiya`` and ``inverse.recover``.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME]
 
 Run it for both trees in one call, in turns (parent, change, change,
 parent), and compare only within that call.  Each run builds its tree's
 kernels from that tree's ``csrc/`` into that tree's ``build/``.  Prints:
+
+* bigmesh: ``Renderer.draw`` on mesh_demo(5) at 1080p x 8, standard, in
+  each mode 0-9 and the split-screen (AO, Whitted, Hart, Kajiya), and the
+  terrain_demo(225) Kajiya frame: wall time per frame (host clock over
+  synchronised draws) and device time per frame from torch.profiler, with
+  the device time of the K1, B3, B5 and B6 launches apart; the 1080p
+  Cornell Kajiya draw (4 bounces) as the control; one mesh_demo(5)
+  fwd+bwd step (1080p x 8, albedo, emission and vertices): its wall time
+  (host clock over 5 synchronised steps after a warm-up step) and device
+  time, its K1 and B5 launches apart; and ``inverse.recover`` on
+  mesh_demo(3) at 1080p x 8 as chip_smoke.py phase 21 runs it (albedo and
+  emission, two renders per step): wall time per step over 10 steps after
+  a 2-step warm-up run, and one step's device time;
 
 * B7: the segment sum on chip_smoke.py phase 17's three inputs
   (mesh_demo(5)'s 1080p bounce-2 ids with the replay's zero cotangents,
@@ -56,16 +70,45 @@ from chip_smoke import SEG_PARTS, cuda_ms, device_ms
 BWD_PARTS = ("bwd_kernel", "table_sum_kernel")
 
 
-def segsum_inputs(dev, rs, pk, builtin, hd):
-    """The segment sum's inputs: the three of phase 17, then the 7 of a
-    mesh_demo(5) step (captured from the step's own calls), and the step."""
-    import numpy as np
+# The big-mesh route's device operations: K1, B3, B5 and B6's march.
+ROUTE_PARTS = ("path_kernel", "primary_kernel", "bigmesh_kernel", "march_kernel")
+
+
+def mesh5_step(dev, hd, builtin):
+    """One mesh_demo(5) fwd+bwd step at 1080p x 8 (standard, the mean
+    image over albedo, emission and the vertices), a new frame per call."""
     import torch
 
     from rvpt_tpu_torch.core.types import Ray
     from rvpt_tpu_torch.ops.fast_grad import make_fast_kajiya
     from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
     from rvpt_tpu_torch.train import inverse
+
+    mesh5, cam5 = builtin.mesh_demo(5, aspect=hd.aspect, device=dev)
+    pixel, xs, ys = _pixel_grid(hd, dev)
+    ray = jittered_camera_rays(cam5, hd, pixel, xs, ys, 1, 0)
+    ray = Ray(ray.origin.contiguous(), ray.direction.contiguous())
+    trace = make_fast_kajiya(mesh5, 16, 8, style="standard")
+    params = {k: x.detach().clone().requires_grad_(True) for k, x in
+              inverse.trainable_params(mesh5, ("albedo", "emission", "vertices")).items()}
+    frame = [0]
+
+    def step():
+        frame[0] += 1
+        out = trace(inverse.apply_params(mesh5, params), ray.origin, ray.direction,
+                    pixel, frame[0])
+        return torch.autograd.grad(torch.mean(out), list(params.values()))
+
+    return step
+
+
+def segsum_inputs(dev, rs, pk, builtin, hd):
+    """The segment sum's inputs: the three of phase 17, then the 7 of a
+    mesh_demo(5) step (captured from the step's own calls), and the step."""
+    import numpy as np
+    import torch
+
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
 
     inputs = {}
     mesh5, cam5 = builtin.mesh_demo(5, aspect=hd.aspect, device=dev)
@@ -91,20 +134,8 @@ def segsum_inputs(dev, rs, pk, builtin, hd):
                           .astype(np.float32) * np.float32(scale)).to(dev)
     inputs["rows_140000"] = (torch.from_numpy(huge_idx.astype(np.int32)).to(dev), gh,
                              t_huge)
-    del fams, idxs, bt
-
-    ray = Ray(ray.origin.contiguous(), ray.direction.contiguous())
-    trace = make_fast_kajiya(mesh5, 16, 8, style="standard")
-    params = {k: x.detach().clone().requires_grad_(True) for k, x in
-              inverse.trainable_params(mesh5, ("albedo", "emission", "vertices")).items()}
-    frame = [0]
-
-    def step():
-        frame[0] += 1
-        out = trace(inverse.apply_params(mesh5, params), ray.origin, ray.direction,
-                    pixel, frame[0])
-        return torch.autograd.grad(torch.mean(out), list(params.values()))
-
+    del fams, idxs, bt, ray
+    step = mesh5_step(dev, hd, builtin)
     real, seen = rs.segsum, []
 
     def capture(idx, g, t_rows):
@@ -122,10 +153,11 @@ def segsum_inputs(dev, rs, pk, builtin, hd):
     return inputs, step
 
 
-def draw_ms(scene, cam, cfg, modes, bounces, frames):
+def draw_ms(scene, cam, cfg, modes, bounces, frames, names=()):
     """Renderer.draw with the four quadrants in ``modes`` -> (ms per frame
     on the host clock over synchronised draws after a warm-up draw, device
-    ms per frame from torch.profiler)."""
+    ms per frame from torch.profiler, {name: device ms per frame of the
+    operations whose names hold it})."""
     import torch
 
     from rvpt_tpu_torch import RenderSettings
@@ -144,8 +176,8 @@ def draw_ms(scene, cam, cfg, modes, bounces, frames):
     r.flush()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / frames * 1e3
-    _, device = device_ms(r.draw, frames, ())
-    return wall, device
+    parts, device = device_ms(r.draw, frames, names)
+    return wall, device, parts
 
 
 def hart_timings(dev, hd, pk, builtin):
@@ -169,9 +201,89 @@ def hart_timings(dev, hd, pk, builtin):
     scene, cam = builtin.cornell_box(aspect=hd.aspect, device=dev)
     for name, modes in (("hart", (10,) * 4), ("split", (5, 7, 10, 9)),
                         ("kajiya", (9,) * 4)):
-        out[f"draw_{name}_ms"], out[f"draw_{name}_device_ms"] = draw_ms(
+        out[f"draw_{name}_ms"], out[f"draw_{name}_device_ms"], _ = draw_ms(
             scene, cam, hd, modes, 4, 16)
     return out
+
+
+def bigmesh_timings(dev, hd, builtin):
+    """The big-mesh route's draws (mesh_demo(5) in modes 0-9 and the
+    split-screen, terrain_demo(225) Kajiya), the Cornell Kajiya draw as the
+    control, and a mesh_demo(5) step's device time."""
+    out = {}
+
+    def entry(wall, device, parts):
+        return {"wall_ms": wall, "device_ms": device,
+                **{f"{k}_ms": v for k, v in parts.items()}}
+
+    scene, cam = builtin.mesh_demo(5, aspect=hd.aspect, device=dev)
+    for mode in range(10):
+        out[f"mesh5_mode{mode}"] = entry(*draw_ms(scene, cam, hd, (mode,) * 4, 8, 8,
+                                                  ROUTE_PARTS))
+    out["mesh5_split"] = entry(*draw_ms(scene, cam, hd, (5, 7, 10, 9), 8, 4,
+                                        ROUTE_PARTS))
+    del scene
+    scene, cam = builtin.terrain_demo(225, aspect=hd.aspect, device=dev)
+    out["terrain_kajiya"] = entry(*draw_ms(scene, cam, hd, (9,) * 4, 8, 4, ROUTE_PARTS))
+    del scene
+    scene, cam = builtin.cornell_box(aspect=hd.aspect, device=dev)
+    out["cornell_kajiya_control"] = entry(*draw_ms(scene, cam, hd, (9,) * 4, 4, 16,
+                                                   ROUTE_PARTS))
+    step = mesh5_step(dev, hd, builtin)
+    out["mesh5_step"] = {"wall_ms": wall_ms(step, 5)}
+    parts, total = device_ms(step, 2, ROUTE_PARTS)
+    out["mesh5_step"].update(device_ms=total, **{f"{k}_ms": v for k, v in parts.items()})
+    del step
+    out["mesh3_recover"] = recover_timings(dev, hd, builtin)
+    return out
+
+
+def wall_ms(fn, iters):
+    """ms per call of ``fn`` on the host clock over ``iters`` synchronised
+    calls, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def recover_timings(dev, hd, builtin):
+    """``inverse.recover`` on mesh_demo(3) at 1080p x 8 as chip_smoke.py
+    phase 21 runs it: wall ms per step over 10 steps after a 2-step
+    warm-up run, and the device time of one 1-step run (the caller's
+    ROUTE_PARTS apart)."""
+    import torch
+
+    from rvpt_tpu_torch import RenderSettings
+    from rvpt_tpu_torch.render import render_sample_fast_chw
+    from rvpt_tpu_torch.train import inverse
+
+    mesh3, cam3 = builtin.mesh_demo(3, aspect=hd.aspect, device=dev)
+    st = RenderSettings(max_bounces=8, aa=1, style="standard")
+    mats = mesh3.materials
+    init = inverse.apply_params(mesh3, {
+        "materials.albedo": torch.full_like(mats.albedo, 0.5),
+        "materials.emission": mats.emission * 1.2})
+    target = sum(render_sample_fast_chw(mesh3, cam3, st, hd, f) for f in range(4)) / 4
+
+    def run(steps):
+        return inverse.recover(init, cam3, st, hd, None, target, steps=steps,
+                               learning_rate=3e-2)
+
+    run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(10)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 10 * 1e3
+    parts, total = device_ms(lambda: run(1), 2, ROUTE_PARTS)
+    return {"wall_ms_per_step": wall, "device_ms_per_step": total,
+            **{f"{k}_ms": v for k, v in parts.items()}}
 
 
 def bwd_timings(dev, hd, pk, builtin):
@@ -226,42 +338,11 @@ def bwd_timings(dev, hd, pk, builtin):
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--label", default=None)
-    a = ap.parse_args()
-    tree = os.path.abspath(a.tree)
-    sys.path.insert(0, tree)
-
+def b7_timings(rec, label, dev, rs, pk, builtin, hd):
+    """B7's segment sum on its inputs and inside a mesh_demo(5) step."""
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_ab: no CUDA device")
-    from rvpt_tpu_torch import FilmConfig
-    from rvpt_tpu_torch.ops import build
-    from rvpt_tpu_torch.ops import pathkernel as pk
-    from rvpt_tpu_torch.ops import replay_soa as rs
-    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
-    from rvpt_tpu_torch.scene import builtin
-
-    got_tree = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(pk.__file__))))
-    if got_tree != tree:
-        raise SystemExit(f"kernel_ab: imported {got_tree}, not {tree}")
-    label = a.label or os.path.basename(tree)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[ab] {label}: tree {tree} [{smi}]")
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    build.build_all(("bigmesh_hart", "replay_lookup", "bigmesh_kernel"))
-    print(f"[ab] {label}: built in {time.perf_counter() - t0:.1f} s")
-    rec = {"label": label, "card": smi, "b7": {}, "b6": {}, "b4": {}, "k2": {}}
-    hd = FilmConfig(1920, 1080)
-
-    # ---- B7
+    rec["b7"] = {}
     inputs, step = segsum_inputs(dev, rs, pk, builtin, hd)
     for name, (idx, g, t) in inputs.items():
         c = g.shape[0]
@@ -281,21 +362,68 @@ def main() -> int:
     del inputs, step
     torch.cuda.empty_cache()
 
-    # ---- B6
+
+def b6_timings(dev, hd, pk, builtin):
+    """B6's mesh_demo(5) Hart frame through BigMeshTracer.trace_hart."""
+    import torch
+
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
+
     scene, cam = builtin.mesh_demo(5, aspect=hd.aspect, device=dev)
     bt = pk.BigMeshTracer(scene)
     pixel, xs, ys = _pixel_grid(hd, dev)
     ray = jittered_camera_rays(cam, hd, pixel, xs, ys, 1, 0)
     o, d = ray.origin.contiguous(), ray.direction.contiguous()
     val = bt.trace_hart(pixel, o, d)
-    rec["b6"] = {"frame_ms": [cuda_ms(lambda: bt.trace_hart(pixel, o, d), 3)
-                              for _ in range(2)],
-                 "value_mean": val[0].mean().item()}
-    print(f"[ab] {label} B6: {json.dumps(rec['b6'])}")
+    out = {"frame_ms": [cuda_ms(lambda: bt.trace_hart(pixel, o, d), 3) for _ in range(2)],
+           "value_mean": val[0].mean().item()}
     del bt, scene, pixel, ray, o, d, val
     torch.cuda.empty_cache()
+    return out
 
-    build.build_all(("hart_kernel", "bwd_kernel", "path_kernel", "primary_kernel"))
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--label", default=None)
+    a = ap.parse_args()
+    tree = os.path.abspath(a.tree)
+    sys.path.insert(0, tree)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    from rvpt_tpu_torch import FilmConfig
+    from rvpt_tpu_torch.ops import build
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops import replay_soa as rs
+    from rvpt_tpu_torch.scene import builtin
+
+    got_tree = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(pk.__file__))))
+    if got_tree != tree:
+        raise SystemExit(f"kernel_ab: imported {got_tree}, not {tree}")
+    label = a.label or os.path.basename(tree)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"[ab] {label}: tree {tree} [{smi}]")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build.build_all(("bigmesh_hart", "replay_lookup", "bigmesh_kernel", "path_kernel",
+                     "primary_kernel", "hart_kernel", "bwd_kernel"))
+    print(f"[ab] {label}: built in {time.perf_counter() - t0:.1f} s")
+    rec = {"label": label, "card": smi}
+    hd = FilmConfig(1920, 1080)
+
+    rec["bigmesh"] = bigmesh_timings(dev, hd, builtin)
+    for k, v in rec["bigmesh"].items():
+        print(f"[ab] {label} bigmesh {k}: {json.dumps(v)}")
+    torch.cuda.empty_cache()
+    b7_timings(rec, label, dev, rs, pk, builtin, hd)
+    rec["b6"] = b6_timings(dev, hd, pk, builtin)
+    print(f"[ab] {label} B6: {json.dumps(rec['b6'])}")
     rec["b4"] = hart_timings(dev, hd, pk, builtin)
     print(f"[ab] {label} B4: {json.dumps(rec['b4'])}")
     rec["k2"] = bwd_timings(dev, hd, pk, builtin)

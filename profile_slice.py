@@ -15,17 +15,18 @@ Cornell box that is the headline step (bench.py:63-90 on the port,
 chip_smoke.py phase 9) over ``trainable_params`` (albedo, emission): camera
 rays, K1 with records, K2 and its table sum, and the autograd glue.  On a
 mesh it is the mesh step of bench.py:125-160 (chip_smoke.py phase 19) over
-albedo, emission and the vertices: on a big mesh B5's collect instance per
-bounce, then the SoA replay with the B7 gather and segment sum; on rabbit
-K1's BVH form with records, then K2.  Prints:
+albedo, emission and the vertices: on a big mesh K1's hits-only collect
+instance (one launch), then the SoA replay with the B7 gather and segment
+sum; on rabbit K1's BVH form with records, then K2.  Prints:
 
 * wall ms per frame or step without the profiler, timed with CUDA events
   over ``--frames`` iterations, ``--repeats`` times;
 * from one torch.profiler trace of ``--frames`` iterations: device time
   per iteration, split by kernel (display: each kernel of the route and
   the rest;
-  fwd+bwd: K1 with records, K2, K2's table sum, B5, B7's gather, segment
-  sum and its rounding pass, and the glue), device
+  fwd+bwd: K1 with records, K2, K2's table sum, B5 (no step launches it
+  since the big-mesh route's redesign), B7's gather, segment sum and its
+  rounding pass, and the glue), device
   operations and host-to-device copies per iteration by name, the device's
   idle share of the traced window (1 - union of device intervals /
   window), and an estimate of the idle share without the profiler (1 -

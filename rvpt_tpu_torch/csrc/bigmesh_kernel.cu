@@ -24,6 +24,14 @@
 // also writes each ray's node and triangle tests as int32[2,N]; it serves
 // the bounds of chip_smoke.py and no display path.
 //
+// No display frame, training step or recover launches this kernel any more:
+// K1's and B3's BVH forms (path_kernel.cu, primary_kernel.cu) serve the big
+// meshes with rays passed in, one launch per frame, and K1's hits-only
+// collect instance writes the gradient's hit records in one launch.  The
+// kernel stays as the per-bounce route BigMeshTracer.bounce and .search
+// expose and chip_smoke.py checks, and for its counting instance, which
+// every BVH-form bound counts the walk with.
+//
 // The TPU mechanism is not carried over: no chunk DMAs or SMEM clusters, no
 // per-tile chunk work lists (_bigmesh_chunk_worklist :2734), no wavefront
 // sort (_bigmesh_sort_key :2706).  None of them changes a ray's result (a

@@ -1,6 +1,6 @@
-// The per-ray BVH walk of the BVH scenes' searches: the BVH form of K1
-// (path_kernel.cu) and B3 (primary_kernel.cu) and the big-mesh kernel B5
-// (bigmesh_kernel.cu).  It replaces the cluster-culled triangle searches of
+// The per-ray BVH walk of the BVH scenes' searches, big meshes included:
+// the BVH form of K1 (path_kernel.cu) and B3 (primary_kernel.cu) and the
+// big-mesh kernel B5 (bigmesh_kernel.cu).  It replaces the cluster-culled triangle searches of
 // rvpt_tpu/ops/pathkernel.py (_culled_tris :311 for K1's and B3's culled
 // form, _culled_tris_rows :472 for the big-mesh kernels): per-tile work
 // lists over SMEM cluster boxes there; here one thread walks the tree for

@@ -12,7 +12,13 @@
 // memory and triangles searched first, and the BVH form, the port of K1's
 // culled form (meta["culled"], _culled_tris :311), which stages only the
 // spheres, planes and materials and walks the tree for the triangles last
-// (bvh_search.cuh):
+// (bvh_search.cuh).  The BVH form also serves the big meshes (more than
+// 1,024 triangles), with their camera rays passed in: there it replaces the
+// big-mesh kernels B5 (make_bigmesh_dma_kernel :2366 and
+// make_bigmesh_kernel :2061, BigMeshTracer :2927), which run one launch per
+// bounce or search with the ray state in device memory between launches;
+// here the whole path, shadow searches and Cook's tail included, is one
+// launch per frame with the state in registers.  The three integrators:
 //
 // - Kajiya (_shade :925, _shade_geom :857): the sky with d.y shifted into
 //   [0,1], emission gathered along the path, Lambert/mirror/dielectric
@@ -42,6 +48,14 @@
 // ray-bounce (498 MB at 1920x1080 x 4 bounces), is the collect mode's main
 // cost.  Collecting adds only stores, so the radiance is unchanged.
 //
+// Hits-only collect (the Kajiya HITS instances of both search forms, for
+// the mesh gradient's SoA replay, which reads nothing of the record but
+// the hits): rec_i alone, written exactly as the full collect writes it,
+// 8 bytes per ray-bounce (133 MB at 1920x1080 x 8 bounces).  It replaces
+// the big-mesh kernel's collect instance (make_bigmesh_dma_kernel(collect=
+// True), outputs :2568-2600), one launch per bounce there, with one launch
+// per trace.
+//
 // What bounds it on this card: arithmetic.  The scene tables are tiny
 // (Cornell: 12x17 + 2x5 + 6x8 floats, under 1 KB) and are staged into
 // shared memory at block start, where every lane of a warp reads the same
@@ -53,9 +67,9 @@
 // KB on Hopper).  A lane that has terminated leaves the bounce loop at
 // once, which is exact: a dead lane adds nothing.  The BVH form instead
 // reads 32-byte nodes and 68-byte triangle rows from device memory along
-// each ray's own walk (mostly from L2: rabbit's tree and rows are 19 KB);
-// neighbouring rays walk similar paths, but the warp diverges where they
-// part.
+// each ray's own walk (mostly from L2: rabbit's tree and rows are 19 KB,
+// mesh_demo(5)'s 2.7 MB); neighbouring rays walk similar paths, but the
+// warp diverges where they part.
 //
 // The counting instances (STATS, BVH form only: Kajiya, Whitted, Cook and
 // Kajiya with records) replace the stats outputs of the culled form
@@ -96,6 +110,9 @@ namespace {
 using namespace scene;
 
 constexpr int KAJIYA = 0, WHITTED = 1, COOK = 2;  // pathkernel.INTEGS
+// What a Kajiya instance records per bounce: nothing, the 13 fields and the
+// hit, or the hit alone.
+constexpr int NO_RECORD = 0, FULL_RECORD = 1, HITS_RECORD = 2;
 constexpr int THREADS = 256;
 constexpr int CULL_K = 16;       // pathkernel.CULL_K
 constexpr int CULL_TILE = 8192;  // pathkernel.CULL_TILE (a multiple of 32)
@@ -166,7 +183,7 @@ __global__ void stats_sum_kernel(const uint32_t* __restrict__ listed,
   out[2 * grid + tile] = (float)np;
 }
 
-template <int INTEG, bool COLLECT, bool BVH, bool STATS>
+template <int INTEG, int COLLECT, bool BVH, bool STATS>
 __global__ void __launch_bounds__(THREADS) path_kernel(
     const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
     int n_mat, const float* __restrict__ nodes,
@@ -251,9 +268,9 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   };
 
   for (int bounce = 0; bounce < max_bounces && active; ++bounce) {
-    if (COLLECT) write_fields(bounce, 1.0f);
+    if (COLLECT == FULL_RECORD) write_fields(bounce, 1.0f);
     const Hit h = search(bounce, ox, oy, oz, dx, dy, dz);
-    if (COLLECT) {
+    if (COLLECT != NO_RECORD) {
       rec_i[((int64_t)bounce * 2) * n + i] = h.fam;
       rec_i[((int64_t)bounce * 2 + 1) * n + i] = h.idx;
       recorded = bounce + 1;
@@ -327,9 +344,9 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     }
     active = false;
   }
-  if (COLLECT) {  // the lane ended early: frozen state, no hits
+  if (COLLECT != NO_RECORD) {  // the lane ended early: frozen state, no hits
     for (int b = recorded; b < max_bounces; ++b) {
-      write_fields(b, 0.0f);
+      if (COLLECT == FULL_RECORD) write_fields(b, 0.0f);
       rec_i[((int64_t)b * 2) * n + i] = -1;
       rec_i[((int64_t)b * 2 + 1) * n + i] = -1;
     }
@@ -344,7 +361,7 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   out[2 * (int64_t)n + i] = rb;
 }
 
-template <int INTEG, bool COLLECT, bool BVH, bool STATS>
+template <int INTEG, int COLLECT, bool BVH, bool STATS>
 int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
            const float* nodes, const float* cam, const int64_t* pix_ids,
            const float* ox, const float* oy, const float* oz, const float* dx,
@@ -379,8 +396,9 @@ int rvpt_max_table_floats() { return max_table_floats(); }
 
 // Launch on `stream`; returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for an unknown integrator, records asked of Whitted
-// or Cook, or counters asked of the row form.  With rec_f and rec_i
-// non-null a Kajiya collect instance writes the record; with `nodes`
+// or Cook, counters asked of the row form or with hits only.  With rec_f
+// and rec_i non-null a Kajiya collect instance writes the record, with
+// rec_i alone its hits-only instance the hits; with `nodes`
 // non-null (pack_bvh's rows) the BVH form runs, collect or not; with
 // st_listed and st_passed non-null (zeroed int32[grid][slots][ceil(n_clu /
 // 32)] masks, pathkernel.stats_slots) its counting instance also sets the
@@ -396,10 +414,11 @@ int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
                     int integ, void* stream, int n_clu, const float* boxes,
                     uint32_t* st_listed, uint32_t* st_passed) {
   if (n <= 0) return 0;
-  const bool collect = rec_f != nullptr && rec_i != nullptr;
+  const bool collect = rec_i != nullptr;
+  const bool hits_only = collect && rec_f == nullptr;
   const bool bvh_form = nodes != nullptr;
   const bool stats = st_listed != nullptr && st_passed != nullptr;
-  if (stats && (!bvh_form || boxes == nullptr || n_clu <= 0)) {
+  if (stats && (!bvh_form || boxes == nullptr || n_clu <= 0 || hits_only)) {
     return (int)cudaErrorInvalidValue;
   }
 #define RVPT_LAUNCH(I, C, B, S)                                               \
@@ -410,24 +429,28 @@ int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
                      st_passed)
   if (collect) {
     if (integ != KAJIYA) return (int)cudaErrorInvalidValue;
-    if (stats) return RVPT_LAUNCH(KAJIYA, true, true, true);
-    return bvh_form ? RVPT_LAUNCH(KAJIYA, true, true, false)
-                    : RVPT_LAUNCH(KAJIYA, true, false, false);
+    if (hits_only) {
+      return bvh_form ? RVPT_LAUNCH(KAJIYA, HITS_RECORD, true, false)
+                      : RVPT_LAUNCH(KAJIYA, HITS_RECORD, false, false);
+    }
+    if (stats) return RVPT_LAUNCH(KAJIYA, FULL_RECORD, true, true);
+    return bvh_form ? RVPT_LAUNCH(KAJIYA, FULL_RECORD, true, false)
+                    : RVPT_LAUNCH(KAJIYA, FULL_RECORD, false, false);
   }
   if (integ == KAJIYA) {
-    if (stats) return RVPT_LAUNCH(KAJIYA, false, true, true);
-    return bvh_form ? RVPT_LAUNCH(KAJIYA, false, true, false)
-                    : RVPT_LAUNCH(KAJIYA, false, false, false);
+    if (stats) return RVPT_LAUNCH(KAJIYA, NO_RECORD, true, true);
+    return bvh_form ? RVPT_LAUNCH(KAJIYA, NO_RECORD, true, false)
+                    : RVPT_LAUNCH(KAJIYA, NO_RECORD, false, false);
   }
   if (integ == WHITTED) {
-    if (stats) return RVPT_LAUNCH(WHITTED, false, true, true);
-    return bvh_form ? RVPT_LAUNCH(WHITTED, false, true, false)
-                    : RVPT_LAUNCH(WHITTED, false, false, false);
+    if (stats) return RVPT_LAUNCH(WHITTED, NO_RECORD, true, true);
+    return bvh_form ? RVPT_LAUNCH(WHITTED, NO_RECORD, true, false)
+                    : RVPT_LAUNCH(WHITTED, NO_RECORD, false, false);
   }
   if (integ == COOK) {
-    if (stats) return RVPT_LAUNCH(COOK, false, true, true);
-    return bvh_form ? RVPT_LAUNCH(COOK, false, true, false)
-                    : RVPT_LAUNCH(COOK, false, false, false);
+    if (stats) return RVPT_LAUNCH(COOK, NO_RECORD, true, true);
+    return bvh_form ? RVPT_LAUNCH(COOK, NO_RECORD, true, false)
+                    : RVPT_LAUNCH(COOK, NO_RECORD, false, false);
   }
 #undef RVPT_LAUNCH
   return (int)cudaErrorInvalidValue;

@@ -4,7 +4,8 @@
 //
 // Replaces the Pallas kernel B3 of rvpt_tpu/ops/pathkernel.py
 // (make_primary_kernel :3390, launched by _primary_call :3445): an
-// in-kernel camera ray, one closest-hit search over triangles, spheres and
+// in-kernel camera ray or one passed in, one closest-hit search over
+// triangles, spheres and
 // planes (scene_search.cuh, the search K1 runs), then the finalize of
 // _primary_finalize (:3289-3387), each mode its own template instance:
 // binary, color, depth (rsqrt(|d|^2)/max(t, 1e-30)), normal, Utah (raw d.y
@@ -14,7 +15,12 @@
 // Each mode has two search forms (BVH), as the whole-path kernel: the row
 // form and the BVH form, the port of B3's culled form (_primary_call's
 // cull_tables), which walks the tree for the triangles after the spheres
-// and planes (bvh_search.cuh).
+// and planes (bvh_search.cuh).  The BVH form with rays passed in serves the
+// big meshes (more than 1,024 triangles), whose camera rays are made by the
+// caller: there it replaces the big-mesh kernel B5's search-only instance
+// (make_bigmesh_kernel :2061, BigMeshTracer.trace_primary :3143), one
+// launch per search with the finalize between launches, by one launch per
+// frame.
 // The TPU layout is not carried over: no [8,1024] tiles, no one-hot table
 // fetches.  Pixel ids are optional: the raster 0..n-1, or a split-screen
 // rectangle's ids.
@@ -22,7 +28,7 @@
 // What bounds it on this card: arithmetic.  The tables (under 1 KB for the
 // Cornell box) sit in shared memory, read as broadcasts; per pixel the
 // kernel writes f32[3] (24.9 MB at 1920x1080) and reads an int64 id when
-// given.  AO's probe searches (nrays per hit pixel) and Appel's shadow
+// given, and the six f32 ray components when they are passed in.  AO's probe searches (nrays per hit pixel) and Appel's shadow
 // search multiply the search work; a pixel that missed casts none.  The
 // BVH form reads the nodes and triangle rows along each ray's walk from
 // device memory.
@@ -48,12 +54,15 @@ __global__ void __launch_bounds__(THREADS) primary_kernel(
     const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
     int n_mat, const float* __restrict__ nodes,
     const float* __restrict__ cam_in,
-    const int64_t* __restrict__ pix_ids, float* __restrict__ out, int n,
+    const int64_t* __restrict__ pix_ids, const float* __restrict__ ox_in,
+    const float* __restrict__ oy_in, const float* __restrict__ oz_in,
+    const float* __restrict__ dx_in, const float* __restrict__ dy_in,
+    const float* __restrict__ dz_in, float* __restrict__ out, int n,
     uint32_t frame, uint32_t salt_base, uint32_t jitter_salt, int cam_mode,
     float mint, int nrays, float inv_nrays) {
   extern __shared__ float smem[];
-  // The BVH form stages all but the triangles, which its walk reads from
-  // device memory.
+  // cam_in is null when the rays are passed in.  The BVH form stages all
+  // but the triangles, which its walk reads from device memory.
   const Tables s =
       BVH ? stage(smem, cam_in, tables + TRI_STRIDE * n_tri, 0, n_sph, n_pln,
                   n_mat)
@@ -72,7 +81,17 @@ __global__ void __launch_bounds__(THREADS) primary_kernel(
   const uint32_t pix = pix_ids ? (uint32_t)pix_ids[i] : (uint32_t)i;
 
   float ox, oy, oz, dx, dy, dz;
-  camera_ray(smem, cam_mode, pix, frame, jitter_salt, ox, oy, oz, dx, dy, dz);
+  if (ox_in) {
+    ox = ox_in[i];
+    oy = oy_in[i];
+    oz = oz_in[i];
+    dx = dx_in[i];
+    dy = dy_in[i];
+    dz = dz_in[i];
+  } else {
+    camera_ray(smem, cam_mode, pix, frame, jitter_salt, ox, oy, oz, dx, dy,
+               dz);
+  }
   const Hit h = search(ox, oy, oz, dx, dy, dz);
   const bool hit = h.fam >= 0;
   const float hit_f = hit ? 1.0f : 0.0f;
@@ -152,9 +171,9 @@ __global__ void __launch_bounds__(THREADS) primary_kernel(
 template <int MODE, bool BVH>
 int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
            const float* nodes, const float* cam, const int64_t* pix_ids,
-           float* out, int n, uint32_t frame, uint32_t salt_base,
-           uint32_t jitter_salt, int cam_mode, float mint, int nrays,
-           float inv_nrays, void* stream) {
+           const float* const* rays, float* out, int n, uint32_t frame,
+           uint32_t salt_base, uint32_t jitter_salt, int cam_mode, float mint,
+           int nrays, float inv_nrays, void* stream) {
   const size_t smem =
       sizeof(float) * staged_floats(BVH ? 0 : n_tri, n_sph, n_pln, n_mat);
   if (smem > 48 * 1024) {
@@ -165,8 +184,9 @@ int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
   }
   const int blocks = (n + THREADS - 1) / THREADS;
   primary_kernel<MODE, BVH><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      tables, n_tri, n_sph, n_pln, n_mat, nodes, cam, pix_ids, out, n, frame,
-      salt_base, jitter_salt, cam_mode, mint, nrays, inv_nrays);
+      tables, n_tri, n_sph, n_pln, n_mat, nodes, cam, pix_ids, rays[0],
+      rays[1], rays[2], rays[3], rays[4], rays[5], out, n, frame, salt_base,
+      jitter_salt, cam_mode, mint, nrays, inv_nrays);
   return (int)cudaGetLastError();
 }
 
@@ -177,25 +197,32 @@ extern "C" {
 int rvpt_max_table_floats() { return max_table_floats(); }
 
 // Launch debug mode `mode` (0-6) on `stream`, in the BVH form when
-// `nodes` (pack_bvh's rows) is non-null; returns cudaGetLastError() of the
-// launch, or cudaErrorInvalidValue for another mode.
+// `nodes` (pack_bvh's rows) is non-null, on the rays ox..dz (f32[n] each)
+// when `ox` is non-null, else on camera rays from `cam`; returns
+// cudaGetLastError() of the launch, or cudaErrorInvalidValue for another
+// mode.
 int rvpt_primary(const float* tables, int n_tri, int n_sph, int n_pln,
                  int n_mat, const float* nodes, const float* cam,
-                 const int64_t* pix_ids, float* out, int n, uint32_t frame,
+                 const int64_t* pix_ids, const float* ox, const float* oy,
+                 const float* oz, const float* dx, const float* dy,
+                 const float* dz, float* out, int n, uint32_t frame,
                  uint32_t salt_base, uint32_t jitter_salt, int mode,
                  int cam_mode, float mint, int nrays, float inv_nrays,
                  void* stream) {
   if (n <= 0) return 0;
+  const float* const rays[6] = {ox, oy, oz, dx, dy, dz};
 #define RVPT_CASE(M)                                                         \
   case M:                                                                    \
     return nodes ? launch<M, true>(tables, n_tri, n_sph, n_pln, n_mat,     \
-                                   nodes, cam, pix_ids, out, n, frame,     \
-                                   salt_base, jitter_salt, cam_mode, mint, \
-                                   nrays, inv_nrays, stream)               \
+                                   nodes, cam, pix_ids, rays, out, n,      \
+                                   frame, salt_base, jitter_salt,          \
+                                   cam_mode, mint, nrays, inv_nrays,       \
+                                   stream)                                 \
                  : launch<M, false>(tables, n_tri, n_sph, n_pln, n_mat,    \
-                                    nodes, cam, pix_ids, out, n, frame,    \
-                                    salt_base, jitter_salt, cam_mode,      \
-                                    mint, nrays, inv_nrays, stream);
+                                    nodes, cam, pix_ids, rays, out, n,     \
+                                    frame, salt_base, jitter_salt,         \
+                                    cam_mode, mint, nrays, inv_nrays,      \
+                                    stream);
   switch (mode) {
     RVPT_CASE(0)
     RVPT_CASE(1)

@@ -12,10 +12,11 @@
 
 That is the "pallas" route of the JAX package (up to 1,024 triangles, with
 or without a BVH).  Its "soa" route, for big meshes and larger scenes,
-pairs the tracer with records (K1, or B5's collect instance on a big mesh)
-with autograd through ``ops.replay_soa.kajiya_replay_soa`` on the recorded
-hits, whose triangle-table lookups run the gather and segment-sum kernels
-(B7) on the card.
+pairs the tracer with hit records (K1's hits-only collect instance, in its
+BVH form on a BVH scene, one launch per trace) with autograd through
+``ops.replay_soa.kajiya_replay_soa`` on the recorded hits, whose
+triangle-table lookups run the gather and segment-sum kernels (B7) on the
+card.
 
 ``kajiya_from_hits`` is the differentiable replay from hit records through
 ``isect_from_hit``: the oracle both are held against.
@@ -33,8 +34,8 @@ from ..models import brdf
 from ..models.integrators import _bounce_rands, _sky
 from ..scene.materials import gather
 from .intersect import isect_from_hit
-from .pathkernel import (MAX_BWD_TRIANGLES, BigMeshTracer, PathTracer, _pixels,
-                         _raster, bwd_path, is_bigmesh, scene_grads_from_tables)
+from .pathkernel import (MAX_BWD_TRIANGLES, PathTracer, _pixels, _raster, bwd_path,
+                         is_bigmesh, scene_grads_from_tables)
 from .replay_soa import kajiya_replay_soa
 
 SCENE_LEAVES = ("tri_v0", "tri_v1", "tri_v2", "sph_center", "sph_radius",
@@ -101,7 +102,7 @@ class _PathTrace(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, scene, pixel, frame, salt, origin, direction,
                 *leaves):
-        salt_base, max_bounces, style, _ = spec
+        salt_base, max_bounces, style = spec
         s = _with_leaves(scene, [x.detach() for x in leaves])
         (r, g, b), record = PathTracer(s).trace(
             pixel, origin.detach(), direction.detach(), frame, salt_base + salt,
@@ -112,7 +113,7 @@ class _PathTrace(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        salt_base, _, style, _ = ctx.spec
+        salt_base, _, style = ctx.spec
         pixel = ctx.pixel if isinstance(ctx.pixel, torch.Tensor) else None
         gtabs, go, gd = bwd_path(ctx.scene, ctx.record, ctx.frame, g,
                                  salt_base + ctx.salt, style, pixel)
@@ -122,35 +123,28 @@ class _PathTrace(torch.autograd.Function):
 
 
 class _SoaTrace(torch.autograd.Function):
-    """Radiance f32[N,3] of the tracer with hit records (K1 in either form,
-    or B5's collect instance on a big mesh); backward = autograd through
-    the SoA replay from those records (``ops.replay_soa``)."""
+    """Radiance f32[N,3] of the tracer with hit records (K1's hits-only
+    collect instance, in its BVH form on a BVH scene, a big mesh
+    included); backward = autograd through the SoA replay from those
+    records (``ops.replay_soa``)."""
 
     @staticmethod
     def forward(ctx, spec, scene, pixel, frame, salt, origin, direction,
                 *leaves):
-        salt_base, max_bounces, style, bigmesh = spec
+        salt_base, max_bounces, style = spec
         s = _with_leaves(scene, [x.detach() for x in leaves])
         o, d = origin.detach(), direction.detach()
-        if bigmesh:
-            rgb, (fams, idxs) = BigMeshTracer(s).trace(
-                _raster_ids(pixel, o.device), o, d, frame, salt_base + salt,
-                max_bounces, style=style, collect_hits=True)
-        else:
-            pt = PathTracer(s)
-            (r, g, b), record = pt.trace(
-                pixel, o, d, frame, salt_base + salt, max_bounces, style=style,
-                collect_states=True)
-            rgb = torch.stack([r, g, b])
-            fams, idxs = pt.hits_from_record(record)
+        (r, g, b), (fams, idxs) = PathTracer(s).trace(
+            pixel, o, d, frame, salt_base + salt, max_bounces, style=style,
+            collect_hits=True)
         ctx.save_for_backward(o, d, fams, idxs, *leaves)
         ctx.spec, ctx.scene, ctx.pixel, ctx.frame, ctx.salt = (
             spec, s, pixel, frame, salt)
-        return rgb.T
+        return torch.stack([r, g, b], dim=-1)
 
     @staticmethod
     def backward(ctx, g):
-        salt_base, _, style, _ = ctx.spec
+        salt_base, _, style = ctx.spec
         o, d, fams, idxs, *leaves = ctx.saved_tensors
         want = ctx.needs_input_grad[5:]
         if not any(want):
@@ -190,8 +184,8 @@ def make_fast_kajiya(scene_template, salt_base: int, max_bounces: int,
         without a BVH or in K1's BVH form;
       - "soa": autograd through the SoA replay of the hit records
         (``ops.replay_soa``: on the card its triangle lookups run the
-        gather and segment-sum kernels), from K1 or, on a big mesh, from
-        B5's collect instance;
+        gather and segment-sum kernels), from K1's hits-only collect
+        instance (its BVH form on a BVH scene, big meshes included);
       - "auto": the JAX rule (:106-109): "soa" for a big mesh
         (``pathkernel.is_bigmesh``), else "pallas" up to 1,024 triangles
         and "soa" past them."""
@@ -206,7 +200,7 @@ def make_fast_kajiya(scene_template, salt_base: int, max_bounces: int,
         raise ValueError("the kernel pullback serves no big mesh "
                          f"({scene_template.num_triangles} triangles, BVH): "
                          "use backward=\"soa\"")
-    spec = (int(salt_base), int(max_bounces), style, bigmesh)
+    spec = (int(salt_base), int(max_bounces), style)
     paired = _PathTrace if backward == "pallas" else _SoaTrace
 
     def trace(scene, origin, direction, pixel, frame, salt=0):
@@ -214,11 +208,6 @@ def make_fast_kajiya(scene_template, salt_base: int, max_bounces: int,
         if not (torch.is_grad_enabled()
                 and any(x.requires_grad for x in (origin, direction, *leaves))):
             # Nothing to differentiate: the tracer without records.
-            if bigmesh:
-                rgb = BigMeshTracer(scene).trace(
-                    _raster_ids(pixel, origin.device), origin, direction, frame,
-                    spec[0] + salt, spec[1], style=style)
-                return rgb.T
             r, g, b = PathTracer(scene).trace(
                 pixel, origin, direction, frame, spec[0] + salt, spec[1],
                 style=style)

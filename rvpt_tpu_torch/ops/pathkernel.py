@@ -36,12 +36,15 @@ launches the kernel or raises.  Scene tables are packed in the row form
 (one f32 row per primitive) in the field orders below; a BVH scene's
 triangles are in the tree's leaf order, and K1 and B3 on it (their BVH
 form, the port of the culled form) and B5 search them by a per-ray walk of
-the ``pack_bvh`` nodes, after the spheres and planes.  A trace's record
-(``PathRecord``, from K1 in either form) is flat and SoA: per bounce the 13
-bounce-input fields and the (family, index) hit record, -1 where the lane
-was dead or missed; B5's collect instance writes the same hit record per
-bounce launch.  A BVH scene's triangle indices are leaf-order ids, the
-rows of its own tables.
+the ``pack_bvh`` nodes, after the spheres and planes.  ``BigMeshTracer``
+runs a big mesh through K1's and B3's BVH forms with its rays passed in,
+one launch per frame; B5's per-bounce instances stay as its ``bounce`` and
+``search`` entries.  A trace's record (``PathRecord``, from K1 in either
+form) is flat and SoA: per bounce the 13 bounce-input fields and the
+(family, index) hit record, -1 where the lane was dead or missed; K1's
+hits-only collect instance writes the hit records alone, and B5's collect
+instance the same hit record per bounce launch.  A BVH scene's triangle
+indices are leaf-order ids, the rows of its own tables.
 """
 
 from __future__ import annotations
@@ -866,7 +869,9 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
     form.  Mirrors ``_search``, ``_shade``, ``_shade_whitted``,
     ``_shade_cook``, the Cook tail (:1235-1253) and the ``collect`` records
     (:1202-1215) of the JAX kernel line for line; records are a
-    Kajiya-only path (:1718).  A dict passed as ``work`` gets the lanes of
+    Kajiya-only path (:1718).  ``collect="hits"`` (K1's hits-only collect
+    instance) returns (f32[3, N], int32[B, 2, N]): only the record's hits,
+    as ``PathRecord.hits``.  A dict passed as ``work`` gets the lanes of
     the work the kernel does on this data, for a bound: "search" every
     closest-hit search of a live lane (bounce, Whitted shadow and Cook tail
     searches), "scatter" every hit that runs the scatter shading and its
@@ -876,6 +881,8 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
     (``_plain_search``)."""
     if integ not in INTEGS:
         raise ValueError(f"unknown integrator {integ!r}")
+    if collect not in (False, True, "hits"):
+        raise ValueError(f"collect must be False, True or 'hits', got {collect!r}")
     if integ != "kajiya" and collect:
         raise ValueError("hit records are a Kajiya-only path")
     search, mat = _plain_search(tables, counts, mint, tris_last, on_search)
@@ -894,7 +901,7 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
     nb = int(max_bounces)
     for b in range(nb):
         active = state[15]
-        if collect:
+        if collect is True:
             rec_fields.append(torch.stack([*state[:12], active.to(torch.float32)]))
         count("search", active)
         winner = search(state[:3], state[3:6], active)
@@ -906,9 +913,13 @@ def trace_plain(tables, counts, pix, frame, salt_base, max_bounces, style,
                                     state, winner, final, search, count)
     out = _finish_plain(integ, style, state, final if nb else None, search, mat,
                         count)
-    if collect:
-        return out, PathRecord(torch.stack(rec_fields), torch.stack(rec_hits))
-    return out
+    if not collect:
+        return out
+    hits = (torch.stack(rec_hits) if nb else
+            torch.empty((0, 2, out.shape[1]), dtype=torch.int32, device=out.device))
+    if collect == "hits":
+        return out, hits
+    return out, PathRecord(torch.stack(rec_fields), hits)
 
 
 def _primary_finalize(mode, nrays, mat, pix, frame, salt_base, rays, winner,
@@ -998,18 +1009,20 @@ def _primary_finalize(mode, nrays, mat, pix, frame, salt_base, rays, winner,
 
 def primary_plain(tables, counts, pix, frame, salt_base, mode, nrays,
                   cam_params, cam_mode=PINHOLE, jitter_salt=0, mint=0.0,
-                  tris_last=False, on_search=None):
+                  tris_last=False, on_search=None, rays=None):
     """The plain PyTorch version of the primary-hit kernel -> f32[3, N]:
-    camera rays from ``pix`` (int64[N]), one closest hit, then the
-    finalize of debug ``mode`` (``PRIMARY_MODES``); AO casts ``nrays``
-    cosine probes with salts ``salt_base + 4 i``.  ``tris_last`` searches
-    as B3's BVH form does; ``on_search`` sees the rays of every search
-    (``_plain_search``)."""
+    camera rays from ``pix`` (int64[N]), or the six f32[N] ray components
+    ``rays`` (B3's rays-in form; ``cam_params`` unused), one closest hit,
+    then the finalize of debug ``mode`` (``PRIMARY_MODES``); AO casts
+    ``nrays`` cosine probes with salts ``salt_base + 4 i``.  ``tris_last``
+    searches as B3's BVH form does; ``on_search`` sees the rays of every
+    search (``_plain_search``)."""
     if mode not in PRIMARY_MODES:
         raise ValueError(f"mode {mode} is not a primary-hit mode")
     search, mat = _plain_search(tables, counts, mint, tris_last, on_search)
-    rays = _camera_rays_plain(cam_params.tolist(), cam_mode, pix, frame,
-                              jitter_salt)
+    if rays is None:
+        rays = _camera_rays_plain(cam_params.tolist(), cam_mode, pix, frame,
+                                  jitter_salt)
     winner = search(rays[:3], rays[3:])
     return torch.stack(_primary_finalize(mode, int(nrays), mat, pix, frame,
                                          salt_base, rays, winner, search))
@@ -1237,6 +1250,22 @@ def _check_camera(pix, n, cam_params, dev):
     check_cuda(cam_params, torch.float32, "cam_params", 24, dev)
 
 
+def _check_rays(pix, n, rays, cam_params, dev):
+    """Check a launch's pixel ids and its rays: the six f32[n] components
+    of ``rays``, or camera rays from ``cam_params`` when ``rays`` is None
+    -> (the six ray pointers or Nones, the camera pointer or None)."""
+    if rays is None:
+        _check_camera(pix, n, cam_params, dev)
+        return [None] * 6, cam_params.data_ptr()
+    if pix is not None:
+        check_cuda(pix, torch.int64, "pixel", n, dev)
+    if len(rays) != 6:
+        raise ValueError(f"rays: need six components, got {len(rays)}")
+    for k, r in enumerate(rays):
+        check_cuda(r, torch.float32, f"ray component {k}", n, dev)
+    return [r.data_ptr() for r in rays], None
+
+
 def stats_slots(max_bounces, integ) -> int:
     """Searches per lane a launch may run, one counter slot each: a bounce
     search per bounce, Whitted's shadow search per bounce, Cook's tail."""
@@ -1247,34 +1276,30 @@ def stats_slots(max_bounces, integ) -> int:
 def _launch_path(tables, counts, pix, n, frame, salt_base, max_bounces, style,
                  rays, cam_params, cam_mode, jitter_salt, mint, collect,
                  integ, nodes, cull):
-    """One launch of K1 -> (f32[3, n], ``PathRecord`` or None, f32[3,
-    ceil(n / CULL_TILE)] or None); ``cull`` (``cull_rows``, needs
-    ``nodes``) selects the counting instance and its summing kernel."""
+    """One launch of K1 -> (f32[3, n], ``PathRecord``, int32[B, 2, n]
+    hits (``collect="hits"``) or None, f32[3, ceil(n / CULL_TILE)] or
+    None); ``cull`` (``cull_rows``, needs ``nodes``) selects the counting
+    instance and its summing kernel."""
     if integ not in INTEGS:
         raise ValueError(f"unknown integrator {integ!r}")
     if integ != "kajiya" and collect:
         raise ValueError("hit records are a Kajiya-only path")
+    if collect not in (False, True, "hits"):
+        raise ValueError(f"collect must be False, True or 'hits', got {collect!r}")
+    if collect == "hits" and cull is not None:
+        raise ValueError("the stats counters take the full record, not hits only")
     t, s, p, nm = counts
     dev = tables.device
     lib = _scene_lib(_path_lib, tables, counts, nodes)
-    if rays is None:
-        _check_camera(pix, n, cam_params, dev)
-        ray_ptrs = [None] * 6
-        cam_ptr = cam_params.data_ptr()
-    else:
-        if pix is not None:
-            check_cuda(pix, torch.int64, "pixel", n, dev)
-        for k, r in enumerate(rays):
-            check_cuda(r, torch.float32, f"ray component {k}", n, dev)
-        ray_ptrs = [r.data_ptr() for r in rays]
-        cam_ptr = None
+    ray_ptrs, cam_ptr = _check_rays(pix, n, rays, cam_params, dev)
     nb = int(max_bounces)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     record = None
     if collect:
-        record = PathRecord(
+        hits = torch.empty((nb, 2, n), dtype=torch.int32, device=dev)
+        record = hits if collect == "hits" else PathRecord(
             torch.empty((nb, len(RECORD_FIELDS), n), dtype=torch.float32, device=dev),
-            torch.empty((nb, 2, n), dtype=torch.int32, device=dev))
+            hits)
     n_clu, masks = 0, (None, None)
     if cull is not None:
         if nodes is None:
@@ -1292,8 +1317,8 @@ def _launch_path(tables, counts, pix, n, frame, salt_base, max_bounces, style,
     err = lib.rvpt_path_trace(
         tables.data_ptr(), t, s, p, nm, _ptr(nodes), cam_ptr, _ptr(pix),
         *ray_ptrs, out.data_ptr(),
-        None if record is None else record.fields.data_ptr(),
-        None if record is None else record.hits.data_ptr(), n,
+        record.fields.data_ptr() if isinstance(record, PathRecord) else None,
+        None if record is None else hits.data_ptr(), n,
         int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
         int(jitter_salt) & 0xFFFFFFFF, nb,
         int(style == "standard"), int(cam_mode), float(mint), INTEGS[integ],
@@ -1313,7 +1338,8 @@ def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
                        jitter_salt=0, mint=0.0, collect=False, integ="kajiya",
                        nodes=None):
     """Launch the CUDA kernel -> f32[3, n] on the tables' card, or
-    (f32[3, n], ``PathRecord``) with ``collect``.
+    (f32[3, n], ``PathRecord``) with ``collect``, or (f32[3, n], int32[B,
+    2, n] hits) with ``collect="hits"`` (the hits-only collect instance).
 
     ``pix`` int64[n] pixel ids, or None for the ids 0..n-1 (the raster
     film).  ``nodes`` (``pack_bvh``) selects the BVH form, which walks the
@@ -1356,6 +1382,7 @@ def _primary_lib():
     if not hasattr(lib, "_rvpt_bound"):
         ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
         lib.rvpt_primary.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr,
+                                     ptr, ptr, ptr, ptr, ptr, ptr,
                                      ptr, i32, u32, u32, u32, i32, i32, f32,
                                      i32, f32, ptr]
         lib.rvpt_primary.restype = i32
@@ -1367,11 +1394,12 @@ def _primary_lib():
 
 def launch_primary_kernel(tables, counts, pix, n, frame, salt_base, mode,
                           nrays, cam_params, cam_mode=PINHOLE, jitter_salt=0,
-                          mint=0.0, nodes=None):
+                          mint=0.0, nodes=None, rays=None):
     """Launch the CUDA primary-hit kernel B3 -> f32[3, n] on the tables'
     card.  ``pix`` int64[n] pixel ids, or None for the ids 0..n-1;
-    ``nodes`` (``pack_bvh``) selects the BVH form.  Other arguments as
-    ``primary_plain``.  Counts one launch in
+    ``nodes`` (``pack_bvh``) selects the BVH form; ``rays`` (six contiguous
+    f32[n] components) its rays-in form, which needs no ``cam_params``.
+    Other arguments as ``primary_plain``.  Counts one launch in
     ``launch_primary_kernel.launches``."""
     if mode not in PRIMARY_MODES:
         raise ValueError(f"mode {mode} is not a primary-hit mode")
@@ -1381,11 +1409,11 @@ def launch_primary_kernel(tables, counts, pix, n, frame, salt_base, mode,
     t, s, p, nm = counts
     dev = tables.device
     lib = _scene_lib(_primary_lib, tables, counts, nodes)
-    _check_camera(pix, n, cam_params, dev)
+    ray_ptrs, cam_ptr = _check_rays(pix, n, rays, cam_params, dev)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     err = lib.rvpt_primary(
-        tables.data_ptr(), t, s, p, nm, _ptr(nodes), cam_params.data_ptr(),
-        _ptr(pix), out.data_ptr(), n,
+        tables.data_ptr(), t, s, p, nm, _ptr(nodes), cam_ptr,
+        _ptr(pix), *ray_ptrs, out.data_ptr(), n,
         int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
         int(jitter_salt) & 0xFFFFFFFF, int(mode), int(cam_mode), float(mint),
         nrays, _f32(1.0 / nrays), torch.cuda.current_stream(dev).cuda_stream)
@@ -1737,8 +1765,9 @@ class PathTracer(nn.Module):
     A BVH scene of any size takes K1's and B3's BVH form, the port of
     their culled form (``meta["culled"]`` :828-835): the ``pack_bvh``
     nodes are a buffer too, and the search walks the tree for the
-    triangles after the spheres and planes.  (``render.make_tracer`` still
-    sends a big mesh, ``is_bigmesh``, to ``BigMeshTracer``.)  A scene that
+    triangles after the spheres and planes.  (``render.make_tracer`` sends
+    a big mesh, ``is_bigmesh``, to its subclass ``BigMeshTracer``, which
+    takes the rays from the caller.)  A scene that
     JAX's tracer culls (``is_culled``: 1 to CULL_MAX_TRIS triangles) also
     keeps the ``cull_rows`` boxes, for ``trace(stats=True)``.  Hart runs B4
     on the raw vertex rows either way."""
@@ -1758,11 +1787,13 @@ class PathTracer(nn.Module):
     def trace(self, pixel, origin, direction, frame, salt_base, max_bounces,
               style="reference", gen_rays=False, cam_params=None,
               cam_mode=PINHOLE, jitter_salt=0, collect_states=False,
-              integ="kajiya", stats=False):
+              integ="kajiya", stats=False, collect_hits=False):
         """Trace full paths -> (r, g, b), each f32[N] (the JAX
         ``PathTracer.trace`` interface), or ((r, g, b), ``PathRecord``)
-        with ``collect_states``; ``forward`` returns the radiance as one
-        f32[3, N] tensor.
+        with ``collect_states``, or ((r, g, b), (fams, idxs)) with
+        ``collect_hits``: the per-bounce hits int64[B, N] of K1's hits-only
+        collect instance, the layout of ``hits_from_record``; ``forward``
+        returns the radiance as one f32[3, N] tensor.
 
         ``pixel`` is an int64[N] tensor of pixel ids, or an int N meaning
         the raster ids 0..N-1.  With ``gen_rays`` the camera rays are made
@@ -1781,7 +1812,9 @@ class PathTracer(nn.Module):
         tiles of real rays (N a multiple of CULL_TILE)."""
         out = self(pixel, origin, direction, frame, salt_base, max_bounces,
                    style, gen_rays, cam_params, cam_mode, jitter_salt,
-                   collect_states, integ, stats)
+                   collect_states, integ, stats, collect_hits)
+        if collect_hits:
+            return out[0].unbind(0), _hits_pair(out[1])
         if not stats:
             return (out[0].unbind(0), out[1]) if collect_states else out.unbind(0)
         agg = tuple(out[-1].unbind(0))
@@ -1792,19 +1825,15 @@ class PathTracer(nn.Module):
     def forward(self, pixel, origin, direction, frame, salt_base, max_bounces,
                 style="reference", gen_rays=False, cam_params=None,
                 cam_mode=PINHOLE, jitter_salt=0, collect_states=False,
-                integ="kajiya", stats=False):
+                integ="kajiya", stats=False, collect_hits=False):
+        if collect_hits and (collect_states or stats):
+            raise ValueError("collect_hits takes neither collect_states nor stats")
         n, pix = _pixels(pixel)
-        rays = None
-        if not gen_rays:
-            if isinstance(origin, tuple):
-                comps = (*origin, *direction)
-            else:
-                comps = (origin[:, 0], origin[:, 1], origin[:, 2],
-                         direction[:, 0], direction[:, 1], direction[:, 2])
-            rays = tuple(c.contiguous() for c in comps)
+        rays = None if gen_rays else self._rays(origin, direction)
         kw = dict(rays=rays, cam_params=cam_params, cam_mode=cam_mode,
                   jitter_salt=jitter_salt, mint=self.mint,
-                  collect=collect_states, integ=integ)
+                  collect="hits" if collect_hits else collect_states,
+                  integ=integ)
         counted = stats and self.cull is not None
 
         def kernel():
@@ -1837,23 +1866,25 @@ class PathTracer(nn.Module):
             out = (*out, zeros) if collect_states else (out, zeros)
         return out
 
-    def trace_primary(self, pixel, frame, mode, *, cam_params, cam_mode,
-                      salt_base, jitter_salt, nrays=1):
+    def trace_primary(self, pixel, frame, mode, *, salt_base, nrays=1,
+                      cam_params=None, cam_mode=PINHOLE, jitter_salt=0,
+                      rays=None):
         """Single-intersection debug integrator ``mode`` (``PRIMARY_MODES``)
-        with camera rays made in the trace -> f32[3, N], which unpacks as
-        the (r, g, b) of the JAX ``trace_primary`` (:1773).  ``pixel`` as
-        for ``trace``."""
+        -> f32[3, N], which unpacks as the (r, g, b) of the JAX
+        ``trace_primary`` (:1773): camera rays made in the trace from
+        ``cam_params``, or the six f32[N] components ``rays`` (B3's rays-in
+        form).  ``pixel`` as for ``trace``."""
         n, pix = _pixels(pixel)
         return _on_device(
             self.tables.device,
             lambda: launch_primary_kernel(
                 self.tables, self.counts, pix, n, frame, salt_base, mode,
                 nrays, cam_params, cam_mode, jitter_salt, self.mint,
-                self.nodes),
+                self.nodes, rays=rays),
             lambda: primary_plain(
                 self.tables, self.counts, _raster(pix, n, self.tables.device), frame,
                 salt_base, mode, nrays, cam_params, cam_mode, jitter_salt,
-                self.mint, self.bvh_form))
+                self.mint, tris_last=self.bvh_form, rays=rays))
 
     def trace_hart(self, pixel, frame, *, cam_params, cam_mode, jitter_salt):
         """Hart heat map with camera rays made in the trace -> f32[3, N],
@@ -1870,46 +1901,68 @@ class PathTracer(nn.Module):
                 frame, cam_params, cam_mode, jitter_salt, self.mint))
 
     @staticmethod
+    def _rays(origin, direction):
+        """The six contiguous f32[N] ray components of f32[N, 3] origins and
+        directions, or of (x, y, z) tuples of f32[N]."""
+        if isinstance(origin, tuple):
+            return tuple(c.contiguous() for c in (*origin, *direction))
+        o, d = origin.T.contiguous(), direction.T.contiguous()
+        return (*o.unbind(0), *d.unbind(0))
+
+    @staticmethod
     def hits_from_record(record: PathRecord):
         """Per-bounce (families, indices) int64[B, N] of a record (the
         JAX ``hits_from_record`` layout)."""
-        return record.hits[:, 0].long(), record.hits[:, 1].long()
+        return _hits_pair(record.hits)
 
 
-class BigMeshTracer(nn.Module):
+def _hits_pair(hits):
+    """(families, indices) int64[B, N] of int32[B, 2, N] hit records."""
+    return hits[:, 0].long(), hits[:, 1].long()
+
+
+class BigMeshTracer(PathTracer):
     """Tracer for a BVH mesh of more than min(BIG_ROUTE_TRIS, CULL_MAX_TRIS)
-    triangles (``BigMeshTracer`` :2927), every integrator mode: the search
-    tables, the ``pack_bvh`` nodes and the Hart vertex rows are buffers on
-    the scene's device, and rays arrive from the caller (``render.py``
-    makes them with ``jittered_camera_rays``, as the JAX path does).
+    triangles (``BigMeshTracer`` :2927), every integrator mode, with the
+    JAX tracer's interface: rays arrive from the caller (``render.py``
+    makes them with ``jittered_camera_rays``, as the JAX path does).  The
+    tables, nodes and Hart vertex rows are ``PathTracer``'s, and so is the
+    launch:
 
-    * ``trace``: Kajiya, one launch of B5's bounce instance per bounce (the
-      state f32[16, N] rides device memory between launches);
-    * ``trace_primary`` (modes 0-6) and ``trace_shaded`` (Whitted, Cook):
-      B5's search-only instance (``search``) for every search, with the
-      finalize and shading of the small-scene kernels running between
-      launches as plain PyTorch (``_primary_finalize``, ``_shade_plain``);
+    * ``trace`` (Kajiya) and ``trace_shaded`` (Whitted, Cook): one launch
+      of K1's BVH form with the rays passed in, the whole path in the
+      kernel (``trace_plain(tris_last=True, rays=...)`` on the CPU);
+    * ``trace_primary`` (modes 0-6): one launch of B3's BVH form with the
+      rays passed in (``primary_plain(tris_last=True, rays=...)``);
     * ``trace_hart``: the whole 32-step march in one launch of B6's march
       instance; ``distance`` is one step's scene distance (B6's per-step
       instance).
 
-    On a scene on the CPU every launch is its plain version.  Not ported:
-    the TPU kernels' chunk streams, work lists and wavefront sorts, which
-    never change a ray's result (a cull or prune never changes the
-    winner, :2940-2943)."""
+    The JAX tracer runs a big mesh one launch per bounce or search (its
+    chunk DMAs need it), with the state or the shading between launches.
+    Those per-bounce pieces stay here as B5's entry points, ``bounce``
+    (one Kajiya bounce of a state f32[16, N]) and ``search`` (a closest
+    hit), and their plain versions; composed bounce by bounce
+    (``ops.bigmesh_route.per_bounce``) they give the results of the
+    one-launch route bit for bit.  On a scene on the CPU every launch is
+    its plain version.  Not ported: the TPU kernels' chunk streams, work
+    lists and wavefront sorts, which never change a ray's result (a cull
+    or prune never changes the winner, :2940-2943)."""
 
     def __init__(self, scene: Scene, mint: float = 0.0):
-        super().__init__()
         if scene.bvh is None or scene.num_triangles == 0:
             raise ValueError("BigMeshTracer needs a BVH-attached scene "
                              "(leaf-ordered triangles)")
-        tables, self.counts = pack_fwd(scene)
-        self.register_buffer("tables", tables)
-        self.register_buffer("nodes", pack_bvh(scene))
-        htables, self.hart_count = pack_hart(scene)
-        self.register_buffer("hart_tables", htables)
-        self.escape = march_escape(self.nodes)
-        self.mint = float(mint)
+        super().__init__(scene, mint)
+        self._escape = None
+
+    @property
+    def escape(self):
+        """B6's escape ball (``march_escape``), read back from the nodes at
+        the first Hart frame only: the other routes never need it."""
+        if self._escape is None:
+            self._escape = march_escape(self.nodes)
+        return self._escape
 
     @property
     def _mat(self):
@@ -1920,7 +1973,8 @@ class BigMeshTracer(nn.Module):
         """Closest hit over the whole scene: ``origin``/``direction`` (x, y,
         z) tuples of f32[N], ``live`` bool[N] (None: every lane) -> the
         winner (t, normal xyz, material id, family, index), family -1 on a
-        miss and on every lane outside ``live`` (``search_tiles`` :3122)."""
+        miss and on every lane outside ``live`` (``search_tiles`` :3122;
+        B5's search-only instance)."""
         rays = tuple(origin) + tuple(direction)
         if live is None:
             live = torch.ones_like(rays[0], dtype=torch.bool)
@@ -1963,69 +2017,55 @@ class BigMeshTracer(nn.Module):
             lambda: bigmesh_distance_plain(self.hart_tables, self.hart_count,
                                            p, live))
 
-    @staticmethod
-    def _rays(origin, direction):
-        return (origin[:, 0], origin[:, 1], origin[:, 2],
-                direction[:, 0], direction[:, 1], direction[:, 2])
-
     def trace(self, pixel, origin, direction, frame, salt_base, max_bounces,
               style="reference", collect_hits=False):
         """Kajiya paths -> f32[3, N] (unpacks as the JAX ``trace``'s (r, g,
         b), :2966): ``pixel`` int64[N], ``origin``/``direction`` f32[N,3];
         bounce b draws with salt ``salt_base + 4 b``; the standard-style
-        tail runs after the loop (:3097-3101).  With ``collect_hits`` ->
+        tail runs in the kernel (:3097-3101).  With ``collect_hits`` ->
         (f32[3, N], (fams, idxs)): the per-bounce hit records int64[B, N]
-        of B5's collect instance (-1 where dead or missed), in the caller's
-        ray order, the layout of ``PathTracer.hits_from_record``."""
-        start = _start_state(self._rays(origin, direction), "kajiya")
-        state = torch.stack([*start[:15], start[15].to(torch.float32)])
-        hits = []
-        for b in range(int(max_bounces)):
-            state = self.bounce(pixel, state, frame, salt_base + 4 * b,
-                                collect_hits)
-            if collect_hits:
-                state, h = state
-                hits.append(h)
-        rows = state.unbind(0)
-        rgb = _finish_plain("kajiya", style, (*rows[:15], rows[15] > 0.0), None,
-                            None, None)
-        if not collect_hits:
-            return rgb
-        rec = (torch.stack(hits) if hits else
-               torch.empty((0, 2, rgb.shape[1]), dtype=torch.int32, device=rgb.device))
-        return rgb, (rec[:, 0].long(), rec[:, 1].long())
+        of K1's hits-only collect instance (-1 where dead or missed), the
+        layout of ``PathTracer.hits_from_record``."""
+        out = self(pixel, origin, direction, frame, salt_base, max_bounces,
+                   style, collect_hits=collect_hits)
+        return (out[0], _hits_pair(out[1])) if collect_hits else out
 
     def trace_primary(self, pixel, origin, direction, frame, mode, *,
                       salt_base, nrays=1):
         """Debug integrator ``mode`` (``PRIMARY_MODES``) -> f32[3, N]
-        (:3143): one search launch, then ``_primary_finalize``, whose AO
-        probes and Appel shadow rays are search launches too."""
-        if mode not in PRIMARY_MODES:
-            raise ValueError(f"mode {mode} is not a primary-hit mode")
-        rays = self._rays(origin, direction)
-        winner = self.search(rays[:3], rays[3:])
-        return torch.stack(_primary_finalize(
-            mode, int(nrays), self._mat, pixel, frame, salt_base, rays, winner,
-            self.search))
+        (:3143): one launch of B3's BVH form on the passed-in rays, its AO
+        probes (salts ``salt_base + 4 i``) and Appel shadow rays in the
+        kernel."""
+        return super().trace_primary(pixel, frame, mode, salt_base=salt_base,
+                                     nrays=nrays, rays=self._rays(origin, direction))
 
     def trace_shaded(self, pixel, origin, direction, frame, integ, *,
                      salt_base, max_bounces, style="reference"):
-        """Whitted or Cook paths -> f32[3, N] (:3168): per bounce one search
-        launch and ``_shade_plain`` (Whitted adds a shadow search launch per
-        bounce, Cook a tail search after the last)."""
+        """Whitted or Cook paths -> f32[3, N] (:3168): one launch of K1's
+        BVH form, its shadow searches (Whitted) and tail search (Cook) in
+        the kernel."""
         if integ not in ("whitted", "cook"):
             raise ValueError(f"trace_shaded runs Whitted or Cook, not {integ!r}")
-        state = _start_state(self._rays(origin, direction), integ)
-        final = torch.zeros_like(state[15])
-        mat = self._mat
-        nb = int(max_bounces)
-        for b in range(nb):
-            winner = self.search(state[:3], state[3:6], state[15])
-            state, final = _shade_plain(integ, mat, pixel, frame,
-                                        salt_base + 4 * b, state, winner, final,
-                                        self.search)
-        return _finish_plain(integ, style, state, final if nb else None,
-                             self.search, mat)
+        return self(pixel, origin, direction, frame, salt_base, max_bounces,
+                    style, integ=integ)
+
+    def trace_mode(self, pixel, origin, direction, frame, mode, *, salt_base,
+                   max_bounces, style="reference", nrays=1):
+        """Integrator ``mode`` 0-10 on the passed-in rays -> f32[3, N]:
+        ``trace_hart`` (10), ``trace_primary`` (0-6, AO with ``nrays``
+        probes), ``trace_shaded`` (7, 8) or ``trace`` (9)."""
+        if mode == 10:
+            return self.trace_hart(pixel, origin, direction)
+        if mode in PRIMARY_MODES:
+            return self.trace_primary(pixel, origin, direction, frame, mode,
+                                      salt_base=salt_base, nrays=nrays)
+        if mode in (7, 8):
+            return self.trace_shaded(pixel, origin, direction, frame,
+                                     {7: "whitted", 8: "cook"}[mode],
+                                     salt_base=salt_base,
+                                     max_bounces=max_bounces, style=style)
+        return self.trace(pixel, origin, direction, frame, salt_base,
+                          max_bounces, style=style)
 
     def trace_hart(self, pixel, origin, direction, *, mint=0.0):
         """The Hart heat map -> f32[3, N] (:3237): MARCH_ITER steps of the

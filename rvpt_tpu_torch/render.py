@@ -9,10 +9,10 @@ temporal EMA.  Two routes render a sample:
 * ``render_sample_fast_chw``: the kernels of ``ops.pathkernel`` (the
   whole-path tracer for Kajiya/Whitted/Cook, the primary-hit kernel for
   modes 0-6, the Hart march for mode 10, each in its row form or, on a
-  BVH scene, its BVH form; on a big mesh, ``BigMeshTracer``'s bounce,
-  search and distance kernels), CUDA for a scene on the card and their
-  plain versions on the CPU; a split-screen frame runs each quadrant's
-  kernel on exactly that quadrant's pixels.
+  BVH scene, its BVH form; on a big mesh, ``BigMeshTracer``: the BVH
+  forms on rays made here, and B6's march), CUDA for a scene on the card
+  and their plain versions on the CPU; a split-screen frame runs each
+  quadrant's kernel on exactly that quadrant's pixels.
 """
 
 from __future__ import annotations
@@ -164,26 +164,16 @@ def _trace_mode_bigmesh(bt, camera, settings: RenderSettings, cfg: FilmConfig,
                         pixel, xs, ys, frame, salt0, mode):
     """One big-mesh integrator pass over a pixel batch -> f32[3, n]
     (``render.py:382``): camera rays made here with the jitter salts of
-    ``render_pixels``, then ``BigMeshTracer``'s Hart march (10), debug
-    finalize (0-6), Whitted/Cook loop (7, 8) or Kajiya bounces (9)."""
-    from .ops.pathkernel import PRIMARY_MODES
-
+    ``render_pixels``, then ``BigMeshTracer.trace_mode``: the Hart march
+    (10), or one launch of B3's (0-6) or K1's (7-9) BVH form on those
+    rays."""
     ray = jittered_camera_rays(camera, cfg, pixel, xs, ys, frame, salt0)
-    salt_base = salt0 + _INTEGRATOR_SITE
-    if mode == 10:
-        return bt.trace_hart(pixel, ray.origin, ray.direction)
-    if mode in PRIMARY_MODES:
-        nrays = max(int(settings.max_bounces), 1) if mode == 5 else 1
-        return bt.trace_primary(pixel, ray.origin, ray.direction, frame, mode,
-                                salt_base=salt_base, nrays=nrays)
-    if mode in (7, 8):
-        return bt.trace_shaded(pixel, ray.origin, ray.direction, frame,
-                               {7: "whitted", 8: "cook"}[mode],
-                               salt_base=salt_base,
-                               max_bounces=settings.max_bounces,
-                               style=settings.style)
-    return bt.trace(pixel, ray.origin, ray.direction, frame, salt_base,
-                    settings.max_bounces, style=settings.style)
+    # nrays matters only to AO's probe loop.
+    nrays = max(int(settings.max_bounces), 1) if mode == 5 else 1
+    return bt.trace_mode(pixel, ray.origin, ray.direction, frame, mode,
+                         salt_base=salt0 + _INTEGRATOR_SITE,
+                         max_bounces=settings.max_bounces, style=settings.style,
+                         nrays=nrays)
 
 
 @lru_cache(maxsize=8)
@@ -221,9 +211,11 @@ def _rect_pixels(y0, y1, x0, x1, width, device):
 def make_tracer(scene):
     """The tracer of the kernels' route for ``scene``: ``BigMeshTracer`` for
     a big mesh (``pathkernel.is_bigmesh``, the JAX route rule), else
-    ``PathTracer``.  ``PathTracer`` takes a BVH scene of any size, but the
-    display and training routes keep sending a big mesh here, to B5 and
-    B6."""
+    ``PathTracer``.  Both run a big mesh through K1's and B3's BVH forms;
+    ``BigMeshTracer`` takes the rays from the caller (made by
+    ``jittered_camera_rays``, as the JAX big-mesh route makes them, which
+    differ from the kernels' own camera rays in the last bit) and marches
+    Hart frames with B6."""
     from .ops.pathkernel import BigMeshTracer, PathTracer, is_bigmesh
 
     return BigMeshTracer(scene) if is_bigmesh(scene) else PathTracer(scene)

@@ -102,7 +102,8 @@ def constrain_params(params: dict) -> dict:
 def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh=None):
     """Image-valued render closure backed by the paired trace of
     ``ops.fast_grad`` (on the card: K1 with records forward, K2 backward;
-    on a big mesh B5 with records forward and the SoA replay backward).
+    on a big mesh K1's hits-only records forward and the SoA replay
+    backward).
 
     Returns ``render_fast(scene, camera, frame) -> f32[3, H, W]``; aa > 1
     averages per-sample traces with the display path's AA_STRIDE salt

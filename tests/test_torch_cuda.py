@@ -1,6 +1,8 @@
 """The CUDA kernels of rvpt_tpu_torch (K1 path_kernel with its Kajiya,
 Whitted and Cook forms, K2 bwd_kernel, B8 closest_hit, B3 primary_kernel,
-B4 hart_kernel, K1's and B3's BVH forms and their records, B5
+B4 hart_kernel, K1's and B3's BVH forms (B3's with rays passed in too)
+and their records (K1's hits-only collect instance too), the big-mesh
+route's one launch per frame against B5's per-bounce route, B5
 bigmesh_kernel with its collect instance, B6 bigmesh_hart, B7
 replay_lookup's gather and segment sum, K1's stats counting instance)
 against their plain PyTorch versions, and the CLI, on the card.  Every
@@ -21,7 +23,8 @@ K1's Whitted/Cook forms >= 99.5% of pixel channels within 1e-4, B4 >= 99%
 channels within 1e-4, B6 >= 99% of live lanes (tests/test_bigmesh_modes.py),
 on the mesh builtins and on a random soup with a sphere, a plane, mirror
 and dielectric triangles; the BVH-form records and B5's hit records bit for
-bit; B7's gather bit for bit, its segment sum within rtol 1e-5, atol 1e-5
+bit, as are B3's rays-in form, K1's hits-only records and the big-mesh
+route against B5's; B7's gather bit for bit, its segment sum within rtol 1e-5, atol 1e-5
 of the float64 sum; the mesh fwd+bwd gradients within rtol 1e-3, atol
 1e-6 (in units of their scale) of autograd through kajiya_from_hits on the
 same records; the stats counters equal per tile, the radiance and records
@@ -1064,10 +1067,10 @@ def test_walk_counting_instances(dev):
 
 @pytest.mark.parametrize("mode", [9, 3, 5, 7, 8, 10])
 def test_bigmesh_draw_launches_and_matches_cpu(dev, mode, monkeypatch):
-    """Renderer.draw on mesh_demo(3): Kajiya launches B5 once per bounce,
-    Hart B6's march once per frame (and its per-step instance never); no
-    plain version runs on the card; the film agrees with the CPU's plain
-    route of the same frame."""
+    """Renderer.draw on mesh_demo(3): Kajiya, Whitted and Cook launch K1's
+    BVH form once per frame, modes 0-6 B3's, Hart B6's march (and its
+    per-step instance never); B5 never runs; no plain version runs on the
+    card; the film agrees with the CPU's plain route of the same frame."""
     from rvpt_tpu_torch.renderer import Renderer
 
     def refuse(*a, **k):
@@ -1085,20 +1088,17 @@ def test_bigmesh_draw_launches_and_matches_cpu(dev, mode, monkeypatch):
                  "primary_plain"):
         monkeypatch.setattr(tpk, name, refuse)
     counters = (tpk.launch_bigmesh_kernel, tpk.launch_bigmesh_hart,
-                tpk.launch_bigmesh_march)
+                tpk.launch_bigmesh_march, tpk.launch_path_kernel,
+                tpk.launch_primary_kernel)
     counts = [k.launches for k in counters]
     r = Renderer(scene, cam, st, cfg)
     assert isinstance(r.tracer, tpk.BigMeshTracer)
     img = r.draw()
     r.flush()
-    b5, b6_step, b6 = (k.launches - c for k, c in zip(counters, counts))
-    assert b6_step == 0
-    if mode == 9:
-        assert (b5, b6) == (3, 0)
-    elif mode == 10:
-        assert (b5, b6) == (0, 1)
-    else:
-        assert b5 >= 1 and b6 == 0
+    ran = tuple(k.launches - c for k, c in zip(counters, counts))
+    expect = ((0, 0, 1, 0, 0) if mode == 10 else (0, 0, 0, 1, 0) if mode >= 7
+              else (0, 0, 0, 0, 1))
+    assert ran == expect
     share = _share(img.cpu(), want)
     assert share >= (0.99 if mode == 10 else 0.995), f"{share:.4%}"
 
@@ -1119,6 +1119,61 @@ def test_bvh_scene_draw_takes_the_bvh_form(dev):
     cpu_scene, cpu_cam = builtin.rabbit(aspect=cfg.aspect, device="cpu")
     want = render_sample_fast_chw(cpu_scene, cpu_cam, st, cfg, 0)
     assert _share(img.cpu(), want) >= 0.995
+
+
+@pytest.mark.parametrize("mode", range(7))
+@pytest.mark.parametrize("scene_name", ["mesh_demo3", "soup"])
+def test_b3_rays_in_matches_plain(dev, scene_name, mode):
+    """B3's BVH form with the rays passed in (the big-mesh route's) against
+    primary_plain(rays=...), bit for bit, on mesh_demo(3) and the
+    1,500-triangle soup (AO with 4 probes)."""
+    cfg = FilmConfig(width=320, height=180)
+    if scene_name == "soup":
+        scene, cam = _mixed_soup(1500, dev)
+    else:
+        scene, cam = _mesh(scene_name, cfg, dev)
+    pt = tpk.PathTracer(scene)
+    pixel, rays = _rays(scene, cam, cfg, dev)
+    before = tpk.launch_primary_kernel.launches
+    got = tpk.launch_primary_kernel(pt.tables, pt.counts, pixel, cfg.num_pixels, 1,
+                                    16, mode, 4, None, nodes=pt.nodes, rays=rays)
+    want = tpk.primary_plain(pt.tables, pt.counts, pixel, 1, 16, mode, 4, None,
+                             tris_last=True, rays=rays)
+    torch.cuda.synchronize()
+    assert tpk.launch_primary_kernel.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), f"mode {mode}: {_share(got, want):.4%} within 1e-4"
+
+
+@pytest.mark.parametrize("mode", range(10))
+def test_bigmesh_one_launch_matches_the_b5_route(dev, mode):
+    """BigMeshTracer's one-launch route (K1's or B3's BVH form) on
+    mesh_demo(3) at 320x180 x 4, standard, against the per-bounce route
+    composed of B5's launches (BigMeshTracer.search and .bounce) and
+    against its plain composition, bit for bit."""
+    from rvpt_tpu_torch.ops.bigmesh_route import per_bounce, plain_bounce
+
+    cfg = FilmConfig(width=320, height=180)
+    scene, cam = _mesh("mesh_demo3", cfg, dev)
+    bt = tpk.BigMeshTracer(scene)
+    pixel, ray = _bigmesh_rays(scene, cam, cfg, dev)
+    nrays = 4 if mode == 5 else 1
+    args = (2, 16, 4, "standard", nrays)
+    counts = (tpk.launch_path_kernel.launches, tpk.launch_primary_kernel.launches,
+              tpk.launch_bigmesh_kernel.launches)
+    got = bt.trace_mode(pixel, ray.origin, ray.direction, 2, mode, salt_base=16,
+                        max_bounces=4, style="standard", nrays=nrays)
+    ran = (tpk.launch_path_kernel.launches - counts[0],
+           tpk.launch_primary_kernel.launches - counts[1],
+           tpk.launch_bigmesh_kernel.launches - counts[2])
+    rays = bt._rays(ray.origin, ray.direction)
+    b5 = per_bounce(bt, mode, pixel, rays, *args, search=bt.search, bounce=bt.bounce)
+    plain = per_bounce(bt, mode, pixel, rays, *args, bounce=plain_bounce(bt))
+    torch.cuda.synchronize()
+    assert ran == ((0, 1, 0) if mode < 7 else (1, 0, 0))
+    assert torch.isfinite(got).all() and got.max() > 0
+    assert torch.equal(got, b5), f"mode {mode}: {_share(got, b5):.4%} within 1e-4"
+    assert torch.equal(got, plain), f"mode {mode}: {_share(got, plain):.4%}"
 
 
 # ---------------------------------------------------------------------------
@@ -1317,6 +1372,44 @@ def test_soup_bvh_form_records_match_plain(dev):
     assert set(rec.hits[:, 0].unique().tolist()) >= {-1, 0, 1, 2}
 
 
+@pytest.mark.parametrize("scene_name", ["cornell_box", "soup600", "mesh_demo3"])
+def test_hits_only_collect_matches_plain(dev, scene_name):
+    """K1's hits-only collect instance (row form on the Cornell box, BVH
+    form on the 600-triangle soup and on mesh_demo(3), a big mesh), 8
+    bounces, rays in: hits bit for bit those of trace_plain(collect=True)
+    and of the full collect instance's rec_i, the radiance that of the
+    launch without records (and within the K1 bar of trace_plain's)."""
+    cfg = FilmConfig(width=320, height=180)
+    if scene_name == "soup600":
+        scene, cam = _mixed_soup(600, dev)
+    elif scene_name == "cornell_box":
+        scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    else:
+        scene, cam = _mesh(scene_name, cfg, dev)
+    pt = tpk.PathTracer(scene)
+    assert pt.bvh_form == (scene_name != "cornell_box")
+    pixel, rays = _rays(scene, cam, cfg, dev)
+    n = cfg.num_pixels
+    kw = dict(rays=rays, nodes=pt.nodes)
+    got, hits = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 2, 16, 8,
+                                       "standard", collect="hits", **kw)
+    full, rec = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 2, 16, 8,
+                                       "standard", collect=True, **kw)
+    bare = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 2, 16, 8,
+                                  "standard", **kw)
+    want, wrec = tpk.trace_plain(pt.tables, pt.counts, pixel, 2, 16, 8, "standard",
+                                 rays=rays, collect=True, tris_last=pt.bvh_form)
+    torch.cuda.synchronize()
+    assert hits.shape == (8, 2, n) and hits.dtype == torch.int32
+    assert torch.equal(got, bare) and torch.equal(got, full)
+    assert torch.equal(hits, rec.hits) and torch.equal(hits, wrec.hits)
+    assert _share(got, want) >= 0.995
+    assert (hits[:, 0] == 0).any() and (hits[:, 0] == -1).any()
+    rgb, (fams, idxs) = pt.trace(pixel, rays[:3], rays[3:], 2, 16, 8,
+                                 style="standard", collect_hits=True)
+    assert torch.equal(fams, hits[:, 0].long()) and torch.equal(idxs, hits[:, 1].long())
+
+
 def test_soup_bigmesh_collect_matches_plain(dev):
     """B5's collect instance on the 1,500-triangle soup, 6 bounces: the
     state of the bounce instance and hit records bit-identical to
@@ -1384,10 +1477,10 @@ def _mesh_step(scene, cam, cfg, dev, backward="auto"):
 @pytest.mark.parametrize("name,backward", [("mesh_demo3", "auto"), ("rabbit", "auto"),
                                            ("rabbit", "soa")])
 def test_mesh_fwd_bwd_matches_replay_autograd(dev, name, backward):
-    """The paired trace on meshes at 320x180 x 8: mesh_demo(3) through B5's
-    collect instance and the SoA replay (8 gathers and 7 segment sums: the
-    vertices of the last bounce's hit shape only the next ray, which the
-    image never sees),
+    """The paired trace on meshes at 320x180 x 8: mesh_demo(3) through K1's
+    hits-only collect instance (one launch, none of B5) and the SoA replay
+    (8 gathers and 7 segment sums: the vertices of the last bounce's hit
+    shape only the next ray, which the image never sees),
     rabbit through K1's BVH-form records and K2 (auto) or the SoA replay;
     gradients within rtol 1e-3, atol 1e-6 (in units of the gradient's
     scale) of autograd through kajiya_from_hits in float64 on the same
@@ -1406,7 +1499,8 @@ def test_mesh_fwd_bwd_matches_replay_autograd(dev, name, backward):
     if name == "rabbit":
         assert ran[1] >= 1 and ran[2] == (0 if soa else 1)
     else:
-        assert ran[0] >= 8
+        # one K1 launch in the step, one for the reference's records
+        assert ran[0] == 0 and ran[1] == 2 and ran[2] == 0
     if soa and scene.num_triangles > trs._LOOKUP_UNROLL:
         assert ran[3] >= 8 and ran[4] == 7
     for g, w in zip(got, want):
@@ -1416,8 +1510,9 @@ def test_mesh_fwd_bwd_matches_replay_autograd(dev, name, backward):
 
 
 def test_mesh_step_never_reaches_a_plain_version(dev, monkeypatch):
-    """A mesh_demo(3) training step on the card launches B5's collect
-    instance and B7; no plain version runs."""
+    """A mesh_demo(3) training step on the card launches K1's BVH form
+    (the stop-gradient trace, then the hits-only collect instance) and B7,
+    and no B5; no plain version runs."""
     from rvpt_tpu_torch.ops import replay_soa as trs
     from rvpt_tpu_torch.train import inverse
 
@@ -1431,19 +1526,18 @@ def test_mesh_step_never_reaches_a_plain_version(dev, monkeypatch):
     for mod, name in ((tpk, "bigmesh_bounce_plain"), (tpk, "trace_plain"),
                       (trs, "gather_plain"), (trs, "segsum_plain")):
         monkeypatch.setattr(mod, name, refuse)
-    before = (tpk.launch_bigmesh_kernel.launches, trs.launch_gather.launches,
-              trs.launch_segsum.launches)
+    counters = (tpk.launch_bigmesh_kernel, tpk.launch_path_kernel,
+                trs.launch_gather, trs.launch_segsum)
+    before = [k.launches for k in counters]
     step, opt = inverse.make_train_step(scene, cam, st, cfg, None, target,
                                         groups=("albedo", "vertices"))
     params, opt, loss = step(inverse.trainable_params(scene, ("albedo", "vertices")),
                              opt, 0)
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
-    # 3 bounces without records, 3 with them; 3 gathers and 2 segment sums
-    # (the last hit's vertices shape only the next ray)
-    assert (tpk.launch_bigmesh_kernel.launches - before[0],
-            trs.launch_gather.launches - before[1],
-            trs.launch_segsum.launches - before[2]) == (6, 3, 2)
+    # one trace without records, one with hits; 3 gathers and 2 segment
+    # sums (the last hit's vertices shape only the next ray)
+    assert tuple(k.launches - b for k, b in zip(counters, before)) == (0, 2, 3, 2)
 
 
 @pytest.mark.parametrize("integ", ["kajiya", "whitted", "cook"])
