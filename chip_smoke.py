@@ -92,12 +92,18 @@ Phases, each of which raises on failure:
    to each ray's escape or stop, the parent's work, the cold-start walk of
    every step, printed beside it); then the big-mesh route, one K1 or B3
    BVH-form launch per frame on rays passed in (BigMeshTracer), in modes
-   0-9 at 1080p x 8, standard, on mesh_demo(5) and terrain_demo(225): bit
-   for bit B5's per-bounce route (BigMeshTracer.search and .bounce) on the
-   whole film and its plain composition (bigmesh_bounce_plain,
-   bigmesh_search_plain and the shading between) on every 8th (16th) row
-   of pixel ids; both routes timed, the launch beside its bound (this
-   frame's searches, walks and shading, counted on the card);
+   0-9 at 1080p x 8, standard, on mesh_demo(5) and terrain_demo(225), and
+   on rabbit at 1024x512 x 8: bit for bit B5's per-bounce route
+   (BigMeshTracer.search and .bounce, the binary walk) on the whole film
+   and its plain composition (bigmesh_bounce_plain, bigmesh_search_plain
+   and the shading between) on every 8th (16th, 4th) row of pixel ids;
+   both routes timed, the launch beside its bound (this frame's searches,
+   the redesigned walk's own tests and the shading, counted on the card;
+   walk_bounds) with the binary walk's bound beside it (not the bound,
+   comparable with the bounds before the walk's redesign), and the walk
+   census of every search (census_hook: per kind of search the binary
+   walk's node and triangle tests and its warps' SIMD efficiency, the
+   redesigned walk's, and its any-hit walk's on occlusion searches);
 16. this slice's main path: Renderer.draw x8 at 1920x1080, 8 bounces,
    standard, Kajiya on mesh_demo(5) and mesh_demo(3) (one K1 launch per
    frame), rabbit at 1024x512 x 8 (one K1 launch per frame) and in modes
@@ -120,8 +126,10 @@ Phases, each of which raises on failure:
    spans);
 18. records: K1's BVH form with records on rabbit at 1024x512 x 8 (rays
    in), K1's hits-only collect instance on the Cornell box (row form,
-   1080p x 4), rabbit and mesh_demo(5) (1080p x 8, every 8th row of pixel
-   ids for the plain version), and B5's collect instance on mesh_demo(5)
+   1080p x 4), rabbit, mesh_demo(5) and terrain_demo(225) (1080p x 8,
+   every 8th (16th) row of pixel ids for the plain version; the BVH
+   scenes' hits also bit for bit B5's collect instance bounce by bounce
+   on the whole film), and B5's collect instance on mesh_demo(5)
    at 1080p x 8 (every 8th row): bit-identical to trace_plain's (the
    hits-only instance also to the full collect instance's rec_i) and
    bigmesh_bounce_plain(collect=True)'s, the radiance and states those of
@@ -177,7 +185,8 @@ big-mesh route's K1 and B3 launches and B6's march, the mesh_demo(3)
 fwd+bwd step for B7 and K1's hits-only collect instance, the rabbit step
 for K1's BVH-form records, the stats traces of phase 22 for the counting
 instance; B5, on no main path, with the launches of its own checks in
-phases 15 and 18; times, bounds and errors of this run), a JSON line of
+phases 15 and 18; times, bounds and errors of this run; every K1 and B3
+BVH-form row says what its walk's redesign is), a JSON line of
 the CLI runs and the viewer, the
 card's name and power limit, then, last, one JSON line {"ok": true,
 "device": {...}}.
@@ -270,6 +279,12 @@ OPS_HART_FACE, OPS_HART_EDGE, OPS_HART_SEED, OPS_HART_OWN_STEP = 32, 89, 8, 32
 # differences, 6 max, 3 products, 2 sums, the test: 18); per triangle the
 # iq distance and the min (93); per live point its square root and store.
 OPS_INV, OPS_BOX, OPS_WALK_TRI = 9, 25, 56
+# K1's and B3's redesigned walk (csrc/bvh_walk.cuh) per triangle row it
+# opens: the t part (two dot products 10, the numerator, safe denominator
+# and division 5, the (t, index) rule 2, mint < t: 18); a row that passes
+# the t-first reject runs the rest of the 56.  Its node tests are the
+# binary walk's 25.
+OPS_ROW_T = 18
 OPS_HBOX, OPS_HTRI, OPS_HPOINT = 18, OPS_HART_TRI + 1, 2
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): FP32
 # outside the tensor cores and HBM3 bandwidth.
@@ -300,6 +315,38 @@ def walk_ops(work):
             + work.get("hart_box", 0) * OPS_HBOX + work.get("hart_tri", 0) * OPS_HTRI)
 
 
+def own_walk_ops(own):
+    """Operations of the redesigned walk's own tests (census_summary's
+    "own": node slab tests, rows opened, rows tested in full)."""
+    return (own["box"] * OPS_BOX + own["tri"] * OPS_ROW_T
+            + own["full"] * (OPS_WALK_TRI - OPS_ROW_T))
+
+
+def walk_bounds(bytes_moved, ops, work, own):
+    """The bound of a K1 or B3 BVH-form launch: ``ops``, its operations
+    but the walk's, plus the redesigned walk's own tests on this run's
+    rays (census_summary's "own": any-hit on occlusion searches, each row
+    opened at its t part, in full only past the t-first reject) ->
+    {bound_ms, bound_by}; and beside it, not the bound, the same with the
+    binary walk's tests (``work``'s "box" and "tri", count_bvh_walk), the
+    bound as counted before the walk's redesign, whose share compares with
+    the earlier runs' -> {binary_walk_bound_ms, binary_walk_bound_by}."""
+    bnd, by = bound(bytes_moved, ops + own_walk_ops(own))
+    b_bnd, b_by = bound(bytes_moved, ops + walk_ops(work))
+    return dict(bound_ms=bnd, bound_by=by, binary_walk_bound_ms=b_bnd,
+                binary_walk_bound_by=b_by)
+
+
+def bounds_text(b, ms, work, own):
+    """walk_bounds' two bounds beside a time, for a printed line."""
+    return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (the redesigned walk's own "
+            f"tests: {own['box']} nodes, {own['tri']} rows opened, {own['full']} in "
+            f"full), kernel at {b['bound_ms'] / ms:.1%} of it; the binary walk's bound, "
+            f"not the bound: {b['binary_walk_bound_ms']:.4f} ms by "
+            f"{b['binary_walk_bound_by']} ({work.get('box', 0)} nodes, "
+            f"{work.get('tri', 0)} triangles), {b['binary_walk_bound_ms'] / ms:.1%}")
+
+
 def walk_counter(tables, counts, nodes, work):
     """An ``on_search`` hook for the plain versions (or a call per search):
     counts the BVH walk's node and triangle tests on the search's rays with
@@ -317,6 +364,138 @@ def walk_counter(tables, counts, nodes, work):
         work["tri"] = work.get("tri", 0) + tri
 
     return on_search
+
+
+# The kinds of search whose answer is only whether something is hit: K1's
+# and B3's BVH forms run them as any-hit walks (csrc/bvh_walk.cuh).
+OCCLUSION = ("shadow", "probe")
+
+
+def search_kind(mode, k):
+    """The kind of the ``k``-th search of a frame of integrator ``mode``, in
+    the order trace_plain, primary_plain and the per-bounce route run
+    them: the camera search, then AO's probes, Appel's shadow ray, or per
+    bounce a bounce search (Cook's tail too) and Whitted's shadow ray."""
+    if k == 0:
+        return "camera"
+    if mode == 5:
+        return "probe"
+    if mode == 6 or (mode == 7 and k % 2):
+        return "shadow"
+    return "bounce"
+
+
+def warp_simd(iters):
+    """(sum of the lanes' loop iterations, 32 x the sum over warps of the
+    warp's largest) for per-lane iterations, lane i on thread i of the
+    launch, 32 to a warp, a lane that is not live at 0: their ratio is
+    the warps' SIMD efficiency."""
+    import torch
+
+    it = iters.to(torch.int64)
+    it = torch.nn.functional.pad(it, (0, (-it.numel()) % 32)).view(-1, 32)
+    return int(it.sum().item()), 32 * int(it.amax(1).sum().item())
+
+
+WALK_COUNTS = ("box", "tri", "full", "iter")
+# What the kernels line says of every K1 and B3 BVH-form instance.
+WALK_REDESIGN = ("the BVH walk of csrc/bvh_walk.cuh: any-hit occlusion searches, "
+                 "aligned 64-byte triangle rows with a t-first reject (B3's camera "
+                 "search in modes 0-3 loads them whole), the child's node row kept, "
+                 "each kernel's own stack form (K1 two arrays, B3 one 64-bit entry "
+                 "per node); bound_ms counts this walk's own tests, "
+                 "binary_walk_bound_ms the binary walk's")
+
+
+def census_hook(pt, mode, work, census):
+    """An ``on_search`` hook for a frame of ``mode`` on ``pt``'s BVH scene
+    (a PathTracer in the BVH form), the walk census: per search, the
+    binary walk's tests on the card (count_bvh_walk per lane, B5's
+    counting instance) into ``work["box"]`` and ``work["tri"]`` (the
+    binary walk's bound, walk_bounds), and into ``census[kind]`` (search_kind) the live lanes
+    ("searches"), that walk's node tests, triangle tests, iterations and
+    its warps' SIMD sums ("old_*"), the redesigned walk's on the same rays
+    (count_walk's closest-hit search: "new_*", with the rows opened and
+    the rows tested in full) and for an occlusion search its any-hit walk
+    ("any_*"), which K1 and B3 run there."""
+    import torch
+
+    from rvpt_tpu_torch.ops import pathkernel as pk
+
+    k = [0]
+
+    def add(rec, key, v):
+        rec[key] = rec.get(key, 0) + int(v)
+
+    def put(rec, prefix, c, names):
+        for name, row in zip(names, c):
+            add(rec, f"{prefix}_{name}", row.sum(dtype=torch.int64).item())
+        num, den = warp_simd(c[-1])
+        add(rec, f"{prefix}_simd_num", num)
+        add(rec, f"{prefix}_simd_den", den)
+
+    def on_search(o3, d3, live=None):
+        kind = search_kind(mode, k[0])
+        k[0] += 1
+        if live is None:
+            live = torch.ones_like(o3[0], dtype=torch.bool)
+        rays = (*o3, *d3)
+        rec = census.setdefault(kind, {})
+        add(rec, "searches", live.sum().item())
+        old = pk.count_bvh_walk(pt.tables, pt.counts, pt.nodes, rays, live, pt.mint,
+                                lanes=True)
+        add(work, "box", old[0].sum(dtype=torch.int64).item())
+        add(work, "tri", old[1].sum(dtype=torch.int64).item())
+        put(rec, "old", old, ("box", "tri", "iter"))
+        put(rec, "new", pk.count_walk(pt.tables, pt.counts, pt.tree, rays,
+                                      live, mint=pt.mint), WALK_COUNTS)
+        if kind in OCCLUSION:
+            put(rec, "any", pk.count_walk(pt.tables, pt.counts, pt.tree, rays,
+                                          live, any_hit=True, mint=pt.mint), WALK_COUNTS)
+
+    return on_search
+
+
+def census_summary(census):
+    """Per search kind of a census_hook run: the searches, and for the
+    binary walk ("old"), the redesigned walk's closest-hit search ("new")
+    and, on occlusion searches, its any-hit search ("any"), the tests and
+    iterations summed over the searches and the warps' SIMD efficiency;
+    then "own", the tests the redesigned walk needs in K1 and B3 (any-hit
+    on occlusion searches, closest-hit elsewhere, each with the t-first
+    reject), summed over the kinds: the walk of every K1 and B3 BVH-form
+    bound (walk_bounds)."""
+    out, own = {}, dict.fromkeys(WALK_COUNTS, 0)
+    for kind, rec in census.items():
+        row = {"searches": rec["searches"]}
+        for p in ("old", "new", "any"):
+            if f"{p}_box" in rec:
+                row[p] = {c: rec[f"{p}_{c}"] for c in WALK_COUNTS if f"{p}_{c}" in rec}
+                row[p]["simd"] = rec[f"{p}_simd_num"] / max(rec[f"{p}_simd_den"], 1)
+        ran = row["any" if kind in OCCLUSION else "new"]
+        for c in WALK_COUNTS:
+            own[c] += ran[c]
+        out[kind] = row
+    out["own"] = own
+    return out
+
+
+def census_text(summary):
+    """One line of a census_summary: per kind the searches, the binary
+    walk's node/triangle tests and SIMD efficiency, the redesigned walk's
+    node tests, rows opened/tested in full and SIMD efficiency (any-hit on
+    occlusion searches)."""
+    parts = []
+    for kind, row in summary.items():
+        if kind == "own":
+            continue
+        o, r = row["old"], row.get("any", row["new"])
+        walk = "any-hit" if "any" in row else "closest-hit"
+        parts.append(
+            f"{kind}: {row['searches']} searches, binary walk {o['box']} nodes "
+            f"{o['tri']} triangles SIMD {o['simd']:.3f}; new walk ({walk}) {r['box']} "
+            f"nodes, {r['tri']} rows opened, {r['full']} in full, SIMD {r['simd']:.3f}")
+    return "; ".join(parts)
 
 
 def device_ms(fn, iters, names):
@@ -1252,14 +1431,15 @@ def route_work(bt, mode, pix, rays, frame, salt_base, nb, nrays):
     search's walk counted by count_bvh_walk ("box", "tri") and the lanes of
     each kind of work counted as trace_plain(work=...) counts them
     ("search", "scatter", "lambert", "end"); for modes 0-6 the searches
-    and the hit pixels ("hits")."""
+    and the hit pixels ("hits") -> (work, the census_hook census of the
+    same searches)."""
     import torch
 
     from rvpt_tpu_torch.ops import pathkernel as pk
     from rvpt_tpu_torch.ops.bigmesh_route import per_bounce
 
-    work = {}
-    walk = walk_counter(bt.tables, bt.counts, bt.nodes, work)
+    work, census = {}, {}
+    walk = census_hook(bt, mode, work, census)
 
     def count(key, mask):
         work[key] = work.get(key, 0) + int(mask.sum().item())
@@ -1279,25 +1459,25 @@ def route_work(bt, mode, pix, rays, frame, salt_base, nb, nrays):
     else:
         per_bounce(bt, mode, pix, rays, frame, salt_base, nb, "standard", nrays, search,
                    count=count)
-    return work
+    return work, census
 
 
-def route_bound(bt, mode, work, n, nrays):
-    """(bound_ms, bound_by) of one frame of ``mode`` through the one-launch
-    route: per ray its six components in (24 B), the pixel id (8) and the
-    film (12), the tables and nodes once; the operations of ``work``
-    (route_work): K1's searches, walks and shading (k1_ops), or B3's
-    finalize per pixel, its searches and walks and AO's probes."""
+def route_bound(bt, mode, work, own, n, nrays):
+    """walk_bounds of one frame of ``mode`` through the one-launch route:
+    per ray its six components in (24 B), the pixel id (8) and the film
+    (12), the tables and nodes once; the operations of ``work``
+    (route_work): K1's searches and shading (k1_ops), or B3's finalize per
+    pixel, its searches and AO's probes; and the walk's (``own``)."""
     t_, s_, p_, _ = bt.counts
     seed = s_ * OPS_SPH + p_ * OPS_PLN + OPS_INV
     table_bytes = 4 * (bt.tables.numel() + bt.nodes.numel())
     if mode >= 7:
-        ops = k1_ops(work, seed) + walk_ops(work)
+        ops = k1_ops(work, seed)
     else:
-        ops = n * OPS_FINALIZE[mode] + work["search"] * seed + walk_ops(work)
+        ops = n * OPS_FINALIZE[mode] + work["search"] * seed
         if mode == 5:
             ops += work["hits"] * nrays * (OPS_PCG + OPS_PROBE)
-    return bound(n * (24 + 8 + 12) + table_bytes, ops)
+    return walk_bounds(n * (24 + 8 + 12) + table_bytes, ops, work, own)
 
 
 def route_check(smi, dev, name, scene, cam, cfg, nb, every):
@@ -1356,21 +1536,24 @@ def route_check(smi, dev, name, scene, cam, cfg, nb, every):
         iters = 4 if big else 10
         ms = cuda_ms(route, iters)
         b5_ms = cuda_ms(b5_route, 2 if big or mode in (5, 7, 8) else 4)
-        work = route_work(bt, mode, pixel, rays, *args[:3], nrays)
-        bnd, by = route_bound(bt, mode, work, n, nrays)
+        work, census = route_work(bt, mode, pixel, rays, *args[:3], nrays)
+        summary = census_summary(census)
+        own = summary["own"]
+        bnds = route_bound(bt, mode, work, own, n, nrays)
         kernel = "B3" if mode < 7 else "K1"
         print(f"[route-vs-per-bounce] {name}, {cfg.width}x{cfg.height} x {nb}, mode {mode} "
               f"({names[mode]}{f', {nrays} probes' if mode == 5 else ''}): one {kernel} "
               f"BVH-form launch, rays in, bit-identical to B5's per-bounce route on the "
               f"film: {same_b5}, to its plain composition on {sub.numel()} pixel ids "
               f"(every {every}th row): {same}; {ms:.4f} ms per frame, B5's route "
-              f"{b5_ms:.4f} ms, plain {plain_ms:.1f} ms on the {sub.numel()}; bound "
-              f"{bnd:.4f} ms by {by} (work {work}), the launch at {bnd / ms:.1%} of it "
-              f"[{smi}]")
+              f"{b5_ms:.4f} ms, plain {plain_ms:.1f} ms on the {sub.numel()}; "
+              f"{bounds_text(bnds, ms, work, own)} (work {work}) [{smi}]")
+        print(f"[walk-census] {name} mode {mode} ({names[mode]}): {census_text(summary)}")
         out[names[mode]] = dict(max_abs_err=err, bit_identical=same and same_b5, ms=ms,
                                 b5_route_ms=b5_ms, plain_ms=plain_ms,
-                                plain_rays=sub.numel(), bound_ms=bnd, bound_by=by,
-                                walk={k: work.get(k, 0) for k in ("box", "tri")})
+                                plain_rays=sub.numel(), **bnds,
+                                walk={k: work.get(k, 0) for k in ("box", "tri")},
+                                walk_own=own, census=summary)
         del got, b5, want
     return out
 
@@ -1440,30 +1623,31 @@ def mesh_phases(smi, dev, out_dir, here):
 
     def k1b():
         return pk.launch_path_kernel(rpt.tables, rpt.counts, None, rn, 1, 16, 8,
-                                     "reference", nodes=rpt.nodes, **kw)
+                                     "reference", tree=rpt.tree,
+                                     **kw)
 
-    def k1b_plain(work=None):
+    def k1b_plain(work=None, census=None):
         return pk.trace_plain(rpt.tables, rpt.counts, rpix, 1, 16, 8, "reference",
                               tris_last=True, work=work, on_search=None if work is None
-                              else walk_counter(rpt.tables, rpt.counts, rpt.nodes, work),
-                              **kw)
+                              else census_hook(rpt, 9, work, census), **kw)
 
-    work = {}
-    got, want = k1b(), k1b_plain(work)
+    work, census = {}, {}
+    got, want = k1b(), k1b_plain(work, census)
+    own = census_summary(census)["own"]
     torch.cuda.synchronize()
     close, err, same = equal_share(got, want)
     ms = cuda_ms(k1b, 20)
     plain_ms = cuda_ms(k1b_plain, 1)
-    bnd, by = bound(12 * rn + table_bytes,
-                    k1_ops(work, seed) + walk_ops(work) + rn * OPS_CAMERA)
+    bnds = walk_bounds(12 * rn + table_bytes, k1_ops(work, seed) + rn * OPS_CAMERA,
+                       work, own)
     print(f"[K1-vs-plain] BVH form, rabbit {rcfg.width}x{rcfg.height} x 8 bounces, Kajiya: "
           f"{close:.6f} of channels within 1e-4 (bar 0.995), max |err| {err:.3g}, "
-          f"bit-identical: {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bnd:.4f} ms by {by} (work {work}), kernel at {bnd / ms:.1%} of it [{smi}]")
+          f"bit-identical: {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"{bounds_text(bnds, ms, work, own)} (work {work}) [{smi}]")
     check(bool(torch.isfinite(got).all().item()), "K1 BVH form not finite")
     check(close >= 0.995, f"K1 BVH form disagrees with plain: {close:.6f}")
     out["k1_bvh"] = dict(max_abs_err=err, within_1e_4=close, bit_identical=same,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+                         ms=ms, plain_ms=plain_ms, **bnds, walk_own=own)
 
     out["b3_bvh"] = {}
     hits = None
@@ -1473,16 +1657,17 @@ def mesh_phases(smi, dev, out_dir, here):
         def b3(mode=mode, nrays=nrays):
             return pk.launch_primary_kernel(rpt.tables, rpt.counts, None, rn, 1, 16,
                                             mode, nrays, rcp, rcam.mode, 0,
-                                            nodes=rpt.nodes)
+                                            tree=rpt.tree)
 
-        def b3_plain(mode=mode, nrays=nrays, work=None):
+        def b3_plain(mode=mode, nrays=nrays, work=None, census=None):
             return pk.primary_plain(rpt.tables, rpt.counts, rpix, 1, 16, mode, nrays,
                                     rcp, rcam.mode, 0, tris_last=True,
-                                    on_search=None if work is None else walk_counter(
-                                        rpt.tables, rpt.counts, rpt.nodes, work))
+                                    on_search=None if work is None else census_hook(
+                                        rpt, mode, work, census))
 
-        work = {}
-        got, want = b3(), b3_plain(work=work)
+        work, census = {}, {}
+        got, want = b3(), b3_plain(work=work, census=census)
+        own = census_summary(census)["own"]
         torch.cuda.synchronize()
         close, err, same = equal_share(got, want)
         if mode == 0:
@@ -1490,32 +1675,34 @@ def mesh_phases(smi, dev, out_dir, here):
         ms = cuda_ms(b3, 20)
         plain_ms = cuda_ms(b3_plain, 1)
         searches = rn + (hits * nrays if mode == 5 else hits if mode == 6 else 0)
-        ops = (rn * (OPS_CAMERA + OPS_FINALIZE[mode]) + searches * seed
-               + walk_ops(work))
+        ops = rn * (OPS_CAMERA + OPS_FINALIZE[mode]) + searches * seed
         if mode == 5:
             ops += hits * nrays * (OPS_PCG + OPS_PROBE)
-        bnd, by = bound(12 * rn + table_bytes, ops)
+        bnds = walk_bounds(12 * rn + table_bytes, ops, work, own)
         print(f"[B3-vs-plain] BVH form, rabbit, mode {mode} ({names[mode]}"
               f"{', 4 probes' if mode == 5 else ''}): {close:.6f} of channels within "
               f"1e-4 (bar 0.995), max |err| {err:.3g}, bit-identical: {same}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms by {by} "
-              f"(walk {work}), kernel at {bnd / ms:.1%} of it [{smi}]")
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {bounds_text(bnds, ms, work, own)} "
+              f"[{smi}]")
         check(bool(torch.isfinite(got).all().item()), f"B3 BVH mode {mode} not finite")
         check(close >= 0.995, f"B3 BVH mode {mode} disagrees with plain: {close:.6f}")
         out["b3_bvh"][names[mode]] = dict(max_abs_err=err, within_1e_4=close,
                                           bit_identical=same, ms=ms, plain_ms=plain_ms,
-                                          bound_ms=bnd, bound_by=by)
+                                          **bnds, walk_own=own)
 
     out["b5"] = {}
     for name, every in (("mesh_demo(3)", 1), ("mesh_demo(5)", 8),
                         ("terrain_demo(225)", 16)):
         scene, cam = scenes[name]
         out["b5"][name] = bigmesh_check(smi, dev, name, scene, cam, hd, 8, every)
-    # The big-mesh route: one K1 or B3 launch per frame, against B5's.
+    # The big-mesh route: one K1 or B3 launch per frame, against B5's; on
+    # rabbit too (BigMeshTracer takes any BVH scene), so that every
+    # BVH-form instance is held bit for bit against the binary walk.
     out["route"] = {}
-    for name, every in (("mesh_demo(5)", 8), ("terrain_demo(225)", 16)):
+    for name, cfg, every in (("mesh_demo(5)", hd, 8), ("terrain_demo(225)", hd, 16),
+                             ("rabbit", rcfg, 4)):
         scene, cam = scenes[name]
-        out["route"][name] = route_check(smi, dev, name, scene, cam, hd, 8, every)
+        out["route"][name] = route_check(smi, dev, name, scene, cam, cfg, 8, every)
 
     # One B6 step on mesh_demo(5): the march's points after 3 steps.
     scene, cam = scenes["mesh_demo(5)"]
@@ -1831,7 +2018,7 @@ def hits_check(smi, dev, label, scene, cam, cfg, nb, every, timed=True):
     def k1(collect=False):
         return pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 1, 16, nb,
                                      "standard", rays=rays, collect=collect,
-                                     nodes=pt.nodes)
+                                     tree=pt.tree)
 
     got, hits = k1("hits")
     full, rec = k1(True)
@@ -1843,21 +2030,33 @@ def hits_check(smi, dev, label, scene, cam, cfg, nb, every, timed=True):
     torch.cuda.synchronize()
     same_full = bool(torch.equal(hits, rec.hits))
     same_plain = bool(torch.equal(hits[:, :, sub], wrec.hits))
+    same_b5 = True
+    if pt.bvh_form:  # B5's per-bounce route: its collect instance, bounce by bounce
+        bt = pk.BigMeshTracer(scene)
+        start = pk._start_state(rays, "kajiya")
+        st = torch.stack([*start[:15], start[15].to(torch.float32)])
+        b5_hits = []
+        for b in range(nb):
+            st, h = bt.bounce(pixel, st, 1, 16 + 4 * b, collect=True)
+            b5_hits.append(h)
+        same_b5 = bool(torch.equal(hits, torch.stack(b5_hits)))
+        del bt, st, b5_hits
     radiance = bool(torch.equal(got, bare) and torch.equal(got, full))
     close, err, _ = equal_share(got[:, sub], want)
     form = "BVH" if pt.bvh_form else "row"
     print(f"[records] K1's hits-only collect, {form} form, {label} {cfg.width}x{cfg.height} "
           f"x {nb}, rays in: hits bit-identical to the full collect instance's: "
-          f"{same_full}, to trace_plain's on {sub.numel()} pixel ids: {same_plain}; "
+          f"{same_full}, to trace_plain's on {sub.numel()} pixel ids: {same_plain}"
+          f"{f', to B5 collect route on the film: {same_b5}' if pt.bvh_form else ''}; "
           f"radiance equal to the launches with the full record and without: {radiance}, "
           f"{close:.6f} of channels within 1e-4 of plain; "
           f"{(hits[:, 0] == 0).float().mean().item():.4f} of ray-bounces on a triangle")
-    check(same_full and same_plain, f"{label}: K1's hits-only records differ")
+    check(same_full and same_plain and same_b5, f"{label}: K1's hits-only records differ")
     check(radiance, f"{label}: K1's hits-only instance changes the radiance")
     check(close >= 0.995, f"{label}: K1 with hits disagrees with plain: {close:.6f}")
     del full, rec, bare, want, wrec
     if not timed:
-        return dict(bit_identical=same_full and same_plain, max_abs_err=err)
+        return dict(bit_identical=same_full and same_plain and same_b5, max_abs_err=err)
     iters = 10
     ms = cuda_ms(lambda: k1("hits"), iters)
     full_ms = cuda_ms(lambda: k1(True), iters)
@@ -1867,17 +2066,19 @@ def hits_check(smi, dev, label, scene, cam, cfg, nb, every, timed=True):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     bt = pk.BigMeshTracer(scene)
-    work = route_work(bt, 9, pixel, rays, 1, 16, nb, 1)
+    work, census = route_work(bt, 9, pixel, rays, 1, 16, nb, 1)
+    own = census_summary(census)["own"]
     t_, s_, p_, _ = bt.counts
     seed = s_ * OPS_SPH + p_ * OPS_PLN + OPS_INV
-    bnd, by = bound(n * (24 + 8 + 12 + 8 * nb) + 4 * (bt.tables.numel() + bt.nodes.numel()),
-                    k1_ops(work, seed) + walk_ops(work))
+    bnds = walk_bounds(n * (24 + 8 + 12 + 8 * nb)
+                       + 4 * (bt.tables.numel() + bt.nodes.numel()),
+                       k1_ops(work, seed), work, own)
     print(f"[time] K1 hits-only collect, {label}: {ms:.4f} ms, the full collect instance "
-          f"{full_ms:.4f} ms, plain {plain_ms:.1f} ms on {sub.numel()} rays; bound "
-          f"{bnd:.4f} ms by {by} (work {work}), kernel at {bnd / ms:.1%} [{smi}]")
-    return dict(max_abs_err=err, bit_identical=same_full and same_plain, ms=ms,
+          f"{full_ms:.4f} ms, plain {plain_ms:.1f} ms on {sub.numel()} rays; "
+          f"{bounds_text(bnds, ms, work, own)} (work {work}) [{smi}]")
+    return dict(max_abs_err=err, bit_identical=same_full and same_plain and same_b5, ms=ms,
                 full_collect_ms=full_ms, plain_ms=plain_ms, plain_rays=sub.numel(),
-                bound_ms=bnd, bound_by=by)
+                **bnds, walk_own=own)
 
 
 def mesh_step_check(smi, dev, label, scene, cam, cfg, nb, counters, backward="auto",
@@ -2087,18 +2288,19 @@ def mesh_grad_phases(smi, dev, counters):
     def k1bc():
         return pk.launch_path_kernel(rpt.tables, rpt.counts, rpix, rn, 1, 16, nb,
                                      "standard", rays=rays, collect=True,
-                                     nodes=rpt.nodes)
+                                     tree=rpt.tree)
 
-    def k1bc_plain(work=None):
+    def k1bc_plain(work=None, census=None):
         return pk.trace_plain(rpt.tables, rpt.counts, rpix, 1, 16, nb, "standard",
                               rays=rays, collect=True, tris_last=True, work=work,
-                              on_search=None if work is None else walk_counter(
-                                  rpt.tables, rpt.counts, rpt.nodes, work))
+                              on_search=None if work is None else census_hook(
+                                  rpt, 9, work, census))
 
-    work = {}
-    (got, rec), (want, wrec) = k1bc(), k1bc_plain(work)
+    work, census = {}, {}
+    (got, rec), (want, wrec) = k1bc(), k1bc_plain(work, census)
+    own = census_summary(census)["own"]
     bare = pk.launch_path_kernel(rpt.tables, rpt.counts, rpix, rn, 1, 16, nb,
-                                 "standard", rays=rays, nodes=rpt.nodes)
+                                 "standard", rays=rays, tree=rpt.tree)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in ((got, want), (rec.hits, wrec.hits),
                                               (rec.fields, wrec.fields)))
@@ -2118,19 +2320,22 @@ def mesh_grad_phases(smi, dev, counters):
     seed = s_ * OPS_SPH + p_ * OPS_PLN + OPS_INV
     # rays in (24 B), pixel ids (8), the film (12), 60 B per record slot,
     # the tables and nodes once
-    bnd, by = bound(rn * (24 + 8 + 12 + 60 * nb)
-                    + 4 * (rpt.tables.numel() + rpt.nodes.numel()),
-                    k1_ops(work, seed) + walk_ops(work))
+    bnds = walk_bounds(rn * (24 + 8 + 12 + 60 * nb)
+                       + 4 * (rpt.tables.numel() + rpt.nodes.numel()),
+                       k1_ops(work, seed), work, own)
     print(f"[time] K1 BVH-form collect, rabbit: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bnd:.4f} ms by {by} (work {work}), kernel at {bnd / ms:.1%} [{smi}]")
+          f"{bounds_text(bnds, ms, work, own)} (work {work}) [{smi}]")
     out["k1_bvh_collect"] = dict(max_abs_err=err, bit_identical=same, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+                                 plain_ms=plain_ms, **bnds, walk_own=own)
     # K1's hits-only collect instance: the row form on the Cornell box,
     # the BVH form on rabbit and on mesh_demo(5), the mesh step's records.
     cornell, ccam = builtin.cornell_box(aspect=hd.aspect, device=dev)
     hits_check(smi, dev, "cornell", cornell, ccam, hd, 4, 8, timed=False)
     hits_check(smi, dev, "rabbit", rabbit, rcam, rcfg, nb, 1, timed=False)
     out["k1_hits"] = hits_check(smi, dev, "mesh_demo(5)", mesh5, cam5, hd, nb, 8)
+    terrain, tcam = builtin.terrain_demo(225, aspect=hd.aspect, device=dev)
+    hits_check(smi, dev, "terrain_demo(225)", terrain, tcam, hd, nb, 16, timed=False)
+    del terrain
     del cornell
     out["b5_collect"] = bigmesh_check(smi, dev, "mesh_demo(5)", mesh5, cam5, hd, nb, 8,
                                       collect=True)
@@ -2248,6 +2453,7 @@ def stats_phase(smi, dev):
     import torch
 
     from rvpt_tpu_torch import FilmConfig
+    from rvpt_tpu_torch.models.integrators import INTEGRATOR_NAMES
     from rvpt_tpu_torch.ops import pathkernel as pk
     from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
     from rvpt_tpu_torch.scene import builtin
@@ -2298,12 +2504,12 @@ def stats_phase(smi, dev):
             def plain_k1():
                 return pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, frame, salt, nb,
                                              "reference", rays=rays, integ=integ,
-                                             nodes=pt.nodes)
+                                             tree=pt.tree)
 
             def counted():
-                return pk.launch_path_stats(pt.tables, pt.counts, pt.nodes, pt.cull, pixel,
-                                            n, frame, salt, nb, "reference", rays=rays,
-                                            integ=integ)
+                return pk.launch_path_stats(pt.tables, pt.counts, pt.tree, pt.cull,
+                                            pixel, n, frame, salt, nb, "reference",
+                                            rays=rays, integ=integ)
 
             want_rgb = plain_k1()
             got_rgb, got = counted()
@@ -2340,19 +2546,20 @@ def stats_phase(smi, dev):
             # walks and shading, counted by the plain version and the walk's
             # counting instance) plus the stats walk's box, bit and triangle
             # tests, counted on the compared tiles and scaled to the film.
-            kwork = {}
-            walk = walk_counter(pt.tables, pt.counts, pt.nodes, kwork)
+            kwork, census = {}, {}
             pk.trace_plain(pt.tables, pt.counts, pixel, frame, salt, nb, "reference",
                            rays=rays, integ=integ, tris_last=True, work=kwork,
-                           on_search=walk)
+                           on_search=census_hook(pt, INTEGRATOR_NAMES[integ], kwork,
+                                                  census))
+            own = census_summary(census)["own"]
             scale = n / lanes.numel()
             stats_ops = scale * (work["root"] * OPS_BOX + work["clusters"] * OPS_BOX
                                  + work["bits"] + work["tris"] * OPS_WALK_TRI)
             words = -(-(pt.cull.shape[0] - 1) // 32)
             mask_bytes = 2 * 4 * grid * pk.stats_slots(nb, integ) * words
             table_bytes = 4 * (pt.tables.numel() + pt.nodes.numel() + pt.cull.numel())
-            bnd, by = bound(36 * n + 8 * n + table_bytes + mask_bytes + 12 * grid,
-                            k1_ops(kwork, seed) + walk_ops(kwork) + stats_ops)
+            bnds = walk_bounds(36 * n + 8 * n + table_bytes + mask_bytes + 12 * grid,
+                               k1_ops(kwork, seed) + stats_ops, kwork, own)
             for _ in range(2):
                 counted()
                 plain_k1()
@@ -2364,12 +2571,11 @@ def stats_phase(smi, dev):
                   f"sums listed {got[0].sum().item():.0f}, still {got[2].sum().item():.0f}; "
                   f"radiance bit-identical: {same}; stats launch {ms:.4f} ms, without "
                   f"stats {k1_ms:.4f}/{k1_ms2:.4f} ms, plain {plain_ms:.2f} ms on "
-                  f"{lanes.numel()} rays; bound {bnd:.4f} ms by {by} (stats walk "
-                  f"{ {k2: round(v * scale) for k2, v in work.items()} }), kernel at "
-                  f"{bnd / ms:.1%} of it [{smi}]")
+                  f"{lanes.numel()} rays; {bounds_text(bnds, ms, kwork, own)} (stats walk "
+                  f"{ {k2: round(v * scale) for k2, v in work.items()} }) [{smi}]")
             out["runs"][f"{name} {integ}"] = dict(
                 ms=ms, k1_ms=min(k1_ms, k1_ms2), plain_ms=plain_ms,
-                plain_rays=lanes.numel(), bound_ms=bnd, bound_by=by, tiles_equal=eq,
+                plain_rays=lanes.numel(), **bnds, walk_own=own, tiles_equal=eq,
                 max_abs_err=(k - acc).abs().max().item(), bit_identical=same)
     return out
 
@@ -2727,12 +2933,14 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "path_kernel_bvh", "route": "cuda",
+        "redesign": WALK_REDESIGN,
         "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:311",
         "launches": mesh["launches"]["path_kernel_bvh"], **mesh["k1_bvh"],
         "library_ms": None,
     }, {
         "name": "primary_kernel_bvh", "route": "cuda",
+        "redesign": WALK_REDESIGN,
         "source": "rvpt_tpu_torch/csrc/primary_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:3390",
         "launches": mesh["launches"]["primary_kernel_bvh"],
@@ -2745,6 +2953,7 @@ def main() -> int:
         # 1080p x 8 mesh_demo(5) Kajiya frame (phase 15), every mode and
         # terrain beside them.
         "name": "path_kernel_bigmesh", "route": "cuda",
+        "redesign": WALK_REDESIGN,
         "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:2366",
         "launches": mesh["launches"]["path_kernel_bigmesh"],
@@ -2755,6 +2964,7 @@ def main() -> int:
         # Launches: the mesh_demo(5) draws of modes 0-6 in phase 16; the
         # numbers those of one mesh_demo(5) AO frame (8 probes).
         "name": "primary_kernel_bigmesh", "route": "cuda",
+        "redesign": WALK_REDESIGN,
         "source": "rvpt_tpu_torch/csrc/primary_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:2061",
         "launches": mesh["launches"]["primary_kernel_bigmesh"],
@@ -2803,6 +3013,7 @@ def main() -> int:
     }, {
         # Launches: one rabbit fwd+bwd step (auto: records, then K2).
         "name": "path_kernel_bvh_collect", "route": "cuda",
+        "redesign": WALK_REDESIGN,
         "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:1276",
         "launches": rabbit_auto["path_kernel"], **grad["k1_bvh_collect"],
@@ -2812,6 +3023,7 @@ def main() -> int:
         # Launches: one mesh_demo(3) fwd+bwd step; times and bound of one
         # 1080p x 8 mesh_demo(5) trace (phase 18).
         "name": "path_kernel_hits", "route": "cuda",
+        "redesign": WALK_REDESIGN,
         "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:2366",
         "launches": main3["path_kernel"], **grad["k1_hits"], "library_ms": None,
@@ -2829,6 +3041,7 @@ def main() -> int:
         # Launches: the six PathTracer.trace(stats=True) calls of phase 22;
         # the headline numbers mesh_demo(3)'s Kajiya, every run beside them.
         "name": "path_kernel_stats", "route": "cuda",
+        "redesign": WALK_REDESIGN,
         "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:1193",
         "launches": stats["launches"],

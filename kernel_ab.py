@@ -1,33 +1,38 @@
 """Before/after timings of the redesigned kernels on one NVIDIA card: the
-big-mesh route (B5's function folded into one K1 or B3 launch per frame),
-B4 (the Hart march) and K2 (the whole-chain pullback), B6 (the big-mesh
-Hart march) and B7's segment sum, for the tree of rvpt_tpu_torch at
-``--tree`` (the checkout root by default; a parent commit unpacked by
-``git archive`` into a gitignored directory for "before").  It drives only
-entry points that every tree of the port has: ``PathTracer.trace_hart``,
-``launch_path_kernel``, ``launch_bwd_kernel``, ``Renderer.draw``,
-``BigMeshTracer.trace_hart``, ``replay_soa.launch_segsum`` and
-``make_fast_kajiya`` and ``inverse.recover``.
+BVH forms of K1 and B3 (their walk, and the big-mesh route, B5's function
+folded into one K1 or B3 launch per frame), B4 (the Hart march) and K2
+(the whole-chain pullback), B6 (the big-mesh Hart march) and B7's segment
+sum, for the tree of rvpt_tpu_torch at ``--tree`` (the checkout root by
+default; a parent commit unpacked by ``git archive`` into a gitignored
+directory for "before").  It drives only entry points that every tree of
+the port has: ``PathTracer.trace_hart``, ``launch_path_kernel``,
+``launch_bwd_kernel``, ``Renderer.draw``, ``BigMeshTracer.trace`` and
+``.trace_hart``, ``replay_soa.launch_segsum``, ``make_fast_kajiya`` and
+``inverse.recover``.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME]
 
 Run it for both trees in one call, in turns (parent, change, change,
 parent), and compare only within that call.  Each run builds its tree's
-kernels from that tree's ``csrc/`` into that tree's ``build/``.  Prints:
+kernels from that tree's ``csrc/`` into that tree's ``build/``.
+Every run times every section.  Prints:
 
 * bigmesh: ``Renderer.draw`` on mesh_demo(5) at 1080p x 8, standard, in
-  each mode 0-9 and the split-screen (AO, Whitted, Hart, Kajiya), and the
-  terrain_demo(225) Kajiya frame: wall time per frame (host clock over
+  each mode 0-9 and the split-screen (AO, Whitted, Hart, Kajiya), the
+  terrain_demo(225) Kajiya, AO and Whitted frames and rabbit's Kajiya and
+  AO frames at 1024x512 x 8: wall time per frame (host clock over
   synchronised draws) and device time per frame from torch.profiler, with
-  the device time of the K1, B3, B5 and B6 launches apart; the 1080p
-  Cornell Kajiya draw (4 bounces) as the control; one mesh_demo(5)
-  fwd+bwd step (1080p x 8, albedo, emission and vertices): its wall time
-  (host clock over 5 synchronised steps after a warm-up step) and device
-  time, its K1 and B5 launches apart; and ``inverse.recover`` on
-  mesh_demo(3) at 1080p x 8 as chip_smoke.py phase 21 runs it (albedo and
-  emission, two renders per step): wall time per step over 10 steps after
-  a 2-step warm-up run, and one step's device time;
-
+  the device time of the K1, B3, B5 and B6 launches apart; K1's hits-only
+  collect launch alone on mesh_demo(5) at 1080p x 8 (through
+  ``BigMeshTracer.trace(collect_hits=True)``: CUDA events, and its device
+  time); the 1080p Cornell Kajiya draw (4 bounces) as the control;
+* steps: one mesh_demo(5) fwd+bwd step (1080p x 8, albedo, emission and
+  vertices): its wall time (host clock over 5 synchronised steps after a
+  warm-up step) and device time, its K1 and B5 launches apart; and
+  ``inverse.recover`` on mesh_demo(3) at 1080p x 8 as chip_smoke.py
+  phase 21 runs it (albedo and emission, two renders per step): wall
+  time per step over 10 steps after a 2-step warm-up run, and one step's
+  device time;
 * B7: the segment sum on chip_smoke.py phase 17's three inputs
   (mesh_demo(5)'s 1080p bounce-2 ids with the replay's zero cotangents,
   the same ids with none zero, a 140,000-row table at 2,073,600
@@ -207,9 +212,11 @@ def hart_timings(dev, hd, pk, builtin):
 
 
 def bigmesh_timings(dev, hd, builtin):
-    """The big-mesh route's draws (mesh_demo(5) in modes 0-9 and the
-    split-screen, terrain_demo(225) Kajiya), the Cornell Kajiya draw as the
-    control, and a mesh_demo(5) step's device time."""
+    """The BVH-form draws (mesh_demo(5) in modes 0-9 and the split-screen,
+    terrain_demo(225) Kajiya, AO and Whitted, rabbit Kajiya and AO), K1's
+    hits-only launch alone, and the Cornell Kajiya draw as the control."""
+    from rvpt_tpu_torch import FilmConfig
+
     out = {}
 
     def entry(wall, device, parts):
@@ -224,11 +231,27 @@ def bigmesh_timings(dev, hd, builtin):
                                         ROUTE_PARTS))
     del scene
     scene, cam = builtin.terrain_demo(225, aspect=hd.aspect, device=dev)
-    out["terrain_kajiya"] = entry(*draw_ms(scene, cam, hd, (9,) * 4, 8, 4, ROUTE_PARTS))
+    for mode, label in ((9, "kajiya"), (5, "ao"), (7, "whitted")):
+        out[f"terrain_{label}"] = entry(*draw_ms(scene, cam, hd, (mode,) * 4, 8, 4,
+                                                 ROUTE_PARTS))
     del scene
+    rcfg = FilmConfig(1024, 512)
+    scene, cam = builtin.rabbit(aspect=rcfg.aspect, device=dev)
+    for mode, label in ((9, "kajiya"), (5, "ao")):
+        out[f"rabbit_{label}"] = entry(*draw_ms(scene, cam, rcfg, (mode,) * 4, 8, 16,
+                                                ROUTE_PARTS))
+    del scene
+    out["mesh5_hits_only"] = hits_only_timings(dev, hd, builtin)
     scene, cam = builtin.cornell_box(aspect=hd.aspect, device=dev)
     out["cornell_kajiya_control"] = entry(*draw_ms(scene, cam, hd, (9,) * 4, 4, 16,
                                                    ROUTE_PARTS))
+    return out
+
+
+def step_timings(dev, hd, builtin):
+    """A mesh_demo(5) step's wall and device time, and recover on
+    mesh_demo(3)."""
+    out = {}
     step = mesh5_step(dev, hd, builtin)
     out["mesh5_step"] = {"wall_ms": wall_ms(step, 5)}
     parts, total = device_ms(step, 2, ROUTE_PARTS)
@@ -236,6 +259,32 @@ def bigmesh_timings(dev, hd, builtin):
     del step
     out["mesh3_recover"] = recover_timings(dev, hd, builtin)
     return out
+
+
+def hits_only_timings(dev, hd, builtin):
+    """K1's hits-only collect launch alone on mesh_demo(5) at 1080p x 8,
+    standard, on its camera rays: CUDA events per call, and the device
+    time per call with K1's apart (the call also widens the hits)."""
+    import torch
+
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
+
+    scene, cam = builtin.mesh_demo(5, aspect=hd.aspect, device=dev)
+    bt = pk.BigMeshTracer(scene)
+    pixel, xs, ys = _pixel_grid(hd, dev)
+    ray = jittered_camera_rays(cam, hd, pixel, xs, ys, 1, 0)
+    o, d = ray.origin.contiguous(), ray.direction.contiguous()
+
+    def trace():
+        return bt.trace(pixel, o, d, 1, 16, 8, "standard", collect_hits=True)
+
+    trace()
+    ms = [cuda_ms(trace, 10) for _ in range(2)]
+    parts, total = device_ms(trace, 5, ROUTE_PARTS)
+    del bt, scene, pixel, ray, o, d
+    torch.cuda.empty_cache()
+    return {"ms": ms, "device_ms": total, **{f"{k}_ms": v for k, v in parts.items()}}
 
 
 def wall_ms(fn, iters):
@@ -420,6 +469,10 @@ def main() -> int:
     rec["bigmesh"] = bigmesh_timings(dev, hd, builtin)
     for k, v in rec["bigmesh"].items():
         print(f"[ab] {label} bigmesh {k}: {json.dumps(v)}")
+    torch.cuda.empty_cache()
+    rec["steps"] = step_timings(dev, hd, builtin)
+    for k, v in rec["steps"].items():
+        print(f"[ab] {label} steps {k}: {json.dumps(v)}")
     torch.cuda.empty_cache()
     b7_timings(rec, label, dev, rs, pk, builtin, hd)
     rec["b6"] = b6_timings(dev, hd, pk, builtin)

@@ -21,8 +21,9 @@
 // record int32[2,N]: (family, index) of the winner, -1 on a lane that was
 // dead or missed; the mesh gradient's SoA replay reads it.  A fourth
 // instance, search-only with the walk's counting (bvh_search.cuh COUNT),
-// also writes each ray's node and triangle tests as int32[2,N]; it serves
-// the bounds of chip_smoke.py and no display path.
+// also writes each ray's node and triangle tests and walk iterations as
+// int32[3,N]; it serves the bounds of chip_smoke.py and its census of the
+// walk, and no display path.
 //
 // No display frame, training step or recover launches this kernel any more:
 // K1's and B3's BVH forms (path_kernel.cu, primary_kernel.cu) serve the big
@@ -30,7 +31,9 @@
 // collect instance writes the gradient's hit records in one launch.  The
 // kernel stays as the per-bounce route BigMeshTracer.bounce and .search
 // expose and chip_smoke.py checks, and for its counting instance, which
-// every BVH-form bound counts the walk with.
+// every BVH-form bound counts the walk with.  Its binary walk
+// (bvh_search.cuh) is the reference that K1's and B3's redesigned walk
+// (bvh_walk.cuh) is held against, bit for bit, through this route.
 //
 // The TPU mechanism is not carried over: no chunk DMAs or SMEM clusters, no
 // per-tile chunk work lists (_bigmesh_chunk_worklist :2734), no wavefront
@@ -97,6 +100,7 @@ __global__ void __launch_bounds__(THREADS) bigmesh_kernel(
     if constexpr (COUNT) {
       out_count[i] = c.box;
       out_count[(int64_t)n + i] = c.tri;
+      out_count[2 * (int64_t)n + i] = c.iter;
     }
     out_w[i] = h.t;
     out_w[(int64_t)n + i] = h.nx;
@@ -182,7 +186,7 @@ int rvpt_max_table_floats() { return max_table_floats(); }
 // record to out_hits int32[2,N]; else the search-only instance on `state`
 // f32[7,N] (live row 6), writing out_w and out_i, and with out_count
 // non-null its counting instance, which also writes each ray's node and
-// triangle tests to out_count int32[2,N].
+// triangle tests and walk iterations to out_count int32[3,N].
 int rvpt_bigmesh(const float* tables, int n_tri, int n_sph, int n_pln,
                  int n_mat, const float* nodes, const int64_t* pix_ids,
                  const float* state, int live_row, float* out_state,

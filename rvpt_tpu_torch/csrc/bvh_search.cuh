@@ -1,6 +1,9 @@
-// The per-ray BVH walk of the BVH scenes' searches, big meshes included:
-// the BVH form of K1 (path_kernel.cu) and B3 (primary_kernel.cu) and the
-// big-mesh kernel B5 (bigmesh_kernel.cu).  It replaces the cluster-culled triangle searches of
+// The binary per-ray BVH walk of the big-mesh kernel B5 (bigmesh_kernel.cu)
+// and its counting instance, and the node helpers B6 (bigmesh_hart.cu) and
+// the redesigned walk of K1's and B3's BVH forms (bvh_walk.cuh) share.
+// This walk is the reference: bvh_walk.cuh walks the same tree in the same
+// order and is held against it bit for bit through B5's per-bounce route.
+// It replaces the cluster-culled triangle searches of
 // rvpt_tpu/ops/pathkernel.py (_culled_tris :311 for K1's and B3's culled
 // form, _culled_tris_rows :472 for the big-mesh kernels): per-tile work
 // lists over SMEM cluster boxes there; here one thread walks the tree for
@@ -25,7 +28,8 @@
 //
 // The counting instance (COUNT = true, used by the big-mesh kernel's
 // counting entry for the bounds of chip_smoke.py) walks the same way and
-// also counts the thread's node slab tests and triangle tests; every
+// also counts the thread's node slab tests, triangle tests and loop
+// iterations (one per node visited, for the warps' SIMD efficiency); every
 // display instance leaves COUNT false and compiles to the walk alone.
 #pragma once
 
@@ -47,10 +51,10 @@ struct Mesh {
   int n_tri;
 };
 
-// Per-thread work of a walk: node tests (the root's included) and
-// triangle (or, for the distance kernel, primitive) tests.
+// Per-thread work of a walk: node tests (the root's included), triangle
+// (or, for the distance kernel, primitive) tests and loop iterations.
 struct WalkCount {
-  int box = 0, tri = 0;
+  int box = 0, tri = 0, iter = 0;
 };
 
 struct Node {
@@ -147,6 +151,7 @@ __device__ __forceinline__ void walk(const Mesh& m, float ox, float oy,
   }
   int node = 0;
   while (true) {
+    if constexpr (COUNT) ++c->iter;
     const Node nd = load_node(m.nodes, node);
     bool next = false;
     if (nd.count > 0) {

@@ -12,9 +12,11 @@
 // memory and triangles searched first, and the BVH form, the port of K1's
 // culled form (meta["culled"], _culled_tris :311), which stages only the
 // spheres, planes and materials and walks the tree for the triangles last
-// (bvh_search.cuh).  The BVH form also serves the big meshes (more than
-// 1,024 triangles), with their camera rays passed in: there it replaces the
-// big-mesh kernels B5 (make_bigmesh_dma_kernel :2366 and
+// (bvh_walk.cuh: pack_walk's float4 rows with a t-first reject, and an
+// any-hit walk for Whitted's shadow rays, which use only whether something
+// is hit).  The BVH form also serves the big
+// meshes (more than 1,024 triangles), with their camera rays passed in:
+// there it replaces the big-mesh kernels B5 (make_bigmesh_dma_kernel :2366 and
 // make_bigmesh_kernel :2061, BigMeshTracer :2927), which run one launch per
 // bounce or search with the ray state in device memory between launches;
 // here the whole path, shadow searches and Cook's tail included, is one
@@ -66,10 +68,11 @@
 // Tables above the 48 KB default take the opt-in shared memory (up to 227
 // KB on Hopper).  A lane that has terminated leaves the bounce loop at
 // once, which is exact: a dead lane adds nothing.  The BVH form instead
-// reads 32-byte nodes and 68-byte triangle rows from device memory along
-// each ray's own walk (mostly from L2: rabbit's tree and rows are 19 KB,
-// mesh_demo(5)'s 2.7 MB); neighbouring rays walk similar paths, but the
-// warp diverges where they part.
+// reads 32-byte nodes and 64-byte triangle rows (16 bytes of them for a
+// row the t-first reject drops) from device memory along each ray's own
+// walk (mostly from L2: rabbit's tree and rows are 19 KB, mesh_demo(5)'s
+// 2.7 MB); neighbouring rays walk similar paths, but the warp diverges
+// where they part.
 //
 // The counting instances (STATS, BVH form only: Kajiya, Whitted, Cook and
 // Kajiya with records) replace the stats outputs of the culled form
@@ -102,6 +105,7 @@
 #include <cuda_runtime.h>
 
 #include "bvh_search.cuh"
+#include "bvh_walk.cuh"
 #include "kajiya_shade.cuh"
 #include "scene_search.cuh"
 
@@ -117,6 +121,9 @@ constexpr int THREADS = 256;
 constexpr int CULL_K = 16;       // pathkernel.CULL_K
 constexpr int CULL_TILE = 8192;  // pathkernel.CULL_TILE (a multiple of 32)
 constexpr int BOX_STRIDE = 8;    // cull_rows: lo xyz, hi xyz, 2 unused
+// The walk's stack form (bvh_walk.cuh, walk's PACKED): two arrays, which
+// ran faster here than the packed entry.
+constexpr bool PACKED_STACK = false;
 
 // Or `bits` into `word` for every lane of the converged group that holds
 // the same word: one atomicOr per word, none for zero bits.
@@ -187,7 +194,7 @@ template <int INTEG, int COLLECT, bool BVH, bool STATS>
 __global__ void __launch_bounds__(THREADS) path_kernel(
     const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
     int n_mat, const float* __restrict__ nodes,
-    const float* __restrict__ cam_in,
+    const float* __restrict__ walk_rows, const float* __restrict__ cam_in,
     const int64_t* __restrict__ pix_ids, const float* __restrict__ ox_in,
     const float* __restrict__ oy_in, const float* __restrict__ oz_in,
     const float* __restrict__ dx_in, const float* __restrict__ dy_in,
@@ -200,12 +207,14 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   static_assert(!STATS || BVH, "the counters belong to the BVH form");
   extern __shared__ float smem[];
   // cam_in is null when the rays are passed in.  The BVH form stages all
-  // but the triangles, which its walk reads from device memory.
+  // but the triangles, which its walk reads from device memory (walk_rows,
+  // pack_walk's rows and material ids).
   const Tables s =
       BVH ? stage(smem, cam_in, tables + TRI_STRIDE * n_tri, 0, n_sph, n_pln,
                   n_mat)
           : stage(smem, cam_in, tables, n_tri, n_sph, n_pln, n_mat);
-  const bvh::Mesh mesh{tables, nodes, n_tri};
+  const walk::Tree tree =
+      BVH ? walk::tree(walk_rows, n_tri, nodes) : walk::Tree{};
   const float* cam = smem;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   // Counter slots: bounce b's search, then Whitted's shadow search of
@@ -215,24 +224,51 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   const int slots = INTEG == WHITTED ? 2 * max_bounces
                     : INTEG == COOK  ? max_bounces + 1
                                      : max_bounces;
+  // The counting walk of one search (STATS) from the sphere/plane winner.
+  auto count_search = [&](int slot, float seed, float ox, float oy, float oz,
+                          float dx, float dy, float dz) {
+    const int64_t base = ((int64_t)(i / CULL_TILE) * slots + slot) * words;
+    count_clusters(boxes, n_clu, tables, n_tri, seed, ox, oy, oz, dx, dy, dz,
+                   mint, st_listed + base, st_passed + base);
+  };
   auto search = [&](int slot, float ox, float oy, float oz, float dx,
                     float dy, float dz) -> Hit {
     if constexpr (STATS) {
-      // closest_hit_mesh, with the seed of the counting walk kept.
+      // walk::closest_hit, with the seed of the counting walk kept.
       Hit h = miss();
       search_spheres(s, ox, oy, oz, dx, dy, dz, mint, h);
       search_planes(s, ox, oy, oz, dx, dy, dz, mint, h);
       const float seed = h.t;
-      bvh::walk(mesh, ox, oy, oz, dx, dy, dz, mint, h);
-      const int64_t base =
-          ((int64_t)(i / CULL_TILE) * slots + slot) * words;
-      count_clusters(boxes, n_clu, tables, n_tri, seed, ox, oy, oz, dx, dy,
-                     dz, mint, st_listed + base, st_passed + base);
+      walk::walk<false, PACKED_STACK>(tree, ox, oy, oz, dx, dy, dz, mint, h);
+      if (h.fam == 0) h.mat = __ldg(tree.mat + h.idx);
+      count_search(slot, seed, ox, oy, oz, dx, dy, dz);
       return h;
     } else if constexpr (BVH) {
-      return bvh::closest_hit_mesh(s, mesh, ox, oy, oz, dx, dy, dz, mint);
+      return walk::closest_hit<PACKED_STACK>(s, tree, ox, oy, oz, dx, dy, dz,
+                                             mint);
     } else {
       return closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+    }
+  };
+  // Whether a shadow ray hits anything: search(...).fam >= 0, by the
+  // any-hit walk in the BVH form.
+  auto occluded = [&](int slot, float ox, float oy, float oz, float dx,
+                      float dy, float dz) -> bool {
+    if constexpr (STATS) {
+      Hit h = miss();
+      search_spheres(s, ox, oy, oz, dx, dy, dz, mint, h);
+      search_planes(s, ox, oy, oz, dx, dy, dz, mint, h);
+      const float seed = h.t;
+      const bool hit =
+          h.fam >= 0 || walk::walk<true, PACKED_STACK>(tree, ox, oy, oz, dx,
+                                                       dy, dz, mint, h);
+      count_search(slot, seed, ox, oy, oz, dx, dy, dz);
+      return hit;
+    } else if constexpr (BVH) {
+      return walk::occluded<PACKED_STACK>(s, tree, ox, oy, oz, dx, dy, dz,
+                                          mint);
+    } else {
+      return closest_hit(s, ox, oy, oz, dx, dy, dz, mint).fam >= 0;
     }
   };
 
@@ -303,10 +339,9 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     if (INTEG == WHITTED && kind == 0.0f) {
       // Lambert: a shadow ray toward the light, the direct term unless
       // shadowed, and the path ends.
-      const Hit sh = search(max_bounces + bounce, f.px + EPSILON * f.nX,
-                            f.py + EPSILON * f.nY, f.pz + EPSILON * f.nZ,
-                            LDIR_X, LDIR_Y, LDIR_Z);
-      if (sh.fam >= 0) {
+      if (occluded(max_bounces + bounce, f.px + EPSILON * f.nX,
+                   f.py + EPSILON * f.nY, f.pz + EPSILON * f.nZ, LDIR_X,
+                   LDIR_Y, LDIR_Z)) {
         rr = rr + cr;
         rg = rg + cg;
         rb = rb + cb;
@@ -363,7 +398,8 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
 
 template <int INTEG, int COLLECT, bool BVH, bool STATS>
 int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
-           const float* nodes, const float* cam, const int64_t* pix_ids,
+           const float* nodes, const float* walk_rows, const float* cam,
+           const int64_t* pix_ids,
            const float* ox, const float* oy, const float* oz, const float* dx,
            const float* dy, const float* dz, float* out, float* rec_f, int32_t* rec_i, int n,
            uint32_t frame, uint32_t salt_base, uint32_t jitter_salt,
@@ -381,8 +417,8 @@ int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
   const int blocks = (n + THREADS - 1) / THREADS;
   path_kernel<INTEG, COLLECT, BVH, STATS>
       <<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      tables, n_tri, n_sph, n_pln, n_mat, nodes, cam, pix_ids, ox, oy, oz, dx,
-      dy, dz, out, rec_f, rec_i, n, frame, salt_base, jitter_salt,
+      tables, n_tri, n_sph, n_pln, n_mat, nodes, walk_rows, cam, pix_ids, ox,
+      oy, oz, dx, dy, dz, out, rec_f, rec_i, n, frame, salt_base, jitter_salt,
       max_bounces, standard, cam_mode, mint, n_clu, boxes, st_listed,
       st_passed);
   return (int)cudaGetLastError();
@@ -399,12 +435,14 @@ int rvpt_max_table_floats() { return max_table_floats(); }
 // or Cook, counters asked of the row form or with hits only.  With rec_f
 // and rec_i non-null a Kajiya collect instance writes the record, with
 // rec_i alone its hits-only instance the hits; with `nodes`
-// non-null (pack_bvh's rows) the BVH form runs, collect or not; with
+// non-null (pack_bvh's rows, with walk_rows pack_walk's) the BVH form
+// runs, collect or not; with
 // st_listed and st_passed non-null (zeroed int32[grid][slots][ceil(n_clu /
 // 32)] masks, pathkernel.stats_slots) its counting instance also sets the
 // cluster bits of the `boxes` (cull_rows) walk.
 int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
-                    int n_mat, const float* nodes, const float* cam,
+                    int n_mat, const float* nodes, const float* walk_rows,
+                    const float* cam,
                     const int64_t* pix_ids,
                     const float* ox, const float* oy, const float* oz,
                     const float* dx, const float* dy, const float* dz,
@@ -418,13 +456,14 @@ int rvpt_path_trace(const float* tables, int n_tri, int n_sph, int n_pln,
   const bool hits_only = collect && rec_f == nullptr;
   const bool bvh_form = nodes != nullptr;
   const bool stats = st_listed != nullptr && st_passed != nullptr;
+  if (bvh_form && walk_rows == nullptr) return (int)cudaErrorInvalidValue;
   if (stats && (!bvh_form || boxes == nullptr || n_clu <= 0 || hits_only)) {
     return (int)cudaErrorInvalidValue;
   }
 #define RVPT_LAUNCH(I, C, B, S)                                               \
-  launch<I, C, B, S>(tables, n_tri, n_sph, n_pln, n_mat, nodes, cam,        \
-                     pix_ids, ox, oy, oz, dx, dy, dz, out, rec_f, rec_i, n,   \
-                     frame, salt_base, jitter_salt, max_bounces, standard,    \
+  launch<I, C, B, S>(tables, n_tri, n_sph, n_pln, n_mat, nodes, walk_rows,  \
+                     cam, pix_ids, ox, oy, oz, dx, dy, dz, out, rec_f, rec_i, \
+                     n, frame, salt_base, jitter_salt, max_bounces, standard, \
                      cam_mode, mint, stream, n_clu, boxes, st_listed,         \
                      st_passed)
   if (collect) {

@@ -15,9 +15,12 @@
 // Each mode has two search forms (BVH), as the whole-path kernel: the row
 // form and the BVH form, the port of B3's culled form (_primary_call's
 // cull_tables), which walks the tree for the triangles after the spheres
-// and planes (bvh_search.cuh).  The BVH form with rays passed in serves the
-// big meshes (more than 1,024 triangles), whose camera rays are made by the
-// caller: there it replaces the big-mesh kernel B5's search-only instance
+// and planes (bvh_walk.cuh: pack_walk's float4 rows, with a t-first reject
+// but in the camera search of modes 0-3, a 64-bit stack entry; AO's probes
+// and Appel's shadow ray, which use only whether something is hit, walk
+// until their first hit).  The BVH form
+// with rays passed in serves the big meshes (more than 1,024 triangles),
+// whose camera rays are made by the caller: there it replaces the big-mesh kernel B5's search-only instance
 // (make_bigmesh_kernel :2061, BigMeshTracer.trace_primary :3143), one
 // launch per search with the finalize between launches, by one launch per
 // frame.
@@ -33,6 +36,12 @@
 // BVH form reads the nodes and triangle rows along each ray's walk from
 // device memory.
 //
+// walk_count_kernel is the redesigned walk's counting instance
+// (pathkernel.count_walk): per live ray one closest-hit or occlusion
+// search with bvh_walk.cuh's COUNT, writing the node slab tests, triangle
+// rows opened, rows tested in full and loop iterations as int32[4,N]; it
+// serves chip_smoke.py's census of the walk and no display path.
+//
 // Rounding: every expression keeps the operation order of the plain
 // version (rvpt_tpu_torch/ops/pathkernel.py primary_plain and
 // _primary_finalize).  Build with --fmad=false and without fast math.
@@ -40,7 +49,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "bvh_search.cuh"
+#include "bvh_walk.cuh"
 #include "scene_search.cuh"
 
 namespace {
@@ -48,12 +57,15 @@ namespace {
 using namespace scene;
 
 constexpr int THREADS = 256;
+// The walk's stack form (bvh_walk.cuh, walk's PACKED): one 64-bit entry
+// per node, which ran faster here than two arrays.
+constexpr bool PACKED_STACK = true;
 
 template <int MODE, bool BVH>
 __global__ void __launch_bounds__(THREADS) primary_kernel(
     const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
     int n_mat, const float* __restrict__ nodes,
-    const float* __restrict__ cam_in,
+    const float* __restrict__ walk_rows, const float* __restrict__ cam_in,
     const int64_t* __restrict__ pix_ids, const float* __restrict__ ox_in,
     const float* __restrict__ oy_in, const float* __restrict__ oz_in,
     const float* __restrict__ dx_in, const float* __restrict__ dy_in,
@@ -62,18 +74,39 @@ __global__ void __launch_bounds__(THREADS) primary_kernel(
     float mint, int nrays, float inv_nrays) {
   extern __shared__ float smem[];
   // cam_in is null when the rays are passed in.  The BVH form stages all
-  // but the triangles, which its walk reads from device memory.
+  // but the triangles, which its walk reads from device memory (walk_rows,
+  // pack_walk's rows and material ids).
   const Tables s =
       BVH ? stage(smem, cam_in, tables + TRI_STRIDE * n_tri, 0, n_sph, n_pln,
                   n_mat)
           : stage(smem, cam_in, tables, n_tri, n_sph, n_pln, n_mat);
-  const bvh::Mesh mesh{tables, nodes, n_tri};
+  const walk::Tree tree =
+      BVH ? walk::tree(walk_rows, n_tri, nodes) : walk::Tree{};
+  // The camera search.  In modes 0-3, the only search of the frame, its
+  // triangle rows are loaded whole and tested in full (bvh_walk.cuh,
+  // test_row's EAGER): a camera ray's rows nearly all pass the t-first
+  // reject (about 93% on the builtin meshes), and there its dependent
+  // loads cost more than the tests it saves.  Utah (mode 4) ran 4-6%
+  // slower so (kernel_ab.py, NVIDIA H100 80GB HBM3 at 700 W) and keeps
+  // the reject, as AO and Appel do.
   auto search = [&](float ox, float oy, float oz, float dx, float dy,
                     float dz) -> Hit {
     if constexpr (BVH) {
-      return bvh::closest_hit_mesh(s, mesh, ox, oy, oz, dx, dy, dz, mint);
+      return walk::closest_hit<PACKED_STACK, (MODE <= 3)>(s, tree, ox, oy, oz,
+                                                         dx, dy, dz, mint);
     } else {
       return closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+    }
+  };
+  // Whether a probe or shadow ray hits anything: search(...).fam >= 0, by
+  // the any-hit walk in the BVH form.
+  auto occluded = [&](float ox, float oy, float oz, float dx, float dy,
+                      float dz) -> bool {
+    if constexpr (BVH) {
+      return walk::occluded<PACKED_STACK>(s, tree, ox, oy, oz, dx, dy, dz,
+                                          mint);
+    } else {
+      return closest_hit(s, ox, oy, oz, dx, dy, dz, mint).fam >= 0;
     }
   };
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -149,15 +182,14 @@ __global__ void __launch_bounds__(THREADS) primary_kernel(
         const float phi = TWO_PI * ru;
         const float cos_t = 1.0f - 2.0f * rv;
         const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-        const Hit p = search(px, py, pz, fX + sin_t * cosf(phi),
-                             fY + sin_t * sinf(phi), fZ + cos_t);
-        acc = acc + (p.fam >= 0 ? 1.0f : 0.0f);
+        const bool p = occluded(px, py, pz, fX + sin_t * cosf(phi),
+                                fY + sin_t * sinf(phi), fZ + cos_t);
+        acc = acc + (p ? 1.0f : 0.0f);
       }
       const float ao = 1.0f - acc * inv_nrays;
       r = g = b = hit ? ao : 0.0f;
     } else {  // Appel (204-250): a hard shadow; a miss is white
-      const bool shadow =
-          hit && search(px, py, pz, LDIR_X, LDIR_Y, LDIR_Z).fam >= 0;
+      const bool shadow = hit && occluded(px, py, pz, LDIR_X, LDIR_Y, LDIR_Z);
       const float cos_l = fmaxf(0.0f, LDIR_X * fX + LDIR_Y * fY + LDIR_Z * fZ);
       const float lit = shadow ? 0.0f : LIGHT_I * cos_l;
       r = g = b = hit ? lit : 1.0f;
@@ -170,7 +202,8 @@ __global__ void __launch_bounds__(THREADS) primary_kernel(
 
 template <int MODE, bool BVH>
 int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
-           const float* nodes, const float* cam, const int64_t* pix_ids,
+           const float* nodes, const float* walk_rows, const float* cam,
+           const int64_t* pix_ids,
            const float* const* rays, float* out, int n, uint32_t frame,
            uint32_t salt_base, uint32_t jitter_salt, int cam_mode, float mint,
            int nrays, float inv_nrays, void* stream) {
@@ -184,10 +217,44 @@ int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
   }
   const int blocks = (n + THREADS - 1) / THREADS;
   primary_kernel<MODE, BVH><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      tables, n_tri, n_sph, n_pln, n_mat, nodes, cam, pix_ids, rays[0],
-      rays[1], rays[2], rays[3], rays[4], rays[5], out, n, frame, salt_base,
-      jitter_salt, cam_mode, mint, nrays, inv_nrays);
+      tables, n_tri, n_sph, n_pln, n_mat, nodes, walk_rows, cam, pix_ids,
+      rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], out, n, frame,
+      salt_base, jitter_salt, cam_mode, mint, nrays, inv_nrays);
   return (int)cudaGetLastError();
+}
+
+// The redesigned walk's counting instance: per live lane of `rays` (f32[7,N]:
+// the ray, then live as 0/1) one search (ANY: an occlusion search), its
+// work to out int32[4,N] (node slab tests, rows opened, rows tested in
+// full, iterations); zeros on a lane that is not live.
+template <bool ANY>
+__global__ void __launch_bounds__(THREADS) walk_count_kernel(
+    const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
+    int n_mat, const float* __restrict__ nodes,
+    const float* __restrict__ walk_rows, const float* __restrict__ rays,
+    int32_t* __restrict__ out, int n, float mint) {
+  extern __shared__ float smem[];
+  const Tables s = stage(smem, nullptr, tables + TRI_STRIDE * n_tri, 0, n_sph,
+                         n_pln, n_mat);
+  const walk::Tree tree = walk::tree(walk_rows, n_tri, nodes);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  auto row = [&](int r) { return rays[(int64_t)r * n + i]; };
+  walk::Count c;
+  if (row(6) > 0.0f) {
+    if constexpr (ANY) {
+      walk::occluded<PACKED_STACK, true>(s, tree, row(0), row(1), row(2),
+                                         row(3), row(4), row(5), mint, &c);
+    } else {
+      walk::closest_hit<PACKED_STACK, false, true>(s, tree, row(0), row(1),
+                                                   row(2), row(3), row(4),
+                                                   row(5), mint, &c);
+    }
+  }
+  out[i] = c.box;
+  out[(int64_t)n + i] = c.tri;
+  out[2 * (int64_t)n + i] = c.full;
+  out[3 * (int64_t)n + i] = c.iter;
 }
 
 }  // namespace
@@ -197,12 +264,14 @@ extern "C" {
 int rvpt_max_table_floats() { return max_table_floats(); }
 
 // Launch debug mode `mode` (0-6) on `stream`, in the BVH form when
-// `nodes` (pack_bvh's rows) is non-null, on the rays ox..dz (f32[n] each)
+// `nodes` (pack_bvh's rows, with walk_rows pack_walk's) is non-null, on
+// the rays ox..dz (f32[n] each)
 // when `ox` is non-null, else on camera rays from `cam`; returns
 // cudaGetLastError() of the launch, or cudaErrorInvalidValue for another
-// mode.
+// mode or a BVH form without walk_rows.
 int rvpt_primary(const float* tables, int n_tri, int n_sph, int n_pln,
-                 int n_mat, const float* nodes, const float* cam,
+                 int n_mat, const float* nodes, const float* walk_rows,
+                 const float* cam,
                  const int64_t* pix_ids, const float* ox, const float* oy,
                  const float* oz, const float* dx, const float* dy,
                  const float* dz, float* out, int n, uint32_t frame,
@@ -210,17 +279,18 @@ int rvpt_primary(const float* tables, int n_tri, int n_sph, int n_pln,
                  int cam_mode, float mint, int nrays, float inv_nrays,
                  void* stream) {
   if (n <= 0) return 0;
+  if (nodes && !walk_rows) return (int)cudaErrorInvalidValue;
   const float* const rays[6] = {ox, oy, oz, dx, dy, dz};
 #define RVPT_CASE(M)                                                         \
   case M:                                                                    \
     return nodes ? launch<M, true>(tables, n_tri, n_sph, n_pln, n_mat,     \
-                                   nodes, cam, pix_ids, rays, out, n,      \
-                                   frame, salt_base, jitter_salt,          \
+                                   nodes, walk_rows, cam, pix_ids, rays,   \
+                                   out, n, frame, salt_base, jitter_salt,  \
                                    cam_mode, mint, nrays, inv_nrays,       \
                                    stream)                                 \
                  : launch<M, false>(tables, n_tri, n_sph, n_pln, n_mat,    \
-                                    nodes, cam, pix_ids, rays, out, n,     \
-                                    frame, salt_base, jitter_salt,         \
+                                    nodes, walk_rows, cam, pix_ids, rays,  \
+                                    out, n, frame, salt_base, jitter_salt, \
                                     cam_mode, mint, nrays, inv_nrays,      \
                                     stream);
   switch (mode) {
@@ -235,6 +305,40 @@ int rvpt_primary(const float* tables, int n_tri, int n_sph, int n_pln,
       return (int)cudaErrorInvalidValue;
   }
 #undef RVPT_CASE
+}
+
+// Launch the redesigned walk's counting instance on `stream` (ANY when
+// `any_hit` is non-zero): `rays` f32[7,n], out int32[4,n]; returns
+// cudaGetLastError() of the launch.
+int rvpt_walk_count(const float* tables, int n_tri, int n_sph, int n_pln,
+                    int n_mat, const float* nodes, const float* walk_rows,
+                    const float* rays, int32_t* out, int n, int any_hit,
+                    float mint, void* stream) {
+  if (n <= 0) return 0;
+  const size_t smem = sizeof(float) * staged_floats(0, n_sph, n_pln, n_mat);
+  const int blocks = (n + THREADS - 1) / THREADS;
+  if (any_hit) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          walk_count_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    walk_count_kernel<true><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+        tables, n_tri, n_sph, n_pln, n_mat, nodes, walk_rows, rays, out, n,
+        mint);
+  } else {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          walk_count_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    walk_count_kernel<false><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+        tables, n_tri, n_sph, n_pln, n_mat, nodes, walk_rows, rays, out, n,
+        mint);
+  }
+  return (int)cudaGetLastError();
 }
 
 const char* rvpt_error_string(int code) {

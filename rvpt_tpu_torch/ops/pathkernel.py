@@ -36,7 +36,9 @@ launches the kernel or raises.  Scene tables are packed in the row form
 (one f32 row per primitive) in the field orders below; a BVH scene's
 triangles are in the tree's leaf order, and K1 and B3 on it (their BVH
 form, the port of the culled form) and B5 search them by a per-ray walk of
-the ``pack_bvh`` nodes, after the spheres and planes.  ``BigMeshTracer``
+the ``pack_bvh`` nodes, after the spheres and planes (K1 and B3 read the
+triangles as ``pack_walk``'s aligned rows, and stop an occlusion search at
+its first hit; B5 keeps the binary walk, the reference).  ``BigMeshTracer``
 runs a big mesh through K1's and B3's BVH forms with its rays passed in,
 one launch per frame; B5's per-bounce instances stay as its ``bounce`` and
 ``search`` entries.  A trace's record (``PathRecord``, from K1 in either
@@ -121,9 +123,13 @@ CULL_MAX_TRIS = 8192
 CULL_K = 16
 CULL_G = 64
 CULL_TILE = 8 * 1024
-# The per-thread stack of the kernels' BVH walk (csrc/bvh_search.cuh): the
-# deepest node's depth must stay below it.
+# The per-thread stack of the kernels' BVH walks (csrc/bvh_search.cuh,
+# csrc/bvh_walk.cuh): the deepest node's depth must stay below it.
 BVH_STACK = 64
+# One triangle row of K1's and B3's walk (pack_walk), four float4: the
+# normal and v0.n, e0 and v0.e0, e1 and v0.e1, the metric tensor's terms.
+WALK_FIELDS = ("nx", "ny", "nz", "v0n", "e0x", "e0y", "e0z", "v0e0",
+               "e1x", "e1y", "e1z", "v0e1", "g00", "g11", "g01", "inv_det")
 # One node of pack_bvh: padded box lo xyz, hi xyz, then first and count as
 # int32 bit patterns.
 NODE_FIELDS = ("lox", "loy", "loz", "hix", "hiy", "hiz", "first", "count")
@@ -243,6 +249,34 @@ def pack_bvh(scene: Scene) -> torch.Tensor:
     ints = torch.stack([bvh.first, bvh.count], dim=1).to(torch.int32)
     return torch.cat([bvh.bmin - eps, bvh.bmax + eps,
                       ints.view(torch.float32)], dim=1).contiguous()
+
+
+def pack_walk(tables: torch.Tensor, counts) -> torch.Tensor:
+    """The triangle rows of K1's and B3's BVH walk (csrc/bvh_walk.cuh) from
+    ``pack_fwd``'s: one flat f32 buffer of [T,16] rows (``WALK_FIELDS``,
+    four aligned float4 each), then the material ids f32[T], both in the
+    tree's leaf order.  A rearrangement of the [T,17] rows: no value is
+    computed anew."""
+    t = counts[0]
+    rows = tables[:len(TRI_FIELDS) * t].reshape(t, len(TRI_FIELDS))
+    cols = [TRI_FIELDS.index(f) for f in WALK_FIELDS]
+    return torch.cat([rows[:, cols].reshape(-1),
+                      rows[:, TRI_FIELDS.index("mat")]]).contiguous()
+
+
+class WalkTree(NamedTuple):
+    """What K1's and B3's BVH form walk (csrc/bvh_walk.cuh), built together
+    by ``pack_tree``: ``pack_bvh``'s nodes and ``pack_walk``'s triangle
+    rows.  B5, B6 and ``count_bvh_walk`` take the nodes alone."""
+
+    nodes: torch.Tensor  # f32[M, 8]
+    rows: torch.Tensor   # f32[16 T + T]
+
+
+def pack_tree(scene: Scene, tables: torch.Tensor, counts) -> WalkTree:
+    """The ``WalkTree`` of a BVH scene whose ``pack_fwd`` tables and
+    counts are ``tables`` and ``counts``."""
+    return WalkTree(pack_bvh(scene), pack_walk(tables, counts))
 
 
 class CullBounds(NamedTuple):
@@ -1194,7 +1228,7 @@ def _path_lib():
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.rvpt_path_trace.argtypes = [
             ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            ptr, ptr, ptr, ptr, i32, u32, u32, u32, i32, i32, i32,
+            ptr, ptr, ptr, ptr, ptr, i32, u32, u32, u32, i32, i32, i32,
             ctypes.c_float, i32, ptr, i32, ptr, ptr, ptr,
         ]
         lib.rvpt_path_trace.restype = i32
@@ -1238,6 +1272,28 @@ def _check_nodes(nodes, dev):
         raise ValueError("BVH nodes: need a 16-byte aligned buffer")
 
 
+def _tree_lib(load, tables, counts, tree):
+    """``_scene_lib`` for K1 and B3: the BVH form when ``tree`` (a
+    ``WalkTree``) is given, whose triangle rows must be ``pack_walk``'s for
+    the tables' triangles, 16-byte aligned (the walk loads a row as four
+    float4)."""
+    if tree is None:
+        return _scene_lib(load, tables, counts)
+    if not isinstance(tree, WalkTree):
+        raise TypeError(f"the BVH form takes pack_tree's WalkTree, got {type(tree)}")
+    lib = _scene_lib(load, tables, counts, tree.nodes)
+    check_cuda(tree.rows, torch.float32, "walk rows",
+               (len(WALK_FIELDS) + 1) * counts[0], tables.device)
+    if tree.rows.data_ptr() % 16:
+        raise ValueError("walk rows: need a 16-byte aligned buffer")
+    return lib
+
+
+def _tree_ptrs(tree):
+    return (None, None) if tree is None else (tree.nodes.data_ptr(),
+                                              tree.rows.data_ptr())
+
+
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
@@ -1275,10 +1331,10 @@ def stats_slots(max_bounces, integ) -> int:
 
 def _launch_path(tables, counts, pix, n, frame, salt_base, max_bounces, style,
                  rays, cam_params, cam_mode, jitter_salt, mint, collect,
-                 integ, nodes, cull):
+                 integ, tree, cull):
     """One launch of K1 -> (f32[3, n], ``PathRecord``, int32[B, 2, n]
     hits (``collect="hits"``) or None, f32[3, ceil(n / CULL_TILE)] or
-    None); ``cull`` (``cull_rows``, needs ``nodes``) selects the counting
+    None); ``cull`` (``cull_rows``, needs ``tree``) selects the counting
     instance and its summing kernel."""
     if integ not in INTEGS:
         raise ValueError(f"unknown integrator {integ!r}")
@@ -1290,7 +1346,7 @@ def _launch_path(tables, counts, pix, n, frame, salt_base, max_bounces, style,
         raise ValueError("the stats counters take the full record, not hits only")
     t, s, p, nm = counts
     dev = tables.device
-    lib = _scene_lib(_path_lib, tables, counts, nodes)
+    lib = _tree_lib(_path_lib, tables, counts, tree)
     ray_ptrs, cam_ptr = _check_rays(pix, n, rays, cam_params, dev)
     nb = int(max_bounces)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
@@ -1302,7 +1358,7 @@ def _launch_path(tables, counts, pix, n, frame, salt_base, max_bounces, style,
             hits)
     n_clu, masks = 0, (None, None)
     if cull is not None:
-        if nodes is None:
+        if tree is None:
             raise ValueError("the stats counters need the BVH form")
         n_clu = cull.shape[0] - 1
         check_cuda(cull, torch.float32, "cluster boxes", 8 * (n_clu + 1), dev)
@@ -1315,8 +1371,8 @@ def _launch_path(tables, counts, pix, n, frame, salt_base, max_bounces, style,
                  torch.zeros(shape, dtype=torch.int32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rvpt_path_trace(
-        tables.data_ptr(), t, s, p, nm, _ptr(nodes), cam_ptr, _ptr(pix),
-        *ray_ptrs, out.data_ptr(),
+        tables.data_ptr(), t, s, p, nm, *_tree_ptrs(tree), cam_ptr,
+        _ptr(pix), *ray_ptrs, out.data_ptr(),
         record.fields.data_ptr() if isinstance(record, PathRecord) else None,
         None if record is None else hits.data_ptr(), n,
         int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
@@ -1336,25 +1392,25 @@ def _launch_path(tables, counts, pix, n, frame, salt_base, max_bounces, style,
 def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
                        style, rays=None, cam_params=None, cam_mode=PINHOLE,
                        jitter_salt=0, mint=0.0, collect=False, integ="kajiya",
-                       nodes=None):
+                       tree=None):
     """Launch the CUDA kernel -> f32[3, n] on the tables' card, or
     (f32[3, n], ``PathRecord``) with ``collect``, or (f32[3, n], int32[B,
     2, n] hits) with ``collect="hits"`` (the hits-only collect instance).
 
     ``pix`` int64[n] pixel ids, or None for the ids 0..n-1 (the raster
-    film).  ``nodes`` (``pack_bvh``) selects the BVH form, which walks the
+    film).  ``tree`` (``pack_tree``) selects the BVH form, which walks the
     tree for the triangles after the spheres and planes
     (``trace_plain(tris_last=True)``); None the row form.  Other arguments
     as ``trace_plain``.  Counts one launch in
     ``launch_path_kernel.launches``."""
     out, record, _ = _launch_path(
         tables, counts, pix, n, frame, salt_base, max_bounces, style, rays,
-        cam_params, cam_mode, jitter_salt, mint, collect, integ, nodes, None)
+        cam_params, cam_mode, jitter_salt, mint, collect, integ, tree, None)
     launch_path_kernel.launches += 1
     return out if record is None else (out, record)
 
 
-def launch_path_stats(tables, counts, nodes, cull, pix, n, frame, salt_base,
+def launch_path_stats(tables, counts, tree, cull, pix, n, frame, salt_base,
                       max_bounces, style, rays=None, cam_params=None,
                       cam_mode=PINHOLE, jitter_salt=0, mint=0.0, collect=False,
                       integ="kajiya"):
@@ -1363,12 +1419,13 @@ def launch_path_stats(tables, counts, nodes, cull, pix, n, frame, salt_base,
     bits of the clusters they list and still pass in per (tile, search)
     masks after each search, then a kernel that counts the bits ->
     (f32[3, n], f32[3, ceil(n / CULL_TILE)]), or with ``collect`` (f32[3,
-    n], ``PathRecord``, counters).  ``cull`` is ``cull_rows``; the
-    radiance and records are those of ``launch_path_kernel``, bit for bit.
-    Counts one launch (the pair) in ``launch_path_stats.launches``."""
+    n], ``PathRecord``, counters).  ``tree`` is ``pack_tree``'s, ``cull``
+    ``cull_rows``; the radiance and records are those of
+    ``launch_path_kernel``, bit for bit.  Counts one launch (the pair) in
+    ``launch_path_stats.launches``."""
     out, record, agg = _launch_path(
         tables, counts, pix, n, frame, salt_base, max_bounces, style, rays,
-        cam_params, cam_mode, jitter_salt, mint, collect, integ, nodes, cull)
+        cam_params, cam_mode, jitter_salt, mint, collect, integ, tree, cull)
     launch_path_stats.launches += 1
     return (out, agg) if record is None else (out, record, agg)
 
@@ -1382,10 +1439,13 @@ def _primary_lib():
     if not hasattr(lib, "_rvpt_bound"):
         ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
         lib.rvpt_primary.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr,
-                                     ptr, ptr, ptr, ptr, ptr, ptr,
+                                     ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                      ptr, i32, u32, u32, u32, i32, i32, f32,
                                      i32, f32, ptr]
         lib.rvpt_primary.restype = i32
+        lib.rvpt_walk_count.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr,
+                                        ptr, i32, i32, f32, ptr]
+        lib.rvpt_walk_count.restype = i32
         lib.rvpt_max_table_floats.argtypes = []
         lib.rvpt_max_table_floats.restype = i32
         lib._rvpt_bound = True
@@ -1394,11 +1454,12 @@ def _primary_lib():
 
 def launch_primary_kernel(tables, counts, pix, n, frame, salt_base, mode,
                           nrays, cam_params, cam_mode=PINHOLE, jitter_salt=0,
-                          mint=0.0, nodes=None, rays=None):
+                          mint=0.0, tree=None, rays=None):
     """Launch the CUDA primary-hit kernel B3 -> f32[3, n] on the tables'
     card.  ``pix`` int64[n] pixel ids, or None for the ids 0..n-1;
-    ``nodes`` (``pack_bvh``) selects the BVH form; ``rays`` (six contiguous
-    f32[n] components) its rays-in form, which needs no ``cam_params``.
+    ``tree`` (``pack_tree``) selects the BVH form; ``rays`` (six
+    contiguous f32[n] components) its rays-in form, which needs no
+    ``cam_params``.
     Other arguments as ``primary_plain``.  Counts one launch in
     ``launch_primary_kernel.launches``."""
     if mode not in PRIMARY_MODES:
@@ -1408,11 +1469,11 @@ def launch_primary_kernel(tables, counts, pix, n, frame, salt_base, mode,
         raise ValueError(f"nrays must be at least 1, got {nrays}")
     t, s, p, nm = counts
     dev = tables.device
-    lib = _scene_lib(_primary_lib, tables, counts, nodes)
+    lib = _tree_lib(_primary_lib, tables, counts, tree)
     ray_ptrs, cam_ptr = _check_rays(pix, n, rays, cam_params, dev)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     err = lib.rvpt_primary(
-        tables.data_ptr(), t, s, p, nm, _ptr(nodes), cam_ptr,
+        tables.data_ptr(), t, s, p, nm, *_tree_ptrs(tree), cam_ptr,
         _ptr(pix), *ray_ptrs, out.data_ptr(), n,
         int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
         int(jitter_salt) & 0xFFFFFFFF, int(mode), int(cam_mode), float(mint),
@@ -1533,7 +1594,7 @@ def _run_bigmesh(tables, counts, nodes, pix, state, frame, salt, mint,
         out_w = torch.empty((5, n), dtype=torch.float32, device=dev)
         out_i = torch.empty((2, n), dtype=torch.int32, device=dev)
         if count:
-            out_c = torch.empty((2, n), dtype=torch.int32, device=dev)
+            out_c = torch.empty((3, n), dtype=torch.int32, device=dev)
     else:
         out_state = torch.empty_like(state)
         if collect:
@@ -1570,18 +1631,47 @@ def launch_bigmesh_kernel(tables, counts, nodes, pix, state, frame, salt,
     return out[:2] if search_only else out
 
 
-def count_bvh_walk(tables, counts, nodes, rays, live, mint=0.0):
-    """The BVH walk's work on the card, for a bound: the big-mesh kernel's
-    counting instance (its search-only walk of ``bvh_search.cuh``, the walk
-    that K1's and B3's BVH forms and B5 share, with COUNT) on ``rays``
-    (six f32[N]) where ``live`` (bool[N]) -> (node slab tests, the root's
-    included; triangle tests), summed over the lanes.  It serves the bounds
-    of chip_smoke.py, not a display path, so it adds no launch of B5."""
+def count_bvh_walk(tables, counts, nodes, rays, live, mint=0.0, lanes=False):
+    """The binary BVH walk's work on the card, for a bound: the big-mesh
+    kernel's counting instance (its search-only walk of ``bvh_search.cuh``,
+    B5's, with COUNT; the work K1's and B3's walk did before its redesign)
+    on ``rays`` (six f32[N]) where ``live`` (bool[N]) -> (node slab tests,
+    the root's included; triangle tests), summed over the lanes; with
+    ``lanes`` the int32[3, N] counts per lane (node tests, triangle tests,
+    loop iterations; 0 where not live).  It serves the bounds of
+    chip_smoke.py, not a display path, so it adds no launch of B5."""
     state = torch.stack([*rays, live.to(torch.float32)]).contiguous()
     _, _, c = _run_bigmesh(tables, counts, nodes, None, state, 0, 0, mint,
                            True, count=True)
-    box, tri = c.sum(dim=1, dtype=torch.int64).tolist()
+    if lanes:
+        return c
+    box, tri = c[:2].sum(dim=1, dtype=torch.int64).tolist()
     return box, tri
+
+
+def count_walk(tables, counts, tree, rays, live, any_hit=False, mint=0.0):
+    """The work of K1's and B3's BVH walk (``bvh_walk.cuh``) on the card:
+    its counting instance (``primary_kernel.cu``'s ``walk_count_kernel``)
+    runs one closest-hit search, or with ``any_hit`` one occlusion search
+    (spheres and planes, then the walk to the first hit), per lane of
+    ``rays`` (six f32[N]) where ``live`` (bool[N]) on ``tree``
+    (``pack_tree``) -> int32[4, N]: node slab tests, triangle rows opened
+    (first float4 and t), rows tested in full after the t-first reject,
+    loop iterations; 0 where not live.  For chip_smoke.py's census and
+    bounds; it adds no launch of B3."""
+    t, s, p, nm = counts
+    dev = tables.device
+    if tree is None:
+        raise ValueError("count_walk needs pack_tree's tree")
+    lib = _tree_lib(_primary_lib, tables, counts, tree)
+    state = torch.stack([*rays, live.to(torch.float32)]).contiguous()
+    n = state.shape[1]
+    out = torch.empty((4, n), dtype=torch.int32, device=dev)
+    err = lib.rvpt_walk_count(
+        tables.data_ptr(), t, s, p, nm, *_tree_ptrs(tree), state.data_ptr(), out.data_ptr(), n, int(bool(any_hit)), float(mint),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, err, "walk counting kernel")
+    return out
 
 
 launch_bigmesh_kernel.launches = 0
@@ -1763,11 +1853,11 @@ class PathTracer(nn.Module):
     its plain version for a scene on the CPU.
 
     A BVH scene of any size takes K1's and B3's BVH form, the port of
-    their culled form (``meta["culled"]`` :828-835): the ``pack_bvh``
-    nodes are a buffer too, and the search walks the tree for the
-    triangles after the spheres and planes.  (``render.make_tracer`` sends
-    a big mesh, ``is_bigmesh``, to its subclass ``BigMeshTracer``, which
-    takes the rays from the caller.)  A scene that
+    their culled form (``meta["culled"]`` :828-835): ``pack_tree``'s nodes
+    and triangle rows are buffers too (``tree``), and the search walks the
+    tree for the triangles after the spheres and planes.
+    (``render.make_tracer`` sends a big mesh, ``is_bigmesh``, to its
+    subclass ``BigMeshTracer``, which takes the rays from the caller.)  A scene that
     JAX's tracer culls (``is_culled``: 1 to CULL_MAX_TRIS triangles) also
     keeps the ``cull_rows`` boxes, for ``trace(stats=True)``.  Hart runs B4
     on the raw vertex rows either way."""
@@ -1777,12 +1867,19 @@ class PathTracer(nn.Module):
         tables, self.counts = pack_fwd(scene)
         self.register_buffer("tables", tables)
         self.bvh_form = scene.bvh is not None and scene.num_triangles > 0
-        self.register_buffer("nodes", pack_bvh(scene) if self.bvh_form else None)
+        tree = pack_tree(scene, tables, self.counts) if self.bvh_form else None
+        self.register_buffer("nodes", None if tree is None else tree.nodes)
+        self.register_buffer("walk", None if tree is None else tree.rows)
         self.register_buffer(
             "cull", cull_rows(pack_cull(scene)) if is_culled(scene) else None)
         htables, self.hart_count = pack_hart(scene)
         self.register_buffer("hart_tables", htables)
         self.mint = float(mint)
+
+    @property
+    def tree(self):
+        """The ``WalkTree`` of K1's and B3's BVH form, or None (row form)."""
+        return WalkTree(self.nodes, self.walk) if self.bvh_form else None
 
     def trace(self, pixel, origin, direction, frame, salt_base, max_bounces,
               style="reference", gen_rays=False, cam_params=None,
@@ -1838,12 +1935,12 @@ class PathTracer(nn.Module):
 
         def kernel():
             if counted:
-                return launch_path_stats(self.tables, self.counts, self.nodes,
+                return launch_path_stats(self.tables, self.counts, self.tree,
                                          self.cull, pix, n, frame, salt_base,
                                          max_bounces, style, **kw)
             return launch_path_kernel(self.tables, self.counts, pix, n, frame,
                                       salt_base, max_bounces, style,
-                                      nodes=self.nodes, **kw)
+                                      tree=self.tree, **kw)
 
         def plain():
             acc = hook = None
@@ -1880,7 +1977,7 @@ class PathTracer(nn.Module):
             lambda: launch_primary_kernel(
                 self.tables, self.counts, pix, n, frame, salt_base, mode,
                 nrays, cam_params, cam_mode, jitter_salt, self.mint,
-                self.nodes, rays=rays),
+                self.tree, rays=rays),
             lambda: primary_plain(
                 self.tables, self.counts, _raster(pix, n, self.tables.device), frame,
                 salt_base, mode, nrays, cam_params, cam_mode, jitter_salt,

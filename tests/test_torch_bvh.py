@@ -280,12 +280,20 @@ def test_pack_bvh_pads_boxes_and_keeps_ids():
         tpk.pack_bvh(deep)
 
 
-@pytest.mark.parametrize("name", ["rabbit", "mesh_demo", "terrain_demo"])
+# The builtin trees by name: the small ones, and the deepest the scenes
+# reach, mesh_demo(5)'s and terrain_demo(225)'s.
+TREES = {"rabbit": ("rabbit", {}), "mesh_demo": ("mesh_demo", {}),
+         "terrain_demo": ("terrain_demo", dict(n=40)),
+         "mesh_demo(5)": ("mesh_demo", dict(subdiv=5)),
+         "terrain_demo(225)": ("terrain_demo", dict(n=225))}
+
+
+@pytest.mark.parametrize("name", list(TREES))
 def test_builtin_trees_fit_the_walk(name):
     """The mesh builtins' attached trees fit the kernels' stack, and
     validate holds for them over the leaf-ordered triangles."""
-    kw = {"terrain_demo": dict(n=40)}.get(name, {})
-    ts, _ = getattr(tbuiltin, name)(device="cpu", **kw)
+    maker, kw = TREES[name]
+    ts, _ = getattr(tbuiltin, maker)(device="cpu", **kw)
     assert 0 < ts.bvh.depth < tpk.BVH_STACK
     host = ts.bvh.host_view()
     assert host.max_depth() == ts.bvh.depth

@@ -2,7 +2,10 @@
 Whitted and Cook forms, K2 bwd_kernel, B8 closest_hit, B3 primary_kernel,
 B4 hart_kernel, K1's and B3's BVH forms (B3's with rays passed in too)
 and their records (K1's hits-only collect instance too), the big-mesh
-route's one launch per frame against B5's per-bounce route, B5
+route's one launch per frame against B5's per-bounce route (the
+redesigned walk of K1 and B3 against B5's binary walk, on mesh_demo(3),
+rabbit and a soup with a sphere and a plane), the redesigned walk's
+counting instance against the binary walk's, B5
 bigmesh_kernel with its collect instance, B6 bigmesh_hart, B7
 replay_lookup's gather and segment sum, K1's stats counting instance)
 against their plain PyTorch versions, and the CLI, on the card.  Every
@@ -689,7 +692,7 @@ def test_bvh_form_k1_matches_plain(dev, scene_name, integ):
     kw = dict(cam_params=cp, cam_mode=cam.mode, jitter_salt=0, integ=integ)
     before = tpk.launch_path_kernel.launches
     got = tpk.launch_path_kernel(pt.tables, pt.counts, None, cfg.num_pixels, 2, 16,
-                                 8, "standard", nodes=pt.nodes, **kw)
+                                 8, "standard", tree=pt.tree, **kw)
     pix = torch.arange(cfg.num_pixels, device=dev)
     want = tpk.trace_plain(pt.tables, pt.counts, pix, 2, 16, 8, "standard",
                            tris_last=True, **kw)
@@ -707,7 +710,7 @@ def test_bvh_form_b3_matches_plain(dev, mode):
     pt = tpk.PathTracer(scene)
     cp = tpk.camera_params(cam, cfg)
     got = tpk.launch_primary_kernel(pt.tables, pt.counts, None, cfg.num_pixels, 1,
-                                    16, mode, 4, cp, cam.mode, 0, nodes=pt.nodes)
+                                    16, mode, 4, cp, cam.mode, 0, tree=pt.tree)
     pix = torch.arange(cfg.num_pixels, device=dev)
     want = tpk.primary_plain(pt.tables, pt.counts, pix, 1, 16, mode, 4, cp,
                              cam.mode, 0, tris_last=True)
@@ -811,7 +814,7 @@ def test_soup_bvh_form_k1_matches_plain(dev, integ):
     kw = dict(cam_params=tpk.camera_params(cam, cfg), cam_mode=cam.mode,
               jitter_salt=0, integ=integ)
     got = tpk.launch_path_kernel(pt.tables, pt.counts, None, cfg.num_pixels, 2, 16,
-                                 6, "standard", nodes=pt.nodes, **kw)
+                                 6, "standard", tree=pt.tree, **kw)
     pix = torch.arange(cfg.num_pixels, device=dev)
     want = tpk.trace_plain(pt.tables, pt.counts, pix, 2, 16, 6, "standard",
                            tris_last=True, **kw)
@@ -828,7 +831,7 @@ def test_soup_bvh_form_b3_matches_plain(dev, mode):
     pt = tpk.PathTracer(scene)
     cp = tpk.camera_params(cam, cfg)
     got = tpk.launch_primary_kernel(pt.tables, pt.counts, None, cfg.num_pixels, 1,
-                                    16, mode, 4, cp, cam.mode, 0, nodes=pt.nodes)
+                                    16, mode, 4, cp, cam.mode, 0, tree=pt.tree)
     pix = torch.arange(cfg.num_pixels, device=dev)
     want = tpk.primary_plain(pt.tables, pt.counts, pix, 1, 16, mode, 4, cp,
                              cam.mode, 0, tris_last=True)
@@ -1030,6 +1033,39 @@ def test_march_counting_instance(dev):
     assert box <= work["cold_box"] and tri <= work["cold_tri"]
 
 
+@pytest.mark.parametrize("scene_name", ["mesh_demo3", "soup"])
+def test_redesigned_walk_counts(dev, scene_name):
+    """count_walk, the redesigned walk's counting instance: its
+    closest-hit search visits exactly the nodes and leaves of the binary
+    walk (count_bvh_walk), lane for lane; it opens every row the binary
+    walk tests and tests at most those in full; its occlusion search does
+    no more than the closest-hit search; no work on lanes that are not
+    live; no launch counted."""
+    cfg = FilmConfig(width=320, height=180)
+    if scene_name == "soup":
+        scene, cam = _mixed_soup(1500, dev)
+    else:
+        scene, cam = _mesh(scene_name, cfg, dev)
+    pt = tpk.PathTracer(scene)
+    _, ray = _bigmesh_rays(scene, cam, cfg, dev)
+    rays = tuple(c.contiguous() for c in (*ray.origin.T, *ray.direction.T))
+    n = cfg.num_pixels
+    live = torch.arange(n, device=dev) % 3 != 0
+    before = tpk.launch_primary_kernel.launches
+    old = tpk.count_bvh_walk(pt.tables, pt.counts, pt.nodes, rays, live, lanes=True)
+    new = tpk.count_walk(pt.tables, pt.counts, pt.tree, rays, live)
+    occ = tpk.count_walk(pt.tables, pt.counts, pt.tree, rays, live,
+                         any_hit=True)
+    torch.cuda.synchronize()
+    assert tpk.launch_primary_kernel.launches == before
+    assert old.shape == (3, n) and new.shape == occ.shape == (4, n)
+    assert torch.equal(new[[0, 1, 3]], old)
+    assert (new[2] <= new[1]).all() and (new[2] < new[1]).any()
+    assert (occ <= new).all() and (occ[0] < new[0]).any()
+    assert not new[:, ~live].any() and not occ[:, ~live].any()
+    assert (new[0, live] >= 1).all()
+
+
 def test_walk_counting_instances(dev):
     """count_bvh_walk and count_hart_walk, the kernels' counting instances
     for the bounds: no work on lanes that are not live, at least the root
@@ -1136,7 +1172,8 @@ def test_b3_rays_in_matches_plain(dev, scene_name, mode):
     pixel, rays = _rays(scene, cam, cfg, dev)
     before = tpk.launch_primary_kernel.launches
     got = tpk.launch_primary_kernel(pt.tables, pt.counts, pixel, cfg.num_pixels, 1,
-                                    16, mode, 4, None, nodes=pt.nodes, rays=rays)
+                                    16, mode, 4, None, tree=pt.tree,
+                                    rays=rays)
     want = tpk.primary_plain(pt.tables, pt.counts, pixel, 1, 16, mode, 4, None,
                              tris_last=True, rays=rays)
     torch.cuda.synchronize()
@@ -1146,15 +1183,24 @@ def test_b3_rays_in_matches_plain(dev, scene_name, mode):
 
 
 @pytest.mark.parametrize("mode", range(10))
-def test_bigmesh_one_launch_matches_the_b5_route(dev, mode):
-    """BigMeshTracer's one-launch route (K1's or B3's BVH form) on
-    mesh_demo(3) at 320x180 x 4, standard, against the per-bounce route
-    composed of B5's launches (BigMeshTracer.search and .bounce) and
-    against its plain composition, bit for bit."""
+@pytest.mark.parametrize("scene_name", ["mesh_demo3", "rabbit", "soup"])
+def test_bigmesh_one_launch_matches_the_b5_route(dev, scene_name, mode):
+    """BigMeshTracer's one-launch route (K1's or B3's BVH form: the
+    redesigned walk, any-hit on AO's, Appel's and Whitted's occlusion
+    searches) on mesh_demo(3), rabbit and the 1,500-triangle soup with its
+    sphere and floor plane at 320x180 x 4, standard, against the
+    per-bounce route composed of B5's launches (BigMeshTracer.search and
+    .bounce, the binary walk) and against its plain composition, bit for
+    bit."""
     from rvpt_tpu_torch.ops.bigmesh_route import per_bounce, plain_bounce
 
     cfg = FilmConfig(width=320, height=180)
-    scene, cam = _mesh("mesh_demo3", cfg, dev)
+    if scene_name == "soup":
+        scene, cam = _mixed_soup(1500, dev)
+    elif scene_name == "rabbit":
+        scene, cam = builtin.rabbit(aspect=cfg.aspect, device=dev)
+    else:
+        scene, cam = _mesh(scene_name, cfg, dev)
     bt = tpk.BigMeshTracer(scene)
     pixel, ray = _bigmesh_rays(scene, cam, cfg, dev)
     nrays = 4 if mode == 5 else 1
@@ -1359,9 +1405,9 @@ def test_soup_bvh_form_records_match_plain(dev):
     n = cfg.num_pixels
     got, rec = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 2, 16, 6,
                                       "standard", rays=rays, collect=True,
-                                      nodes=pt.nodes)
+                                      tree=pt.tree)
     bare = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 2, 16, 6,
-                                  "standard", rays=rays, nodes=pt.nodes)
+                                  "standard", rays=rays, tree=pt.tree)
     want, wrec = tpk.trace_plain(pt.tables, pt.counts, pixel, 2, 16, 6, "standard",
                                  rays=rays, collect=True, tris_last=True)
     torch.cuda.synchronize()
@@ -1390,7 +1436,7 @@ def test_hits_only_collect_matches_plain(dev, scene_name):
     assert pt.bvh_form == (scene_name != "cornell_box")
     pixel, rays = _rays(scene, cam, cfg, dev)
     n = cfg.num_pixels
-    kw = dict(rays=rays, nodes=pt.nodes)
+    kw = dict(rays=rays, tree=pt.tree)
     got, hits = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 2, 16, 8,
                                        "standard", collect="hits", **kw)
     full, rec = tpk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 2, 16, 8,
@@ -1408,6 +1454,15 @@ def test_hits_only_collect_matches_plain(dev, scene_name):
     rgb, (fams, idxs) = pt.trace(pixel, rays[:3], rays[3:], 2, 16, 8,
                                  style="standard", collect_hits=True)
     assert torch.equal(fams, hits[:, 0].long()) and torch.equal(idxs, hits[:, 1].long())
+    if pt.bvh_form:  # B5's per-bounce route: its collect instance, bounce by bounce
+        bt = tpk.BigMeshTracer(scene)
+        start = tpk._start_state(rays, "kajiya")
+        state = torch.stack([*start[:15], start[15].to(torch.float32)])
+        b5 = []
+        for b in range(8):
+            state, h = bt.bounce(pixel, state, 2, 16 + 4 * b, collect=True)
+            b5.append(h)
+        assert torch.equal(hits, torch.stack(b5))
 
 
 def test_soup_bigmesh_collect_matches_plain(dev):

@@ -149,7 +149,7 @@ def test_stats_kernel_needs_the_card():
     ts, _ = tbuiltin.mesh_demo(subdiv=1, device="cpu")
     pt = tpk.PathTracer(ts)
     with pytest.raises(ValueError, match="CUDA"):
-        tpk.launch_path_stats(pt.tables, pt.counts, pt.nodes, pt.cull, None, 8,
+        tpk.launch_path_stats(pt.tables, pt.counts, pt.tree, pt.cull, None, 8,
                               0, 0, 1, "reference",
                               rays=tuple(torch.zeros(8) for _ in range(6)))
 
