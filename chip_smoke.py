@@ -10,6 +10,17 @@ Phases, each of which raises on failure:
    closest_hit B8, primary_kernel B3, hart_kernel B4, bigmesh_kernel B5,
    bigmesh_hart B6, replay_lookup B7) from rvpt_tpu_torch/csrc, one nvcc
    each, started together, and the native scene-ingest library (g++);
+2b. the row census of K1's and B3's row forms on the 1080p Cornell box
+   (4 bounces; AO 4 probes): every search of the Kajiya, Whitted and Cook
+   frames and of B3's camera, AO-probe and Appel-shadow searches, counted
+   on the card from the plain versions' searches (row_census_hook): per
+   kind the live lanes, the warps' SIMD efficiency, the rows the t-first
+   reject drops per lane and for whole warps, on occlusion searches the
+   rows the any-hit search opens and leaves untested (and its answer
+   equal to the closest-hit search's fam >= 0, checked), and the path
+   loop's SIMD efficiency; the row-form instances' -Xptxas -v and the
+   loops of their SASS (cuobjdump -sass); the bounds of phases 3 and 11
+   count these searches' own operations;
 3. kernel vs plain: the CUDA kernel against its plain PyTorch version on
    the card, Cornell box at 1920x1080 (rays passed in: 3 bounces, both
    styles, >= 99.5% of pixel channels within 1e-4; rays made in the
@@ -52,8 +63,15 @@ Phases, each of which raises on failure:
 11. the other integrators' kernels against their plain versions on the
    1080p Cornell box, camera rays made in the kernels: B3 in modes 0-6 (AO
    with 4 probes) and K1's Whitted and Cook forms (4 bounces, standard),
-   >= 99.5% of pixel channels within 1e-4; each timed with CUDA events
-   (the plain version over 1-2 iterations) beside its bound; B4 bit for bit
+   bit for bit; each timed with CUDA events (the plain version over 1-2
+   iterations) beside its bound (the row searches' own work, phase 2b;
+   closest_hit_bound_ms, closest-hit searches without the reject, beside
+   it); then (11b) K1's and B3's row forms bit for bit on the Cornell box,
+   sphere_plane and hart_soup's 600- and 1,000-triangle soups with a
+   pinhole, an ortho and a spherical camera (Kajiya, Whitted, Cook, the
+   full and hits-only collect instances, modes 0-6; the plain versions on
+   every 4th, the soups' every 16th, row of pixel ids), the soups' Kajiya
+   and AO frames timed; B4 bit for bit
    on the 1080p Cornell box, rabbit at 1024x512 and a 600-triangle soup
    (two staged chunks; every 8th row), its counting instance
    (count_hart_sweep) with the same film, no skipped triangle below the
@@ -392,8 +410,7 @@ def warp_simd(iters):
     the warps' SIMD efficiency."""
     import torch
 
-    it = iters.to(torch.int64)
-    it = torch.nn.functional.pad(it, (0, (-it.numel()) % 32)).view(-1, 32)
+    it = _warps(iters.to(torch.int64))
     return int(it.sum().item()), 32 * int(it.amax(1).sum().item())
 
 
@@ -405,6 +422,15 @@ WALK_REDESIGN = ("the BVH walk of csrc/bvh_walk.cuh: any-hit occlusion searches,
                  "each kernel's own stack form (K1 two arrays, B3 one 64-bit entry "
                  "per node); bound_ms counts this walk's own tests, "
                  "binary_walk_bound_ms the binary walk's")
+
+
+# What the kernels line says of K1's and B3's row-form instances.
+ROW_REDESIGN = ("the row search of csrc/scene_search.cuh: triangle rows staged as four "
+                "aligned float4 (128-bit broadcasts), any-hit occlusion searches "
+                "(Whitted's and Appel's shadow rays, AO's probes), the t-first reject in "
+                "those and in the closest-hit searches of B3 and of K1's Whitted and "
+                "Cook; bound_ms counts its own tests (row census, phase 2b), "
+                "closest_hit_bound_ms closest-hit searches without the reject")
 
 
 def census_hook(pt, mode, work, census):
@@ -496,6 +522,338 @@ def census_text(summary):
             f"{o['tri']} triangles SIMD {o['simd']:.3f}; new walk ({walk}) {r['box']} "
             f"nodes, {r['tri']} rows opened, {r['full']} in full, SIMD {r['simd']:.3f}")
     return "; ".join(parts)
+
+
+# K1's and B3's row form (csrc/scene_search.cuh) per staged triangle row
+# it opens: the first float4's two dot products (10), t (3) and the
+# t-first reject's two tests (2): 15; a row past the reject runs the rest
+# of OPS_TRI (the other four dot products, the barycentrics and the u, v
+# tests).
+OPS_ROW_TRI_T = 15
+OPS_ROW_TRI_REST = OPS_TRI - OPS_ROW_TRI_T
+# The searches of a row-form frame whose answer is only whether something
+# is hit: the kernels run them as any-hit row searches.
+ROW_OCCLUSION = ("whitted shadow", "ao probe", "appel shadow")
+
+
+def row_kind(what, k, nb):
+    """The kind of the ``k``-th search of a row-form frame, in the order
+    trace_plain and primary_plain run them: ``what`` a K1 integrator
+    ("kajiya", "whitted", "cook") with ``nb`` bounces, or a B3 mode 0-6."""
+    if what == "whitted":
+        return "whitted shadow" if k % 2 else ("camera" if k == 0 else f"bounce {k // 2}")
+    if what == "cook" and k == nb:
+        return "cook tail"
+    if k == 0:
+        return "camera"
+    if what in ("kajiya", "cook"):
+        return f"bounce {k}"
+    return {5: "ao probe", 6: "appel shadow"}[what]
+
+
+def _warps(x):
+    """Per-lane values x[N, ...], lane i on thread i of the launch, as
+    [warps, 32, ...] (the lanes past the end at 0)."""
+    import torch
+
+    pad = [0, 0] * (x.dim() - 1) + [0, (-x.shape[0]) % 32]
+    return torch.nn.functional.pad(x, pad).view(-1, 32, *x.shape[1:])
+
+
+def row_census_hook(tables, counts, what, nb, census, mint=0.0):
+    """An ``on_search`` hook for a row-form frame (trace_plain or
+    primary_plain on the card), the row census: per kind of search
+    (row_kind) into ``census[kind]`` the live lanes ("searches"), the warps
+    with a live lane, the rows a search without the reject tests
+    ("rows", T per live lane), the rows the closest-hit search tests in
+    full past the t-first reject ("full"), the rows the reject drops for a
+    whole warp ("warp_skip", of "warp_rows" = T per warp with a live
+    lane); on occlusion searches the any-hit search's rows opened and in
+    full ("any_opened", "any_full"), the rows its first acceptance leaves
+    untested per lane ("untested") and for a whole warp ("warp_untested",
+    in lanes: 32 per warp-row), the warp-rows the warps open (up to their
+    slowest lane's first acceptance: "warp_any_opened") and test in full
+    (where a lane still searching passes the reject: "warp_any_full"), and
+    whether its answer equals the
+    closest-hit search's family >= 0 on every lane ("any_equal").  The
+    lanes' searches of the path loop (the camera and bounce searches)
+    gather in ``census["_loop"]`` for the loop's SIMD efficiency."""
+    import torch
+
+    from rvpt_tpu_torch.ops import pathkernel as pk
+
+    tri, sph, pln, _ = pk._unpack_fwd(tables, counts, tri_rows=True)
+    n_tri = tri.shape[0]
+    k = [0]
+
+    def add(rec, key, v):
+        rec[key] = rec.get(key, 0) + int(v)
+
+    def on_search(o3, d3, live=None):
+        kind = row_kind(what, k[0], nb)
+        k[0] += 1
+        if live is None:
+            live = torch.ones_like(o3[0], dtype=torch.bool)
+        rec = census.setdefault(kind, {})
+        lw = _warps(live)
+        warps = int(lw.any(1).sum().item())
+        add(rec, "searches", live.sum().item())
+        add(rec, "warps", warps)
+        add(rec, "rows", live.sum().item() * n_tri)
+        add(rec, "warp_rows", warps * n_tri)
+        if kind not in ROW_OCCLUSION and kind != "cook tail":
+            loop = census.setdefault("_loop", torch.zeros_like(live, dtype=torch.int32))
+            loop += live.to(torch.int32)
+        if n_tri == 0:
+            return
+        rb = [c[:, None] for c in (*o3, *d3)]
+        t, ok = pk._tri_block(tri, *rb, mint)
+        # The closest-hit search's best t before each row, and its reject.
+        best = torch.cummin(torch.where(ok, t, pk._BIG), 1)[0]
+        before = torch.cat([torch.full_like(best[:, :1], pk._BIG), best[:, :-1]], 1)
+        passes = (mint < t) & (t < before) & live[:, None]
+        add(rec, "full", passes.sum().item())
+        # A warp drops a row whole where none of its live lanes passes.
+        skip = ~_warps(passes).any(1) & lw.any(1)[:, None]
+        add(rec, "warp_skip", skip.sum().item())
+        if kind in ROW_OCCLUSION:
+            hit, opened, full = pk._any_hit_plain(tri, sph, pln, *o3, *d3, mint)
+            closest = pk._search_tris_last(tri, sph, pln, *o3, *d3, mint)[5] >= 0
+            add(rec, "any_opened", opened[live].sum().item())
+            add(rec, "any_full", full[live].sum().item())
+            add(rec, "untested", (n_tri - opened[live]).sum().item())
+            wmax = _warps(torch.where(live, opened, 0)).amax(1)
+            add(rec, "warp_untested", 32 * (n_tri - wmax[lw.any(1)]).sum().item())
+            # The warp's own issue: rows up to its slowest lane's first
+            # acceptance, in full where a lane still searching passes.
+            add(rec, "warp_any_opened", wmax.sum().item())
+            searching = torch.arange(n_tri, device=t.device)[None, :] < opened[:, None]
+            busy = (mint < t) & (t < pk._BIG) & searching & live[:, None]
+            add(rec, "warp_any_full", _warps(busy).any(1).sum().item())
+            rec["any_equal"] = rec.get("any_equal", True) and bool(
+                torch.equal(hit[live], closest[live]))
+
+    return on_search
+
+
+def row_census_summary(census, counts, reject):
+    """Per kind of a row_census_hook run: its counts, the SIMD efficiency
+    of its search (live lanes over 32 per warp with a live lane), and
+    "own", the search operations a row form runs on these searches (its
+    closest-hit searches with the t-first reject when ``reject``, else
+    every row in full; any-hit on occlusion searches; every sphere and
+    plane test), "closest", the operations of a closest-hit search
+    without the reject on each (the bound's search before the redesign),
+    and "loop_simd", the path loop's SIMD efficiency (each lane's camera
+    and bounce searches over 32 x each warp's most)."""
+    _, s_, p_, _ = counts
+    out, own, closest = {}, 0, 0
+    for kind, rec in census.items():
+        if kind == "_loop":
+            num, den = warp_simd(rec)
+            out["loop_simd"] = num / max(den, 1)
+            continue
+        row = dict(rec, simd=rec["searches"] / max(32 * rec["warps"], 1))
+        sp = rec["searches"] * (s_ * OPS_SPH + p_ * OPS_PLN)
+        closest += sp + rec["rows"] * OPS_TRI
+        if kind in ROW_OCCLUSION:
+            own += sp + rec["any_opened"] * OPS_ROW_TRI_T + rec["any_full"] * OPS_ROW_TRI_REST
+        elif reject:
+            own += sp + rec["rows"] * OPS_ROW_TRI_T + rec.get("full", 0) * OPS_ROW_TRI_REST
+        else:
+            own += sp + rec["rows"] * OPS_TRI
+        out[kind] = row
+    out["own"], out["closest"] = own, closest
+    return out
+
+
+def row_census_text(summary):
+    """One line of a row_census_summary."""
+    parts = []
+    for kind, r in summary.items():
+        if not isinstance(r, dict):
+            continue
+        line = (f"{kind}: {r['searches']} searches in {r['warps']} warps (SIMD "
+                f"{r['simd']:.3f}), {r['rows']} rows, {r.get('full', 0)} past the "
+                f"reject, {r.get('warp_skip', 0)} of {r['warp_rows']} warp-rows dropped "
+                f"whole")
+        if "any_opened" in r:
+            line += (f"; any-hit {r['any_opened']} rows opened, {r['any_full']} in full, "
+                     f"{r['untested']} left untested per lane, {r['warp_untested']} "
+                     f"lane-rows for whole warps; warps open {r['warp_any_opened']} and "
+                     f"test {r['warp_any_full']} warp-rows in full; equal to closest-hit "
+                     f"fam >= 0: {r['any_equal']}")
+        parts.append(line)
+    return (f"path loop SIMD {summary.get('loop_simd', float('nan')):.3f}; "
+            + "; ".join(parts) + f"; search ops own {summary['own']}, closest-hit "
+            f"without the reject {summary['closest']}")
+
+
+def ptxas_table(log):
+    """{kernel function (mangled): {"registers", "stack", "spill_stores",
+    "spill_loads"}} from nvcc's ``-Xptxas -v`` output."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = (re.search(r"Compiling entry function '([^']+)'", line)
+             or re.search(r"Function properties for (\S+)", line))
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def demangle(names):
+    """{mangled: readable} through c++filt where the toolkit's host has it."""
+    names = list(names)
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True, timeout=60)
+        return dict(zip(names, res.stdout.splitlines()))
+    except (OSError, subprocess.SubprocessError):
+        return {n: n for n in names}
+
+
+# The row-form instances of K1 and B3 (demangled template arguments): K1's
+# <integrator, record, BVH=false, STATS=false>, B3's <mode, BVH=false>.
+ROW_INSTANCE = r"(path_kernel<\d, \d, false, false>|primary_kernel<\d, false>)"
+
+
+def sass_loops(lib, pattern):
+    """The loops of each kernel function of the shared library ``lib``
+    whose demangled name matches ``pattern``, from ``cuobjdump -sass``:
+    {function: [{"start", "end", "instructions", "ops": {opcode: count}}]},
+    a loop being the span from a backward branch's target to the branch."""
+    import re
+    from collections import Counter
+
+    from rvpt_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2).strip()))
+    names = demangle(funcs)
+    out = {}
+    for mangled, instrs in funcs.items():
+        name = names.get(mangled, mangled)
+        found = re.search(pattern, name)
+        if not found:
+            continue
+        loops = []
+        for addr, ins in instrs:
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+            if m and int(m.group(1), 16) < addr:
+                lo = int(m.group(1), 16)
+                body = [i for a, i in instrs if lo <= a <= addr]
+                ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", i).split()[0] for i in body)
+                loops.append({"start": lo, "end": addr, "instructions": len(body),
+                              "ops": dict(sorted(ops.items()))})
+        out[found.group(1)] = loops
+    return out
+
+
+def sass_text(loops):
+    """The loops of sass_loops that load shared memory (the searches), one
+    line each: span, size, and the counts of shared-memory loads, FP32
+    operations, MUFU, FCHK and calls."""
+    lines = []
+    for fn, ls in sorted(loops.items()):
+        for lp in ls:
+            ops = lp["ops"]
+            if not any(k.startswith("LDS") for k in ops):
+                continue
+
+            def count(prefix):
+                return sum(v for k, v in ops.items() if k.startswith(prefix))
+
+            fp = sum(v for k, v in ops.items()
+                     if k.split(".")[0] in ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX",
+                                            "FSEL", "FSET"))
+            lds = {k: v for k, v in ops.items() if k.startswith("LDS")}
+            lines.append(f"{fn} loop {lp['start']:#x}-{lp['end']:#x}: {lp['instructions']} "
+                         f"instructions, shared loads {lds}, FP32 {fp}, MUFU "
+                         f"{count('MUFU')}, FCHK {count('FCHK')}, CALL {count('CALL')}, "
+                         f"LDC {count('LDC') + count('ULDC')}")
+    return lines
+
+
+def row_census_phase(smi, dev):
+    """Phase 2b, the row census of K1's and B3's row forms on the 1080p
+    Cornell frame (4 bounces, standard; AO 4 probes): every search of the
+    Kajiya, Whitted and Cook frames and of B3's camera search, AO probes
+    and Appel shadow rays, counted on the card from the plain versions'
+    searches (row_census_hook); then the row-form instances' ``-Xptxas
+    -v`` and the loops of their SASS (``cuobjdump -sass``: shared-memory
+    loads, FP32, MUFU, the division's check and slow-path call).  Returns {what:
+    row_census_summary}, whose "own" operations the row forms' bounds
+    count."""
+    import re
+
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig
+    from rvpt_tpu_torch.ops import build
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.scene import builtin
+
+    cfg = FilmConfig(1920, 1080)
+    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    pt = pk.PathTracer(scene)
+    cp = pk.camera_params(cam, cfg)
+    pixel = torch.arange(cfg.num_pixels, device=dev)
+    nb, out = 4, {}
+    for what in ("kajiya", "whitted", "cook", 0, 5, 6):
+        census = {}
+        hook = row_census_hook(pt.tables, pt.counts, what, nb, census, pt.mint)
+        if isinstance(what, str):
+            pk.trace_plain(pt.tables, pt.counts, pixel, 1, 16, nb, "standard",
+                           cam_params=cp, cam_mode=cam.mode, integ=what, on_search=hook)
+        else:
+            pk.primary_plain(pt.tables, pt.counts, pixel, 1, 16, what,
+                             4 if what == 5 else 1, cp, cam.mode, on_search=hook)
+        # B3's row form always takes the reject; K1's per integrator.
+        reject = pk.row_reject(what) if isinstance(what, str) else True
+        out[what] = row_census_summary(census, pt.counts, reject)
+        for kind, r in out[what].items():
+            if isinstance(r, dict) and "any_equal" in r:
+                check(r["any_equal"], f"the any-hit row search disagrees with the "
+                      f"closest-hit search's fam >= 0 on {what}'s {kind} rays")
+        print(f"[row-census] {what}, 1920x1080 Cornell, {nb} bounces: "
+              f"{row_census_text(out[what])} [{smi}]")
+    for name in ("path_kernel", "primary_kernel"):
+        info = build.BUILD_INFO[name]
+        if not info["log"]:
+            print(f"[row-ptxas] {name}: no -Xptxas -v output, the library was built "
+                  f"before this run ({info['path']})")
+        table = ptxas_table(info["log"])
+        names = demangle(table)
+        for mangled, row in sorted(table.items(), key=lambda kv: names[kv[0]]):
+            m = re.search(ROW_INSTANCE, names[mangled])
+            if m:
+                print(f"[row-ptxas] {m.group(1)}: {row}")
+        for line in sass_text(sass_loops(info["path"], ROW_INSTANCE)):
+            print(f"[row-sass] {line}")
+    return out
 
 
 def device_ms(fn, iters, names):
@@ -665,15 +1023,16 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
         return pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 1, 16, nb,
                                      "standard", rays=rays, collect=True)
 
-    def plain_collect(work=None):
+    def plain_collect(work=None, on_search=None):
         return pk.trace_plain(pt.tables, pt.counts, pixel, 1, 16, nb, "standard",
-                              rays=rays, collect=True, work=work)
+                              rays=rays, collect=True, work=work, on_search=on_search)
 
     got, rec = k1_collect()
     bare = pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, 1, 16, nb,
                                  "standard", rays=rays)
-    work = {}
-    want, wrec = plain_collect(work)
+    work, census = {}, {}
+    want, wrec = plain_collect(work, row_census_hook(pt.tables, pt.counts, "kajiya",
+                                                     nb, census, pt.mint))
     torch.cuda.synchronize()
     same_rgb = torch.equal(got, bare)
     rgb_close = share_close(got, want, 1e-4, 1e-4)
@@ -695,13 +1054,18 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
     k1c_ms = cuda_ms(k1_collect, 10)
     k1c_plain_ms = cuda_ms(plain_collect, 2)
     live = int(rec.fields[:, 12].sum().item())
-    # rays in (24 B) + pixel ids (8) + film (12) per ray, 60 B per record slot
-    k1c_bound, k1c_by = bound(n * (24 + 8 + 12 + 60 * nb), k1_ops(work, ops_search))
+    # rays in (24 B) + pixel ids (8) + film (12) per ray, 60 B per record
+    # slot; the searches' own operations (the row census of these rays)
+    k1c_bytes = n * (24 + 8 + 12 + 60 * nb)
+    own = row_census_summary(census, pt.counts, pk.row_reject("kajiya"))["own"]
+    k1c_bound, k1c_by = bound(k1c_bytes, k1_ops(work, 0) + own)
+    k1c_closest, _ = bound(k1c_bytes, k1_ops(work, ops_search))
     print(f"[time] K1 collect {k1c_ms:.4f} ms, plain {k1c_plain_ms:.4f} ms, bound "
-          f"{k1c_bound:.4f} ms by {k1c_by} ({live} live ray-bounces, work {work}) "
-          f"[{smi}]")
+          f"{k1c_bound:.4f} ms by {k1c_by} ({live} live ray-bounces, work {work}, "
+          f"the searches' own {own} operations); closest-hit searches without the "
+          f"reject, not the bound: {k1c_closest:.4f} ms [{smi}]")
     out["k1c"] = dict(ms=k1c_ms, plain_ms=k1c_plain_ms, bound_ms=k1c_bound,
-                      bound_by=k1c_by)
+                      bound_by=k1c_by, closest_hit_bound_ms=k1c_closest)
 
     # ---- 7. K2 against bwd_plain on the kernel's record
     tables, counts = pk.pack_bwd(scene)
@@ -1004,6 +1368,89 @@ def hart_check(smi, dev, label, pt, cfg, cp, cam_mode, every=1):
                 work=work)
 
 
+def row_form_check(smi, dev, cfg, nb=4):
+    """Phase 11b: K1's and B3's row forms bit for bit against their plain
+    versions at 1920x1080, camera rays made in the kernels, on the Cornell
+    box, sphere_plane (no triangles) and hart_soup's 600- and
+    1,000-triangle soups (40.8 KB of triangle rows, and 68 KB: past the 48
+    KB default, in the opt-in shared memory), each with a pinhole, an ortho
+    and a spherical camera: K1's Kajiya, Whitted and Cook frames, its
+    Kajiya collect instances (the full record and hits only), and B3 in
+    modes 0-6 (AO 4 probes); the plain versions on the pixel ids of every
+    4th row (the soups' every 16th).  Returns the soups' Kajiya and AO
+    kernel times (CUDA events) by scene."""
+    import dataclasses
+
+    import torch
+
+    from rvpt_tpu_torch.models import camera as camera_mod
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.scene import builtin
+
+    n = cfg.num_pixels
+    scenes = [("cornell_box", *builtin.cornell_box(aspect=cfg.aspect, device=dev), 4),
+              ("sphere_plane", *builtin.sphere_plane(aspect=cfg.aspect, device=dev), 4),
+              ("soup600", *hart_soup(dev, 600, cfg), 16),
+              ("soup1000", *hart_soup(dev, 1000, cfg), 16)]
+    times, checked = {}, 0
+    for name, scene, cam0, every in scenes:
+        pt = pk.PathTracer(scene)
+        rows = torch.arange(n, device=dev).view(cfg.height, cfg.width)[::every].reshape(-1)
+        for cam_mode in (camera_mod.PINHOLE, camera_mod.ORTHO, camera_mod.SPHERICAL):
+            cam = dataclasses.replace(cam0, mode=cam_mode)
+            cp = pk.camera_params(cam, cfg)
+            kw = dict(cam_params=cp, cam_mode=cam_mode, jitter_salt=0)
+            cases = []
+            for integ in ("kajiya", "whitted", "cook"):
+                cases.append((integ, lambda integ=integ: pk.launch_path_kernel(
+                    pt.tables, pt.counts, None, n, 1, 16, nb, "standard", integ=integ,
+                    **kw), lambda integ=integ: pk.trace_plain(
+                    pt.tables, pt.counts, rows, 1, 16, nb, "standard", integ=integ,
+                    **kw)))
+            for collect in (True, "hits"):
+                cases.append((f"collect {collect}", lambda collect=collect:
+                              pk.launch_path_kernel(pt.tables, pt.counts, None, n, 1, 16,
+                                                    nb, "standard", collect=collect, **kw),
+                              lambda collect=collect: pk.trace_plain(
+                                  pt.tables, pt.counts, rows, 1, 16, nb, "standard",
+                                  collect=collect, **kw)))
+            for mode in range(7):
+                nrays = 4 if mode == 5 else 1
+                cases.append((f"mode {mode}", lambda mode=mode, nrays=nrays:
+                              pk.launch_primary_kernel(pt.tables, pt.counts, None, n, 1,
+                                                       16, mode, nrays, **kw),
+                              lambda mode=mode, nrays=nrays: pk.primary_plain(
+                                  pt.tables, pt.counts, rows, 1, 16, mode, nrays, **kw)))
+            same = []
+            for label, kernel, plain in cases:
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                if isinstance(got, tuple):  # (film, record or hits)
+                    rec, wrec = got[1], want[1]
+                    if isinstance(rec, pk.PathRecord):
+                        ok = (torch.equal(rec.fields[..., rows], wrec.fields)
+                              and torch.equal(rec.hits[..., rows], wrec.hits))
+                    else:
+                        ok = torch.equal(rec[..., rows], wrec)
+                    ok = ok and torch.equal(got[0][:, rows], want[0])
+                else:
+                    ok = torch.equal(got[:, rows], want)
+                check(ok, f"the row form's {label} on {name}, camera {cam_mode}, is not "
+                      f"bit for bit its plain version")
+                checked += 1
+                same.append(label)
+                if name.startswith("soup") and cam_mode == camera_mod.PINHOLE and (
+                        label in ("kajiya", "mode 5")):
+                    times[f"{name} {label}"] = cuda_ms(kernel, 10)
+            print(f"[row-form] {name} ({pt.counts[0]} triangles), camera {cam_mode}, "
+                  f"{cfg.width}x{cfg.height} x {nb}: bit for bit the plain version on "
+                  f"every {every}th row: {', '.join(same)}")
+    print(f"[row-form] {checked} row-form launches bit for bit their plain versions; "
+          f"soup times (CUDA events, pinhole): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f" [{smi}]")
+    return times
+
+
 def equal_share(got, want):
     """(share of channels within rtol/atol 1e-4, max |err|, bit-identical)
     of a kernel's film against its plain version."""
@@ -1081,9 +1528,10 @@ def split_frame_against_plain(smi, dev, cfg, scene, cam, split, nb):
     return {"quadrants": times, "sample_ms": sample_ms}
 
 
-def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
+def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here, row_census):
     """Phases 11-13 (the other integrators and split-screen); returns the
-    kernels' numbers."""
+    kernels' numbers.  ``row_census`` (phase 2b) gives the row searches'
+    own operations for the bounds."""
     import torch
 
     from rvpt_tpu_torch import FilmConfig, RenderSettings
@@ -1126,25 +1574,34 @@ def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
         ms = cuda_ms(b3, 20)
         plain_ms = cuda_ms(b3_plain, 2)
         # Per pixel: the camera ray, the search, the mode's finalize; AO
-        # adds nrays probes per hit pixel, Appel one shadow search per hit
-        # pixel.
-        ops = n * (OPS_CAMERA + ops_search + OPS_FINALIZE[mode])
+        # adds nrays probes per hit pixel (a draw and the cosine direction
+        # each), Appel one shadow search per hit pixel.  The searches count
+        # the row search's own work (phase 2b: the reject, any-hit on AO's
+        # probes and Appel's shadow rays); without the reject and any-hit,
+        # as the bound was counted before the row search's redesign, beside.
+        ops = n * (OPS_CAMERA + OPS_FINALIZE[mode])
+        closest = ops + n * ops_search
         if mode == 5:
-            ops += hits * nrays * (ops_search + OPS_PCG + OPS_PROBE)
+            ops += hits * nrays * (OPS_PCG + OPS_PROBE)
+            closest += hits * nrays * (ops_search + OPS_PCG + OPS_PROBE)
         elif mode == 6:
-            ops += hits * ops_search
-        bnd, by = bound(12 * n, ops)
+            closest += hits * ops_search
+        census = row_census[mode if mode in (5, 6) else 0]
+        bnd, by = bound(12 * n, ops + census["own"])
+        closest_bnd, _ = bound(12 * n, closest)
         print(f"[B3-vs-plain] mode {mode} ({names[mode]}"
               f"{', 4 probes' if mode == 5 else ''}): {close:.6f} of channels "
-              f"within 1e-4 (bar 0.995), max |err| {err:.3g}, bit-identical: {same}; "
+              f"within 1e-4, max |err| {err:.3g}, bit-identical: {same} (the bar); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms by "
-              f"{by}, kernel at {bnd / ms:.1%} of it [{smi}]")
+              f"{by}, kernel at {bnd / ms:.1%} of it; closest-hit searches without "
+              f"the reject, not the bound: {closest_bnd:.4f} ms, "
+              f"{closest_bnd / ms:.1%} [{smi}]")
         check(bool(torch.isfinite(got).all().item()), f"B3 mode {mode} not finite")
-        check(close >= 0.995, f"B3 mode {mode} disagrees with plain: {close:.6f}")
+        check(same, f"B3 mode {mode} is not bit for bit plain: {close:.6f}")
         out["primary"][names[mode]] = dict(max_abs_err=err, within_1e_4=close,
                                            bit_identical=same, ms=ms,
                                            plain_ms=plain_ms, bound_ms=bnd,
-                                           bound_by=by)
+                                           bound_by=by, closest_hit_bound_ms=closest_bnd)
 
     for integ in ("whitted", "cook"):
         kw = dict(cam_params=cp, cam_mode=cam.mode, jitter_salt=0, integ=integ)
@@ -1162,18 +1619,24 @@ def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
         ms = cuda_ms(k1, 20)
         plain_ms = cuda_ms(lambda kw=kw: pk.trace_plain(
             pt.tables, pt.counts, pixel, 1, 16, nb, "standard", **kw), 2)
-        # The work the plain version did on live lanes of the same inputs.
-        bnd, by = bound(12 * n, k1_ops(work, ops_search) + n * OPS_CAMERA)
+        # The work the plain version did on live lanes of the same inputs,
+        # the searches' own (phase 2b) or, beside it, without the reject
+        # and any-hit.
+        bnd, by = bound(12 * n, k1_ops(work, 0) + row_census[integ]["own"]
+                        + n * OPS_CAMERA)
+        closest_bnd, _ = bound(12 * n, k1_ops(work, ops_search) + n * OPS_CAMERA)
         print(f"[K1-vs-plain] {integ}, {nb} bounces, standard: {close:.6f} of "
-              f"channels within 1e-4 (bar 0.995), max |err| {err:.3g}, "
-              f"bit-identical: {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"channels within 1e-4, max |err| {err:.3g}, bit-identical: {same} "
+              f"(the bar); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bnd:.4f} ms by {by} (work {work}), kernel at "
-              f"{bnd / ms:.1%} of it [{smi}]")
+              f"{bnd / ms:.1%} of it; closest-hit searches without the reject, not "
+              f"the bound: {closest_bnd:.4f} ms, {closest_bnd / ms:.1%} [{smi}]")
         check(bool(torch.isfinite(got).all().item()), f"K1 {integ} not finite")
-        check(close >= 0.995, f"K1 {integ} disagrees with plain: {close:.6f}")
+        check(same, f"K1 {integ} is not bit for bit plain: {close:.6f}")
         out["bounce"][integ] = dict(max_abs_err=err, within_1e_4=close,
                                     bit_identical=same, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=bnd, bound_by=by)
+                                    bound_ms=bnd, bound_by=by,
+                                    closest_hit_bound_ms=closest_bnd)
 
     out["hart"] = hart_check(smi, dev, "Cornell", pt, cfg, cp, cam.mode)
     rcfg = FilmConfig(1024, 512)
@@ -1193,6 +1656,9 @@ def integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here):
     check(bool((flat == 32.0 / 31.0).all().item()),
           "B4 on the scene without triangles is not 32/31 everywhere")
     print("[B4] sphere_plane (no triangles): 32/31 on every pixel")
+
+    # ---- 11b. the row forms bit for bit on every scene and camera model
+    out["row_soups_ms"] = row_form_check(smi, dev, cfg, nb)
 
     # ---- 12. goldens, for the record
     goldens = {
@@ -2746,6 +3212,9 @@ def main() -> int:
           f"{native.BUILD['path'] if native_ok else 'FAILED: ' + str(native.BUILD['error'])} "
           f"({time.perf_counter() - t0:.2f} s); the NumPy builder serves if it failed")
 
+    # ---- 2b. the row census of K1's and B3's row forms
+    row_census = row_census_phase(smi, dev)
+
     # ---- 3. kernel vs plain on the card
     cfg = FilmConfig(1920, 1080)
     n = cfg.num_pixels
@@ -2808,12 +3277,17 @@ def main() -> int:
     # and the film it writes.
     t_, s_, p_, _ = pt.counts
     ops_search = t_ * OPS_TRI + s_ * OPS_SPH + p_ * OPS_PLN
-    k1_bound, k1_by = bound(12 * n, k1_ops(disp_work, ops_search) + n * OPS_CAMERA)
+    k1_bound, k1_by = bound(12 * n, k1_ops(disp_work, 0) + row_census["kajiya"]["own"]
+                            + n * OPS_CAMERA)
+    k1_closest, _ = bound(12 * n, k1_ops(disp_work, ops_search) + n * OPS_CAMERA)
     print(f"[time] 1920x1080 x 4 bounces: kernel {ms:.4f} ms "
           f"({rays_per_frame / ms / 1e3:.1f} Mrays/s), plain {plain_ms:.4f} ms "
           f"({rays_per_frame / plain_ms / 1e3:.1f} Mrays/s); bound {k1_bound:.4f} ms "
-          f"by {k1_by} (work {disp_work}, {ops_search} ops per search, + camera "
-          f"rays), kernel at {k1_bound / ms:.1%} of it [{smi}]")
+          f"by {k1_by} (work {disp_work}, the row searches' own "
+          f"{row_census['kajiya']['own']} operations, + camera rays), kernel at "
+          f"{k1_bound / ms:.1%} of it; closest-hit searches without the reject "
+          f"({ops_search} ops each), not the bound: {k1_closest:.4f} ms, "
+          f"{k1_closest / ms:.1%} [{smi}]")
 
     # ---- 4. goldens, for the record
     gcfg = FilmConfig(64, 64)
@@ -2857,7 +3331,8 @@ def main() -> int:
 
     display_launches = launches
     train = training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays)
-    integ = integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here)
+    integ = integrator_phases(smi, dev, cfg, scene, cam, pixel, out_dir, here,
+                              row_census)
     split = integ["split"]["launches"]
     mesh = mesh_phases(smi, dev, out_dir, here)
     del scene, pixel, xs, ys, rays, ray, got, want
@@ -2898,10 +3373,12 @@ def main() -> int:
         "launches_split": split["path_kernel"],
         "max_abs_err": max_err, "within_1e-4": close,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-        "library_ms": None,
+        "closest_hit_bound_ms": k1_closest, "redesign": ROW_REDESIGN,
+        "row_soups_ms": integ["row_soups_ms"], "library_ms": None,
         "collect_ms": train["k1c"]["ms"], "collect_plain_ms": train["k1c"]["plain_ms"],
         "collect_bound_ms": train["k1c"]["bound_ms"],
         "collect_bound_by": train["k1c"]["bound_by"],
+        "collect_closest_hit_bound_ms": train["k1c"]["closest_hit_bound_ms"],
         **{f"{integ_name}_{k}": v for integ_name, rec in integ["bounce"].items()
            for k, v in rec.items()},
     }, {
@@ -2917,7 +3394,7 @@ def main() -> int:
         "launches": train["launches"]["closest_hit"], **train["b8"],
         "library_ms": None,
     }, {
-        "name": "primary_kernel", "route": "cuda",
+        "name": "primary_kernel", "route": "cuda", "redesign": ROW_REDESIGN,
         "source": "rvpt_tpu_torch/csrc/primary_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:3390",
         "launches": split["primary_kernel"],

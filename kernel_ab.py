@@ -1,5 +1,5 @@
 """Before/after timings of the redesigned kernels on one NVIDIA card: the
-BVH forms of K1 and B3 (their walk, and the big-mesh route, B5's function
+row forms of K1 and B3 (their row search), the BVH forms of K1 and B3 (their walk, and the big-mesh route, B5's function
 folded into one K1 or B3 launch per frame), B4 (the Hart march) and K2
 (the whole-chain pullback), B6 (the big-mesh Hart march) and B7's segment
 sum, for the tree of rvpt_tpu_torch at ``--tree`` (the checkout root by
@@ -17,6 +17,16 @@ parent), and compare only within that call.  Each run builds its tree's
 kernels from that tree's ``csrc/`` into that tree's ``build/``.
 Every run times every section.  Prints:
 
+* rows: K1's and B3's row forms on the Cornell box at 1080p x 4 bounces,
+  standard, camera rays made in the kernels: K1 Kajiya, Whitted, Cook,
+  its full and hits-only collect instances, B3 in modes 0-6 (AO 4
+  probes), each launch's time (CUDA events, two runs of 20) and its
+  device time (torch.profiler); the Kajiya and AO frames of hart_soup's
+  600- and 1,000-triangle soups likewise; the split-screen draw (AO,
+  Whitted, Hart, Kajiya: wall and device time, the K1, B3 and B4 launches
+  apart) and each of its quadrants' launches alone (its kernel pass on
+  its pixel ids, as the draw makes it); the Cornell fwd+bwd step's device
+  time, K1's collect launch and K2 apart;
 * bigmesh: ``Renderer.draw`` on mesh_demo(5) at 1080p x 8, standard, in
   each mode 0-9 and the split-screen (AO, Whitted, Hart, Kajiya), the
   terrain_demo(225) Kajiya, AO and Whitted frames and rabbit's Kajiya and
@@ -69,7 +79,7 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import SEG_PARTS, cuda_ms, device_ms
+from chip_smoke import SEG_PARTS, cuda_ms, device_ms, hart_soup
 
 # K2's device operations: the pullback and the partials' fixed-order sum.
 BWD_PARTS = ("bwd_kernel", "table_sum_kernel")
@@ -431,6 +441,90 @@ def b6_timings(dev, hd, pk, builtin):
     return out
 
 
+# K1's and K2's device operations in the Cornell fwd+bwd step.
+STEP_PARTS = ("path_kernel", "bwd_kernel", "table_sum_kernel")
+
+
+def launch_ms(fn, name):
+    """One launch ``fn``: CUDA events per call (two runs of 20) and the
+    device time per call of the operations whose names hold ``name``."""
+    fn()
+    ms = [cuda_ms(fn, 20) for _ in range(2)]
+    parts, total = device_ms(fn, 10, (name,))
+    return {"ms": ms, "device_ms": parts[name], "all_device_ms": total}
+
+
+def row_timings(dev, hd, pk, builtin):
+    """K1's and B3's row forms at 1080p x 4 bounces, standard, camera rays
+    made in the kernels: K1 Kajiya, Whitted, Cook, the full collect and
+    the hits-only collect instance, B3 in modes 0-6 (AO 4 probes) on the
+    Cornell box; the Kajiya and AO frames of hart_soup's 600- and
+    1,000-triangle soups; the split-screen draw (AO, Whitted, Hart,
+    Kajiya) and each quadrant's launch alone; and the Cornell fwd+bwd
+    step's device time (K1's collect launch and K2 apart)."""
+    import torch
+
+    from rvpt_tpu_torch import RenderSettings
+    from rvpt_tpu_torch.ops.fast_grad import make_fast_kajiya
+    from rvpt_tpu_torch.render import (_pixel_grid, _rect_pixels, _split_partition,
+                                       _trace_mode_kernel, jittered_camera_rays)
+    from rvpt_tpu_torch.train import inverse
+
+    out, n = {}, hd.num_pixels
+    scene, cam = builtin.cornell_box(aspect=hd.aspect, device=dev)
+    soups = [("soup600", *hart_soup(dev, 600, hd)), ("soup1000", *hart_soup(dev, 1000, hd))]
+    for name, sc, cm in [("cornell", scene, cam)] + soups:
+        pt = pk.PathTracer(sc)
+        kw = dict(cam_params=pk.camera_params(cm, hd), cam_mode=cm.mode, jitter_salt=0)
+        integs = ("kajiya", "whitted", "cook") if name == "cornell" else ("kajiya",)
+        for integ in integs:
+            out[f"{name}_{integ}"] = launch_ms(lambda pt=pt, kw=kw, integ=integ: (
+                pk.launch_path_kernel(pt.tables, pt.counts, None, n, 1, 16, 4,
+                                      "standard", integ=integ, **kw)), "path_kernel")
+        if name == "cornell":
+            for collect in (True, "hits"):
+                out[f"cornell_collect_{collect}"] = launch_ms(
+                    lambda pt=pt, kw=kw, collect=collect: pk.launch_path_kernel(
+                        pt.tables, pt.counts, None, n, 1, 16, 4, "standard",
+                        collect=collect, **kw), "path_kernel")
+        for mode in range(7) if name == "cornell" else (5,):
+            out[f"{name}_mode{mode}"] = launch_ms(
+                lambda pt=pt, kw=kw, mode=mode: pk.launch_primary_kernel(
+                    pt.tables, pt.counts, None, n, 1, 16, mode, 4 if mode == 5 else 1,
+                    **kw), "primary_kernel")
+        del pt
+    wall, device, parts = draw_ms(scene, cam, hd, (5, 7, 10, 9), 4, 16,
+                                  ("path_kernel", "primary_kernel", "hart_kernel"))
+    out["cornell_split_draw"] = {"wall_ms": wall, "device_ms": device,
+                                 **{f"{k}_ms": v for k, v in parts.items()}}
+    split = RenderSettings(max_bounces=4, style="standard", top_left_render_mode=5,
+                           top_right_render_mode=7, bottom_left_render_mode=10,
+                           bottom_right_render_mode=9)
+    pt, cp = pk.PathTracer(scene), pk.camera_params(cam, hd)
+    for m, rect in _split_partition(hd, split):
+        pix = _rect_pixels(*rect, hd.width, dev)
+        kernel = ("hart_kernel" if m == 10 else "primary_kernel" if m in pk.PRIMARY_MODES
+                  else "path_kernel")
+        out[f"cornell_split_quadrant_mode{m}"] = launch_ms(
+            lambda m=m, pix=pix: _trace_mode_kernel(pt, cam, split, cp, pix, 5, 0, m), kernel)
+    pixel, xs, ys = _pixel_grid(hd, dev)
+    ray = jittered_camera_rays(cam, hd, pixel, xs, ys, 1, 0)
+    trace = make_fast_kajiya(scene, 16, 4, style="standard")
+    params = {k: x.detach().clone().requires_grad_(True)
+              for k, x in inverse.trainable_params(scene).items()}
+    frame = [0]
+
+    def step():
+        frame[0] += 1
+        img = trace(inverse.apply_params(scene, params), ray.origin, ray.direction,
+                    pixel, frame[0])
+        return torch.autograd.grad(torch.mean(img), list(params.values()))
+
+    parts, total = device_ms(step, 5, STEP_PARTS)
+    out["cornell_step"] = {"device_ms": total, **{f"{k}_ms": v for k, v in parts.items()}}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
@@ -466,6 +560,10 @@ def main() -> int:
     rec = {"label": label, "card": smi}
     hd = FilmConfig(1920, 1080)
 
+    rec["rows"] = row_timings(dev, hd, pk, builtin)
+    for k, v in rec["rows"].items():
+        print(f"[ab] {label} rows {k}: {json.dumps(v)}")
+    torch.cuda.empty_cache()
     rec["bigmesh"] = bigmesh_timings(dev, hd, builtin)
     for k, v in rec["bigmesh"].items():
         print(f"[ab] {label} bigmesh {k}: {json.dumps(v)}")

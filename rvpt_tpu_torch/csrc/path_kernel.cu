@@ -9,7 +9,9 @@
 // (:1254-1257), the collect records (:1202-1215), and three bounce
 // integrators, each its own template instance (INTEG).  Each also has two
 // search forms (BVH): the row form, with every table staged in shared
-// memory and triangles searched first, and the BVH form, the port of K1's
+// memory and triangles searched first (scene_search.cuh: float4 rows, a
+// t-first reject in Whitted's and Cook's searches, an any-hit search for
+// Whitted's shadow rays), and the BVH form, the port of K1's
 // culled form (meta["culled"], _culled_tris :311), which stages only the
 // spheres, planes and materials and walks the tree for the triangles last
 // (bvh_walk.cuh: pack_walk's float4 rows with a t-first reject, and an
@@ -124,6 +126,16 @@ constexpr int BOX_STRIDE = 8;    // cull_rows: lo xyz, hi xyz, 2 unused
 // The walk's stack form (bvh_walk.cuh, walk's PACKED): two arrays, which
 // ran faster here than the packed entry.
 constexpr bool PACKED_STACK = false;
+// Whether integrator INTEG's row-form closest-hit searches take the
+// t-first reject (scene_search.cuh, closest_hit's REJECT); the library
+// reports it (rvpt_row_reject, pathkernel.row_reject).  Kajiya's (its
+// collect instances too) do not: its frames ran as fast without it on the
+// Cornell box and 5-21% faster on 600- and 1,000-triangle soups, its
+// collect instances 3% faster; Whitted and Cook ran 6-8% faster with it
+// (kernel_ab.py, NVIDIA H100 80GB HBM3 at 700 W).
+__host__ __device__ constexpr bool row_reject(int integ) {
+  return integ != KAJIYA;
+}
 
 // Or `bits` into `word` for every lane of the converged group that holds
 // the same word: one atomicOr per word, none for zero bits.
@@ -205,7 +217,7 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
     const float* __restrict__ boxes, uint32_t* __restrict__ st_listed,
     uint32_t* __restrict__ st_passed) {
   static_assert(!STATS || BVH, "the counters belong to the BVH form");
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   // cam_in is null when the rays are passed in.  The BVH form stages all
   // but the triangles, which its walk reads from device memory (walk_rows,
   // pack_walk's rows and material ids).
@@ -247,11 +259,11 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
       return walk::closest_hit<PACKED_STACK>(s, tree, ox, oy, oz, dx, dy, dz,
                                              mint);
     } else {
-      return closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+      return closest_hit<row_reject(INTEG)>(s, ox, oy, oz, dx, dy, dz, mint);
     }
   };
   // Whether a shadow ray hits anything: search(...).fam >= 0, by the
-  // any-hit walk in the BVH form.
+  // any-hit walk in the BVH form, the any-hit row search in the row form.
   auto occluded = [&](int slot, float ox, float oy, float oz, float dx,
                       float dy, float dz) -> bool {
     if constexpr (STATS) {
@@ -268,7 +280,7 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
       return walk::occluded<PACKED_STACK>(s, tree, ox, oy, oz, dx, dy, dz,
                                           mint);
     } else {
-      return closest_hit(s, ox, oy, oz, dx, dy, dz, mint).fam >= 0;
+      return scene::occluded(s, ox, oy, oz, dx, dy, dz, mint);
     }
   };
 
@@ -429,6 +441,10 @@ int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
 extern "C" {
 
 int rvpt_max_table_floats() { return max_table_floats(); }
+
+// Whether integrator `integ`'s row-form closest-hit searches take the
+// t-first reject (row_reject).
+int rvpt_row_reject(int integ) { return row_reject(integ) ? 1 : 0; }
 
 // Launch on `stream`; returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for an unknown integrator, records asked of Whitted

@@ -13,8 +13,11 @@
 // and Appel (one shadow search toward the light; a miss is white).  Hit
 // normals are normalized and zeroed on a miss, as isect_from_hit does.
 // Each mode has two search forms (BVH), as the whole-path kernel: the row
-// form and the BVH form, the port of B3's culled form (_primary_call's
-// cull_tables), which walks the tree for the triangles after the spheres
+// form (scene_search.cuh: float4 rows and the t-first reject; AO's probes
+// and Appel's shadow ray, which use only whether something is hit, as
+// any-hit searches) and the BVH form, the port of B3's culled form
+// (_primary_call's cull_tables), which walks the tree for the triangles
+// after the spheres
 // and planes (bvh_walk.cuh: pack_walk's float4 rows, with a t-first reject
 // but in the camera search of modes 0-3, a 64-bit stack entry; AO's probes
 // and Appel's shadow ray, which use only whether something is hit, walk
@@ -72,7 +75,7 @@ __global__ void __launch_bounds__(THREADS) primary_kernel(
     const float* __restrict__ dz_in, float* __restrict__ out, int n,
     uint32_t frame, uint32_t salt_base, uint32_t jitter_salt, int cam_mode,
     float mint, int nrays, float inv_nrays) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   // cam_in is null when the rays are passed in.  The BVH form stages all
   // but the triangles, which its walk reads from device memory (walk_rows,
   // pack_walk's rows and material ids).
@@ -95,18 +98,22 @@ __global__ void __launch_bounds__(THREADS) primary_kernel(
       return walk::closest_hit<PACKED_STACK, (MODE <= 3)>(s, tree, ox, oy, oz,
                                                          dx, dy, dz, mint);
     } else {
-      return closest_hit(s, ox, oy, oz, dx, dy, dz, mint);
+      // The t-first reject: modes 0-4 ran 10-12% faster with it on the
+      // Cornell box, AO and Appel 3% (kernel_ab.py, NVIDIA H100 80GB HBM3
+      // at 700 W).
+      return closest_hit<true>(s, ox, oy, oz, dx, dy, dz, mint);
     }
   };
   // Whether a probe or shadow ray hits anything: search(...).fam >= 0, by
-  // the any-hit walk in the BVH form.
+  // the any-hit walk in the BVH form, the any-hit row search in the row
+  // form.
   auto occluded = [&](float ox, float oy, float oz, float dx, float dy,
                       float dz) -> bool {
     if constexpr (BVH) {
       return walk::occluded<PACKED_STACK>(s, tree, ox, oy, oz, dx, dy, dz,
                                           mint);
     } else {
-      return closest_hit(s, ox, oy, oz, dx, dy, dz, mint).fam >= 0;
+      return scene::occluded(s, ox, oy, oz, dx, dy, dz, mint);
     }
   };
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -233,7 +240,7 @@ __global__ void __launch_bounds__(THREADS) walk_count_kernel(
     int n_mat, const float* __restrict__ nodes,
     const float* __restrict__ walk_rows, const float* __restrict__ rays,
     int32_t* __restrict__ out, int n, float mint) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Tables s = stage(smem, nullptr, tables + TRI_STRIDE * n_tri, 0, n_sph,
                          n_pln, n_mat);
   const walk::Tree tree = walk::tree(walk_rows, n_tri, nodes);

@@ -2,17 +2,43 @@
 // whole-path kernel (path_kernel.cu, K1) and the primary-hit kernel
 // (primary_kernel.cu, B3); the camera rays also serve the Hart march
 // (hart_kernel.cu, B4), and the sphere and plane searches the BVH forms of
-// the search (bvh_search.cuh).  They mirror, in one thread per ray,
-// _gen_rays_inkernel (:1059) and _search (:715) of
+// the search (bvh_search.cuh, bvh_walk.cuh).  They mirror, in one thread
+// per ray, _gen_rays_inkernel (:1059) and _search (:715) of
 // rvpt_tpu/ops/pathkernel.py, and their plain versions in
-// rvpt_tpu_torch/ops/pathkernel.py (_camera_rays_plain, _search_plain).
+// rvpt_tpu_torch/ops/pathkernel.py (_camera_rays_plain, _search_plain,
+// _any_hit_plain).
 //
-// Tables are the row form of pack_fwd: [T,17] triangle rows (TRI_FIELDS),
-// [S,5] sphere, [P,5] plane and [M,8] material rows, one flat f32 buffer.
-// A block stages them whole into dynamic shared memory after the f32[24]
-// camera vector, where every lane of a warp reads the same word (a
-// broadcast).  Rounding: every expression keeps the operation order of the
-// plain versions; build with --fmad=false and without fast math.
+// Tables come in the row form of pack_fwd: [T,17] triangle rows
+// (TRI_FIELDS), [S,5] sphere, [P,5] plane and [M,8] material rows, one
+// flat f32 buffer.  A block stages them whole into dynamic shared memory
+// after the f32[24] camera vector, where every lane of a warp reads the
+// same word (a broadcast).  The row form's search (K1's and B3's row
+// forms, the Cornell box's), redesigned for Hopper:
+//
+// - Triangle rows: `stage` lays each [17] row out as four aligned float4
+//   (WALK_FIELDS: nx ny nz v0n | e0 v0e0 | e1 v0e1 | g00 g11 g01 inv_det,
+//   pack_walk's order) and the material ids in a side array after them,
+//   the same 17 floats a row, so the tables take the shared memory they
+//   took before.  At pack_fwd's stride of 17 no row was 16-byte aligned
+//   and a test issued 16-17 scalar shared-memory loads; now it issues
+//   four 128-bit broadcasts.
+// - The t-first reject (REJECT): a test loads the first float4, computes
+//   t, and stops where !(mint < t) or !(t < h.t), exactly the cases in
+//   which the full test changes nothing; the rest of the row is loaded
+//   and tested only past it.  It pays where a warp's lanes reject a row
+//   together and the loads after the branch are hidden; each kernel says
+//   where it takes it (path_kernel.cu: row_reject; primary_kernel.cu).
+// - Occlusion searches (`occluded`: K1's Whitted shadow ray, B3's AO
+//   probes and Appel shadow ray) use only whether something is hit: the
+//   spheres and planes first, then the triangles until the first one that
+//   passes the closest-hit search's acceptance against the miss sentinel
+//   (mint < t < BIG and the u, v test).  A closest-hit search ends with
+//   fam >= 0 if and only if some candidate passes against BIG (a winner
+//   only ever tightens h.t below BIG), so the answer is its fam >= 0, bit
+//   for bit.
+//
+// Rounding: every expression keeps the operation order of the plain
+// versions; build with --fmad=false and without fast math.
 #pragma once
 
 #include <cstdint>
@@ -25,6 +51,7 @@ namespace scene {
 using namespace kajiya;
 
 constexpr int TRI_STRIDE = 17;  // TRI_FIELDS
+constexpr int ROW4 = 4;         // float4 per staged triangle row (WALK_FIELDS)
 constexpr int SPH_STRIDE = 5;   // SPH_FIELDS
 constexpr int PLN_STRIDE = 5;   // PLN_FIELDS
 constexpr int MAT_STRIDE = 8;   // MAT_FIELDS
@@ -44,7 +71,8 @@ constexpr float AMBIENT = 0.1f;
 constexpr float LIGHT_I = 1.0f;
 
 struct Tables {
-  const float* tri;
+  const float4* tri;     // [T] staged rows, ROW4 float4 each (WALK_FIELDS)
+  const float* tri_mat;  // [T] the triangles' material ids
   const float* sph;
   const float* pln;
   const float* mat;
@@ -76,21 +104,38 @@ inline int max_table_floats() {
   return bytes / 4 - CAM_LEN;
 }
 
-// Copy the camera vector (when given) and the tables into `smem`; every
-// thread of the block calls it, before any thread leaves.
+// The column of pack_fwd's [17] triangle row that staged float f of a
+// row (WALK_FIELDS) holds: nx ny nz, then v0n, e0, v0e0, e1, v0e1, and
+// g00 g11 g01 inv_det.
+__device__ __forceinline__ int walk_col(int f) {
+  return f >= 12 ? f : ((f & 3) == 3 ? 9 + (f >> 2) : f - (f >> 2));
+}
+
+// Copy the camera vector (when given) and the tables into `smem` (16-byte
+// aligned), the triangle rows as ROW4 float4 each and then their material
+// ids, the other tables as they are; every thread of the block calls it,
+// before any thread leaves.
 __device__ __forceinline__ Tables stage(float* smem, const float* cam_in,
                                        const float* tables, int n_tri,
                                        int n_sph, int n_pln, int n_mat) {
   const int n_tab = staged_floats(n_tri, n_sph, n_pln, n_mat) - CAM_LEN;
+  const int n_rows = 4 * ROW4 * n_tri;  // floats of the triangle rows
   if (cam_in) {
     for (int k = threadIdx.x; k < CAM_LEN; k += blockDim.x) smem[k] = cam_in[k];
   }
   float* tab = smem + CAM_LEN;
-  for (int k = threadIdx.x; k < n_tab; k += blockDim.x) tab[k] = tables[k];
+  for (int k = threadIdx.x; k < n_tab; k += blockDim.x) {
+    const int j = k >> 4;
+    tab[k] = k < n_rows ? tables[TRI_STRIDE * j + walk_col(k & 15)]
+             : k < n_rows + n_tri
+                 ? tables[TRI_STRIDE * (k - n_rows) + TRI_STRIDE - 1]
+                 : tables[k];
+  }
   __syncthreads();
   Tables s;
-  s.tri = tab;
-  s.sph = s.tri + TRI_STRIDE * n_tri;
+  s.tri = reinterpret_cast<const float4*>(tab);
+  s.tri_mat = tab + n_rows;
+  s.sph = s.tri_mat + n_tri;
   s.pln = s.sph + SPH_STRIDE * n_sph;
   s.mat = s.pln + PLN_STRIDE * n_pln;
   s.n_tri = n_tri;
@@ -157,33 +202,62 @@ __device__ __forceinline__ void camera_ray(
   }
 }
 
+// Staged triangle row j against the ray: t from the first float4 (the
+// rest of the row is loaded into e0, e1, g only past the reject when
+// REJECT, else at once), then the barycentric test.  Returns whether the
+// triangle passes the acceptance with `tmax` as the best t so far (mint <
+// t < tmax and the u, v test), with t in `t` and the first float4 (the
+// normal, then v0n) in `a`.
+template <bool REJECT>
+__device__ __forceinline__ bool test_tri_row(const float4* R, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float mint,
+                                             float tmax, float& t, float4& a) {
+  a = R[0];
+  float4 e0, e1, g;
+  if constexpr (!REJECT) {
+    e0 = R[1];
+    e1 = R[2];
+    g = R[3];
+  }
+  const float dn = a.x * dx + a.y * dy + a.z * dz;
+  const float on = a.x * ox + a.y * oy + a.z * oz;
+  t = (a.w - on) / safe_den(dn);
+  if constexpr (REJECT) {
+    if (!(mint < t) || !(t < tmax)) return false;
+    e0 = R[1];
+    e1 = R[2];
+    g = R[3];
+  }
+  const float de0 = e0.x * dx + e0.y * dy + e0.z * dz;
+  const float de1 = e1.x * dx + e1.y * dy + e1.z * dz;
+  const float oe0 = e0.x * ox + e0.y * oy + e0.z * oz;
+  const float oe1 = e1.x * ox + e1.y * oy + e1.z * oz;
+  const float b0 = oe0 + t * de0 - e0.w;
+  const float b1 = oe1 + t * de1 - e1.w;
+  const float u = g.w * (g.y * b0 - g.z * b1);
+  const float v = g.w * (g.x * b1 - g.z * b0);
+  return mint < t && t < tmax && u > 0.0f && v > 0.0f && u + v < 1.0f;
+}
+
 // The three families of the search, each folding its candidates into `h`:
 // a candidate wins only with a strictly smaller t, which keeps the first
 // minimum within a family and the earlier family across families.
+template <bool REJECT>
 __device__ __forceinline__ void search_tri_rows(const Tables& s, float ox,
                                                 float oy, float oz, float dx,
                                                 float dy, float dz, float mint,
                                                 Hit& h) {
   for (int j = 0; j < s.n_tri; ++j) {
-    const float* T = s.tri + TRI_STRIDE * j;
-    const float nx = T[0], ny = T[1], nz = T[2];
-    const float dn = nx * dx + ny * dy + nz * dz;
-    const float on = nx * ox + ny * oy + nz * oz;
-    const float de0 = T[3] * dx + T[4] * dy + T[5] * dz;
-    const float de1 = T[6] * dx + T[7] * dy + T[8] * dz;
-    const float oe0 = T[3] * ox + T[4] * oy + T[5] * oz;
-    const float oe1 = T[6] * ox + T[7] * oy + T[8] * oz;
-    const float t = (T[9] - on) / safe_den(dn);
-    const float b0 = oe0 + t * de0 - T[10];
-    const float b1 = oe1 + t * de1 - T[11];
-    const float u = T[15] * (T[13] * b0 - T[14] * b1);
-    const float v = T[15] * (T[12] * b1 - T[14] * b0);
-    if (mint < t && t < h.t && u > 0.0f && v > 0.0f && u + v < 1.0f) {
+    float t;
+    float4 a;
+    if (test_tri_row<REJECT>(s.tri + ROW4 * j, ox, oy, oz, dx, dy, dz, mint,
+                             h.t, t, a)) {
       h.t = t;
-      h.nx = nx;
-      h.ny = ny;
-      h.nz = nz;
-      h.mat = T[16];
+      h.nx = a.x;
+      h.ny = a.y;
+      h.nz = a.z;
+      h.mat = s.tri_mat[j];
       h.fam = 0;
       h.idx = j;
     }
@@ -255,15 +329,37 @@ __device__ __forceinline__ Hit miss() {
 }
 
 // Closest hit over triangles, spheres and planes (_search :715), in the
-// row form's order: triangles first.
+// row form's order: triangles first; REJECT: test_tri_row's.
+template <bool REJECT>
 __device__ __forceinline__ Hit closest_hit(const Tables& s, float ox, float oy,
                                            float oz, float dx, float dy,
                                            float dz, float mint) {
   Hit h = miss();
-  search_tri_rows(s, ox, oy, oz, dx, dy, dz, mint, h);
+  search_tri_rows<REJECT>(s, ox, oy, oz, dx, dy, dz, mint, h);
   search_spheres(s, ox, oy, oz, dx, dy, dz, mint, h);
   search_planes(s, ox, oy, oz, dx, dy, dz, mint, h);
   return h;
+}
+
+// Whether the ray hits anything: closest_hit(...).fam >= 0, bit for bit.
+// The spheres and planes first (few, and a hit there skips every
+// triangle), then the triangles, stopping at the first acceptance.
+__device__ __forceinline__ bool occluded(const Tables& s, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, float mint) {
+  Hit h = miss();
+  search_spheres(s, ox, oy, oz, dx, dy, dz, mint, h);
+  search_planes(s, ox, oy, oz, dx, dy, dz, mint, h);
+  if (h.fam >= 0) return true;
+  for (int j = 0; j < s.n_tri; ++j) {
+    float t;
+    float4 a;
+    if (test_tri_row<true>(s.tri + ROW4 * j, ox, oy, oz, dx, dy, dz, mint,
+                           BIG, t, a)) {
+      return true;
+    }
+  }
+  return false;
 }
 
 }  // namespace scene

@@ -33,7 +33,11 @@ function has two versions:
 ``PathTracer``, ``BigMeshTracer`` and ``bwd_path`` dispatch on the device
 of their tables: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises.  Scene tables are packed in the row form
-(one f32 row per primitive) in the field orders below; a BVH scene's
+(one f32 row per primitive) in the field orders below; K1's and B3's row
+forms stage them whole in shared memory, each triangle row as four
+aligned float4 in ``pack_walk``'s order, test a triangle's t before the
+rest of its row, and stop an occlusion search at its first hit
+(``_any_hit_plain``); a BVH scene's
 triangles are in the tree's leaf order, and K1 and B3 on it (their BVH
 form, the port of the culled form) and B5 search them by a per-ray walk of
 the ``pack_bvh`` nodes, after the spheres and planes (K1 and B3 read the
@@ -527,6 +531,40 @@ def _search_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint):
 # Elements of one [rays, triangles] block of the vectorized plain searches
 # (each of their temporaries is one such block).
 _PLAIN_BLOCK = 1 << 24
+
+
+def _any_hit_plain(tri, sph, pln, ox, oy, oz, dx, dy, dz, mint):
+    """Whether each ray hits anything, as the row form's any-hit search
+    decides it (``occluded``, csrc/scene_search.cuh: K1's Whitted shadow
+    rays, B3's AO probes and Appel shadow rays): the spheres and planes
+    (``_search_plain``'s), then the [T,17] triangle rows ``tri`` in order
+    up to the first that passes the closest-hit acceptance against the
+    miss sentinel (mint < t < 3e38 and the u, v test).  Equal to
+    ``_search_plain``'s family >= 0, because a closest-hit search only
+    ever tightens its best t below the sentinel.  Returns (hit bool[N], the
+    triangle rows it opens int64[N], the rows it tests in full past the
+    t-first reject int64[N]); a lane whose sphere or plane hit opens none."""
+    hit = _search_plain([], sph, pln, ox, oy, oz, dx, dy, dz, mint)[5] >= 0
+    opened = torch.zeros_like(ox, dtype=torch.int64)
+    full = torch.zeros_like(opened)
+    n, n_tri = ox.shape[0], tri.shape[0]
+    block = max(1, min(n_tri, _PLAIN_BLOCK // max(n, 1)))
+    rb = [c[:, None] for c in (ox, oy, oz, dx, dy, dz)]
+    for base in range(0, n_tri, block):
+        t, ok = _tri_block(tri[base:base + block], *rb, mint)
+        width = t.shape[1]
+        passed = (mint < t) & (t < _BIG)
+        accept = ok & passed
+        # Rows this block opens on lanes still searching: up to and with
+        # the first acceptance, else all of them.
+        iota = torch.arange(width, device=t.device)
+        first = torch.where(accept, iota, width).amin(1)
+        seen = iota[None, :] <= first[:, None]
+        searching = ~hit
+        opened += torch.where(searching, torch.clamp(first + 1, max=width), 0)
+        full += torch.where(searching, (passed & seen).sum(1), 0)
+        hit = hit | accept.any(1)
+    return hit, opened, full
 
 
 def _tri_block(rows, oxb, oyb, ozb, dxb, dyb, dzb, mint):
@@ -1236,8 +1274,18 @@ def _path_lib():
         lib.rvpt_path_stats_sum.restype = i32
         lib.rvpt_max_table_floats.argtypes = []
         lib.rvpt_max_table_floats.restype = i32
+        lib.rvpt_row_reject.argtypes = [i32]
+        lib.rvpt_row_reject.restype = i32
         lib._rvpt_bound = True
     return lib
+
+
+def row_reject(integ: str) -> bool:
+    """Whether K1's row form runs integrator ``integ``'s closest-hit
+    searches with the t-first reject, as its library was built
+    (path_kernel.cu's row_reject); B3's row form always does, and every
+    occlusion search is any-hit.  Loads the library: card only."""
+    return bool(_path_lib().rvpt_row_reject(INTEGS[integ]))
 
 
 def _scene_lib(load, tables, counts, nodes=None):

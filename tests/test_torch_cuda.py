@@ -26,8 +26,10 @@ K1's Whitted/Cook forms >= 99.5% of pixel channels within 1e-4, B4 >= 99%
 channels within 1e-4, B6 >= 99% of live lanes (tests/test_bigmesh_modes.py),
 on the mesh builtins and on a random soup with a sphere, a plane, mirror
 and dielectric triangles; the BVH-form records and B5's hit records bit for
-bit, as are B3's rays-in form, K1's hits-only records and the big-mesh
-route against B5's; B7's gather bit for bit, its segment sum within rtol 1e-5, atol 1e-5
+bit, as are B3's rays-in form, K1's hits-only records, the row forms of
+K1 and B3 (every integrator, collect instance, mode and camera model, on
+the Cornell box, sphere_plane and 600- and 1,000-triangle soups) and the
+big-mesh route against B5's; B7's gather bit for bit, its segment sum within rtol 1e-5, atol 1e-5
 of the float64 sum; the mesh fwd+bwd gradients within rtol 1e-3, atol
 1e-6 (in units of their scale) of autograd through kajiya_from_hits on the
 same records; the stats counters equal per tile, the radiance and records
@@ -467,6 +469,77 @@ def test_cuda_scene_never_reaches_a_plain_version(dev, monkeypatch):
 # ---------------------------------------------------------------------------
 # The other integrators: B3, B4, K1's Whitted/Cook forms, split-screen
 # ---------------------------------------------------------------------------
+
+
+def _row_case(scene_name, cfg, dev):
+    if scene_name.startswith("soup"):
+        scene = _soup(dev, int(scene_name[4:]))
+        return scene, tcam.Camera.create(fov=90.0, aspect=cfg.aspect, device=dev)
+    return getattr(builtin, scene_name)(aspect=cfg.aspect, device=dev)
+
+
+@pytest.mark.parametrize("mode", [tcam.PINHOLE, tcam.ORTHO, tcam.SPHERICAL])
+@pytest.mark.parametrize("scene_name", ["cornell_box", "sphere_plane", "soup600",
+                                        "soup1000"])
+def test_row_form_bit_for_bit(dev, scene_name, mode):
+    """K1's and B3's row forms (csrc/scene_search.cuh: float4 rows, the
+    t-first reject, any-hit occlusion searches) bit for bit the plain
+    versions, camera rays made in the kernels: Kajiya, Whitted and Cook,
+    the full and hits-only collect instances, B3 in modes 0-6; 600 and
+    1,000 triangles (past 48 KB of tables: the opt-in shared memory)."""
+    cfg = FilmConfig(width=160, height=90)
+    scene, cam = _row_case(scene_name, cfg, dev)
+    cam = dataclasses.replace(cam, mode=mode)
+    pt = tpk.PathTracer(scene)
+    n = cfg.num_pixels
+    pix = torch.arange(n, device=dev)
+    kw = dict(cam_params=tpk.camera_params(cam, cfg), cam_mode=mode, jitter_salt=0)
+    for integ in ("kajiya", "whitted", "cook"):
+        got = tpk.launch_path_kernel(pt.tables, pt.counts, None, n, 2, 16, 4,
+                                     "standard", integ=integ, **kw)
+        want = tpk.trace_plain(pt.tables, pt.counts, pix, 2, 16, 4, "standard",
+                               integ=integ, **kw)
+        assert torch.equal(got, want), integ
+    got, rec = tpk.launch_path_kernel(pt.tables, pt.counts, None, n, 2, 16, 4,
+                                      "standard", collect=True, **kw)
+    want, wrec = tpk.trace_plain(pt.tables, pt.counts, pix, 2, 16, 4, "standard",
+                                 collect=True, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(rec.fields, wrec.fields) and torch.equal(rec.hits, wrec.hits)
+    _, hits = tpk.launch_path_kernel(pt.tables, pt.counts, None, n, 2, 16, 4,
+                                     "standard", collect="hits", **kw)
+    assert torch.equal(hits, wrec.hits)
+    for m in range(7):
+        got = tpk.launch_primary_kernel(pt.tables, pt.counts, None, n, 2, 16, m, 4,
+                                        **kw)
+        want = tpk.primary_plain(pt.tables, pt.counts, pix, 2, 16, m, 4, **kw)
+        assert torch.equal(got, want), f"mode {m}"
+
+
+def test_row_form_occlusion_rays(dev):
+    """The Appel shadow rays of a Cornell frame: the plain any-hit row
+    search finds a hit exactly where the closest-hit search does, and B3's
+    binary mode on those rays passed in (the kernel's closest-hit row
+    search) agrees with both."""
+    cfg = FilmConfig(width=160, height=90)
+    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    pt = tpk.PathTracer(scene)
+    n = cfg.num_pixels
+    kw = dict(cam_params=tpk.camera_params(cam, cfg), cam_mode=cam.mode, jitter_salt=0)
+    caught = []
+    tpk.primary_plain(pt.tables, pt.counts, torch.arange(n, device=dev), 2, 16, 6, 1,
+                      on_search=lambda o3, d3, live=None: caught.append((o3, d3, live)),
+                      **kw)
+    o3, d3, live = caught[1]
+    rays = tuple(c[live].contiguous() for c in (*o3, *d3))
+    m = rays[0].numel()
+    got = tpk.launch_primary_kernel(pt.tables, pt.counts, None, m, 2, 16, 0, 1,
+                                    None, rays=rays)
+    tri, sph, pln, _ = tpk._unpack_fwd(pt.tables, pt.counts, tri_rows=True)
+    closest = tpk._search_tris_last(tri, sph, pln, *rays, 0.0)[5] >= 0
+    hit, _, _ = tpk._any_hit_plain(tri, sph, pln, *rays, 0.0)
+    assert torch.equal(hit, closest)
+    assert torch.equal(got[0] > 0, closest)
 
 
 def _tracer_and_camera(scene_name, cfg, dev):
