@@ -214,6 +214,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -431,6 +432,19 @@ ROW_REDESIGN = ("the row search of csrc/scene_search.cuh: triangle rows staged a
                 "those and in the closest-hit searches of B3 and of K1's Whitted and "
                 "Cook; bound_ms counts its own tests (row census, phase 2b), "
                 "closest_hit_bound_ms closest-hit searches without the reject")
+
+
+# What the kernels line says of K1's counting instances and of B8.
+STATS_REDESIGN = ("the counting walk of csrc/path_kernel.cu (count_clusters): cluster "
+                  "boxes staged in shared memory, t-only triangle tests on pack_walk's "
+                  "rows with the t-first reject, an exact early exit once the masks are "
+                  "full; its path's walk that of csrc/bvh_walk.cuh; bound_ms counts the "
+                  "counting walk's own tests (phase 22's census), parent_count_bound_ms "
+                  "every row in full")
+B8_REDESIGN = ("csrc/closest_hit.cu: rows loaded with 16-byte loads and staged as four "
+               "aligned float4 in pack_walk's order, the t-first reject, one stage "
+               "for a table of up to 512 rows; bound_ms counts its own tests (phase 8's "
+               "census)")
 
 
 def census_hook(pt, mode, work, census):
@@ -772,28 +786,30 @@ def sass_loops(lib, pattern):
     return out
 
 
-def sass_text(loops):
-    """The loops of sass_loops that load shared memory (the searches), one
-    line each: span, size, and the counts of shared-memory loads, FP32
-    operations, MUFU, FCHK and calls."""
+def sass_text(loops, loads=("LDS",)):
+    """The loops of sass_loops that hold a load whose opcode starts with one
+    of ``loads`` (by default the shared-memory loads of the row searches),
+    one line each: span, size, the global and shared loads by width, local
+    loads and stores (spill), FP32 operations, MUFU, FCHK, calls, constant
+    loads and atomics."""
     lines = []
     for fn, ls in sorted(loops.items()):
         for lp in ls:
             ops = lp["ops"]
-            if not any(k.startswith("LDS") for k in ops):
+            if not any(k.startswith(loads) for k in ops):
                 continue
 
-            def count(prefix):
+            def count(*prefix):
                 return sum(v for k, v in ops.items() if k.startswith(prefix))
 
             fp = sum(v for k, v in ops.items()
                      if k.split(".")[0] in ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX",
                                             "FSEL", "FSET"))
-            lds = {k: v for k, v in ops.items() if k.startswith("LDS")}
+            ld = {k: v for k, v in ops.items() if k.startswith(("LDG", "LDS"))}
             lines.append(f"{fn} loop {lp['start']:#x}-{lp['end']:#x}: {lp['instructions']} "
-                         f"instructions, shared loads {lds}, FP32 {fp}, MUFU "
-                         f"{count('MUFU')}, FCHK {count('FCHK')}, CALL {count('CALL')}, "
-                         f"LDC {count('LDC') + count('ULDC')}")
+                         f"instructions, loads {ld}, local {count('LDL', 'STL')}, FP32 {fp}, "
+                         f"MUFU {count('MUFU')}, FCHK {count('FCHK')}, CALL {count('CALL')}, "
+                         f"LDC {count('LDC', 'ULDC')}, atomics {count('ATOM', 'RED')}")
     return lines
 
 
@@ -854,6 +870,183 @@ def row_census_phase(smi, dev):
         for line in sass_text(sass_loops(info["path"], ROW_INSTANCE)):
             print(f"[row-sass] {line}")
     return out
+
+
+# The searches of a stats trace by call order (trace_plain's on_search):
+# the camera search, then per bounce a bounce search and, for Whitted, a
+# shadow search; Cook's tail last.
+def stats_kind(integ, k, nb):
+    if k == 0:
+        return "camera"
+    if integ == "whitted":
+        return "shadow" if k % 2 else "bounce"
+    return "tail" if integ == "cook" and k == nb else "bounce"
+
+
+STATS_CENSUS = ("searches", "inside", "box", "passed", "opened", "full", "lane_work",
+                "warp_work", "warp_rows", "fill_box", "exit_box", "exit_rows")
+
+
+def stats_census_hook(tables, counts, rows, integ, nb, census, mint=0.0):
+    """An ``on_search`` hook over whole CULL_TILE tiles of a stats trace's
+    rays (lane i on thread i, 32 to a warp), the census of the counting
+    walk (csrc/path_kernel.cu count_clusters), by kind of search
+    (stats_kind) into ``census[kind]``: live searches, lanes inside the
+    root box, cluster box tests (n_clu per lane inside), passed clusters,
+    triangle rows opened (each passed cluster's) and rows past the t-first
+    reject (mint < t < the lane's running best t); the scan's SIMD sums
+    (lane iterations, box tests plus rows, against 32 x each warp's
+    largest) and the rows its warps open (the union of their lanes'
+    passed clusters); and how soon the (tile, search) masks fill, with the
+    lanes taken warp by warp in launch order, each seeing the bits of the
+    warps before it: the box tests made after every remaining bit of both
+    masks is set ("fill_box"), and what an exit checked once per scan at
+    its start (count_clusters' EXIT) skips of box tests and rows."""
+    import torch
+
+    from rvpt_tpu_torch.ops import pathkernel as pk
+
+    tri, sph, pln, _ = pk._unpack_fwd(tables, counts, tri_rows=True)
+    n_clu, k_ = rows.shape[0] - 1, pk.CULL_K
+    dev = rows.device
+    sizes = torch.clamp(counts[0] - k_ * torch.arange(n_clu, device=dev), max=k_)
+    row_ok = torch.arange(k_, device=dev)[None, :] < sizes[:, None]
+    calls = [0]
+
+    def add(rec, key, v):
+        rec[key] = rec.get(key, 0) + int(v)
+
+    def on_search(o3, d3, live=None):
+        kind = stats_kind(integ, calls[0], nb)
+        calls[0] += 1
+        n = o3[0].numel()
+        if live is None:
+            live = torch.ones(n, dtype=torch.bool, device=dev)
+        rec = census.setdefault(kind, {})
+        for start in range(0, n, pk.CULL_TILE):
+            sl = slice(start, min(start + pk.CULL_TILE, n))
+            lv = live[sl]
+            if not bool(lv.any()):
+                continue
+            o_t, d_t = tuple(c[sl] for c in o3), tuple(c[sl] for c in d3)
+            m = lv.numel()
+            iv = [1.0 / pk._safe_den(c) for c in d_t]
+            root, _ = pk._slab_plain(rows[:1], o_t, iv, mint)
+            inside = root[:, 0] & lv
+            hit, t0 = pk._slab_plain(rows[1:], o_t, iv, mint)
+            listed = hit & inside[:, None]
+            seed = pk._search_plain([], sph, pln, *o_t, *d_t, mint)[0]
+            t, ok = pk._tri_block(tri, *(c[:, None] for c in (*o_t, *d_t)), mint)
+            pad = n_clu * k_ - t.shape[1]
+            t = torch.nn.functional.pad(t, (0, pad), value=pk._BIG).view(m, n_clu, k_)
+            ok = torch.nn.functional.pad(ok, (0, pad), value=False).view(m, n_clu, k_)
+            tv = torch.where(ok, t, pk._BIG)
+            before = torch.cummin(torch.cat([seed[:, None], tv.amin(2)[:, :-1]], 1), 1)[0]
+            passed = listed & (t0 < before)
+            run = torch.cummin(torch.cat([before[:, :, None], tv[:, :, :-1]], 2), 2)[0]
+            opened = passed[:, :, None] & row_ok[None]
+            full = opened & (mint < t) & (t < run)
+            lane_rows = opened.sum((1, 2))
+            lane_work = inside * n_clu + lane_rows
+            add(rec, "searches", lv.sum())
+            add(rec, "inside", inside.sum())
+            add(rec, "box", inside.sum() * n_clu)
+            add(rec, "passed", passed.sum())
+            add(rec, "opened", lane_rows.sum())
+            add(rec, "full", full.sum())
+            add(rec, "lane_work", lane_work.sum())
+            add(rec, "warp_work", 32 * _warps(lane_work).amax(1).sum())
+            add(rec, "warp_rows", (_warps(passed).any(1).to(torch.int64)
+                                   * sizes[None]).sum())
+            warp = torch.arange(m, device=dev) // 32
+            never = m // 32 + 1
+
+            def first(mask):
+                return torch.where(mask, warp[:, None], never).amin(0)
+
+            last = torch.maximum(first(listed), first(passed))
+            suffix = torch.flip(torch.cummax(torch.flip(last, (0,)), 0)[0], (0,))
+            # clusters scanned before every later bit is set, per lane
+            c_fill = (suffix[None, :] >= warp[:, None]).sum(1)
+            add(rec, "fill_box", (inside * (n_clu - c_fill)).sum())
+            words = suffix[::32]
+            scanned = torch.clamp(32 * (words[None, :] >= warp[:, None]).sum(1), max=n_clu)
+            add(rec, "exit_box", (inside * (n_clu - scanned)).sum())
+            after = torch.arange(n_clu, device=dev)[None, :] >= scanned[:, None]
+            add(rec, "exit_rows", (opened.sum(2) * after).sum())
+
+    return on_search
+
+
+def stats_census_text(census):
+    """One line per kind of search of a stats_census_hook census."""
+    parts = []
+    for kind in ("camera", "bounce", "shadow", "tail"):
+        r = census.get(kind)
+        if not r:
+            continue
+
+        def share(a, b):
+            return a / b if b else float("nan")
+
+        parts.append(
+            f"{kind}: {r['searches']} searches, {r['inside']} inside the root, "
+            f"{r['box']} box tests, {r['passed']} passed clusters, {r['opened']} rows "
+            f"opened, {r['full']} past the reject ({share(r['full'], r['opened']):.3f}), "
+            f"scan SIMD {share(r['lane_work'], r['warp_work']):.3f}, warps open "
+            f"{r['warp_rows']} rows ({share(r['opened'], 32 * r['warp_rows']):.3f} of 32 "
+            f"lanes), box tests after the masks fill {share(r['fill_box'], r['box']):.3f}, "
+            f"the exit skips {share(r['exit_box'], r['box']):.3f} of box tests and "
+            f"{share(r['exit_rows'], r['opened']):.3f} of rows")
+    return "; ".join(parts)
+
+
+def b8_census(o, d, packed, mint=0.0, maxt=float("inf"), chunk=1 << 15):
+    """B8's tests on rays ``o``/``d`` f32[N, 3] against ``pack_triangles``
+    rows, in the kernel's order (thread i = ray i, 32 to a warp, triangles
+    in index order): {"rays", "tests", "reject": tests whose t cannot beat
+    the winner so far, !(mint < t < maxt and t below it), "warp_tests",
+    "warp_reject": (warp, triangle) pairs every lane rejects, "hits"}."""
+    import torch
+
+    n, n_tri = o.shape[0], packed.shape[0]
+    (nx, ny, nz, e0x, e0y, e0z, e1x, e1y, e1z, v0n, v0e0, v0e1, g00, g11, g01,
+     inv) = (c[None, :] for c in packed.unbind(1))
+    out = dict(rays=n, tests=n * n_tri, reject=0, warp_tests=0, warp_reject=0, hits=0)
+    for s in range(0, n, chunk):
+        ox, oy, oz = (o[s:s + chunk, k:k + 1] for k in range(3))
+        dx, dy, dz = (d[s:s + chunk, k:k + 1] for k in range(3))
+        dn = nx * dx + ny * dy + nz * dz
+        on = nx * ox + ny * oy + nz * oz
+        de0 = e0x * dx + e0y * dy + e0z * dz
+        de1 = e1x * dx + e1y * dy + e1z * dz
+        oe0 = e0x * ox + e0y * oy + e0z * oz
+        oe1 = e1x * ox + e1y * oy + e1z * oz
+        t = (v0n - on) / torch.where(dn.abs() < 1e-30, torch.full_like(dn, 1e-30), dn)
+        b0 = oe0 + t * de0 - v0e0
+        b1 = oe1 + t * de1 - v0e1
+        u = inv * (g11 * b0 - g01 * b1)
+        v = inv * (g00 * b1 - g01 * b0)
+        in_range = (mint < t) & (t < maxt)
+        acc = in_range & (u > 0.0) & (v > 0.0) & (u + v < 1.0)
+        ta = torch.where(acc, t, float("inf"))
+        best = torch.cummin(torch.cat([torch.full_like(ta[:, :1], float("inf")),
+                                       ta[:, :-1]], 1), 1)[0]
+        rej = ~(in_range & (t < best))
+        out["reject"] += int(rej.sum().item())
+        out["hits"] += int(acc.any(1).sum().item())
+        w = torch.nn.functional.pad(rej, (0, 0, 0, (-rej.shape[0]) % 32), value=True)
+        w = w.view(-1, 32, n_tri).all(1)
+        out["warp_tests"] += w.numel()
+        out["warp_reject"] += int(w.sum().item())
+    return out
+
+
+def b8_census_text(c):
+    return (f"{c['rays']} rays, {c['hits']} hit; {c['tests']} tests, {c['reject']} "
+            f"rejectable by t ({c['reject'] / c['tests']:.3f}); {c['warp_tests']} "
+            f"warp-tests, {c['warp_reject']} every lane rejects "
+            f"({c['warp_reject'] / max(c['warp_tests'], 1):.3f})")
 
 
 def device_ms(fn, iters, names):
@@ -1009,7 +1202,7 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
     from rvpt_tpu_torch.ops import intersect_pk as ipk
     from rvpt_tpu_torch.ops import pathkernel as pk
     from rvpt_tpu_torch.ops.fast_grad import make_fast_kajiya
-    from rvpt_tpu_torch.render import render_sample_chw
+    from rvpt_tpu_torch.render import jittered_camera_rays, render_sample_chw
     from rvpt_tpu_torch.train import inverse
 
     n, nb, inf = cfg.num_pixels, 4, float("inf")
@@ -1158,17 +1351,73 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
               f"of rays hit a triangle")
         check(idx_eq >= 0.999, f"B8 indices disagree on {label}: {idx_eq:.6f}")
         check(t_bad == 0, f"B8 t disagrees on {label} at {t_bad} hits")
+    # Step 1's census of B8's tests: the t-first reject's share per ray and
+    # per warp, on the camera and bounce-2 rays and on soups of 300, 600
+    # and 1,000 triangles (camera rays), and a soup of 513, one row past a
+    # 512-row chunk, against the plain version on every 16th row.
+    b8c = {"camera": b8_census(o_cam, d_cam, packed), "bounce2": b8_census(o_b, d_b, packed)}
+    b8_soups = {}
+    for n_soup in (300, 513, 600, 1000):
+        sscene, scam = hart_soup(dev, n_soup, cfg)
+        sray = jittered_camera_rays(scam, cfg, pixel, xs, ys, 0, 0)
+        so, sd = sray.origin.contiguous(), sray.direction.contiguous()
+        spacked = ipk.pack_triangles(sscene.tri_v0, sscene.tri_v1, sscene.tri_v2)
+        b8_soups[n_soup] = (so, sd, spacked)
+        if n_soup != 513:
+            b8c[f"soup{n_soup}"] = b8_census(so, sd, spacked)
+            continue
+        rows16 = (pixel // cfg.width) % 16 == 0
+        t, idx = ipk.launch_closest_hit(so, sd, spacked, 0.0, inf)
+        wt, widx = tint.closest_hit_triangles(so[rows16], sd[rows16], sscene.tri_v0,
+                                              sscene.tri_v1, sscene.tri_v2, 0.0, inf)
+        torch.cuda.synchronize()
+        same = idx[rows16] == widx
+        idx_eq = same.float().mean().item()
+        hit = same & (widx >= 0)
+        t_bad = int((~torch.isclose(t[rows16][hit], wt[hit], rtol=1e-5, atol=0.0)).sum().item())
+        print(f"[B8-vs-plain] 513-triangle soup (one row past a 512-row chunk), every "
+              f"16th row: index equal on {idx_eq:.6f} (bar 0.999), t outside rtol 1e-5 "
+              f"on {t_bad} of {int(hit.sum().item())} agreeing hits; "
+              f"{(widx >= 0).float().mean().item():.4f} of rays hit")
+        check(idx_eq >= 0.999, f"B8 indices disagree on the 513-triangle soup: {idx_eq:.6f}")
+        check(t_bad == 0, f"B8 t disagrees on the 513-triangle soup at {t_bad} hits")
+    for label, c in b8c.items():
+        print(f"[B8-census] {label}: {b8_census_text(c)} [{smi}]")
+    from rvpt_tpu_torch.ops import build
+
+    info = build.BUILD_INFO["closest_hit"]
+    for mangled, row in ptxas_table(info["log"]).items():
+        print(f"[B8-ptxas] {demangle([mangled])[mangled]}: {row}")
+    for line in sass_text(sass_loops(info["path"], r"(closest_hit_kernel)"),
+                          ("LDG", "LDS")):
+        print(f"[B8-sass] {line}")
+
+    def b8_ops(c):
+        """B8's own tests: every test to its t; past the t-first reject, the
+        rest (the row search's counts)."""
+        return c["tests"] * OPS_ROW_TRI_T + (c["tests"] - c["reject"]) * OPS_ROW_TRI_REST
+
     b8_ms = cuda_ms(lambda: ipk.launch_closest_hit(o_cam, d_cam, packed, 0.0, inf), 20)
     b8_plain_ms = cuda_ms(lambda: tint.closest_hit_triangles(o_cam, d_cam, *v, 0.0, inf), 3)
     # Per ray the ray (24 B) in, t (4) and the index (4: an i32 holds it,
     # as in the TPU kernel, though the wrapper hands torch an int64) out;
     # the 16 triangle fields once.
-    b8_bound, b8_by = bound(n * (24 + 4 + 4) + 64 * t_, n * t_ * OPS_TRI)
+    b8_bound, b8_by = bound(n * (24 + 4 + 4) + 64 * t_, b8_ops(b8c["camera"]))
     print(f"[time] B8 {b8_ms:.4f} ms, plain {b8_plain_ms:.4f} ms, bound "
           f"{b8_bound:.4f} ms by {b8_by}, kernel at {b8_bound / b8_ms:.1%} of it "
           f"({cfg.width}x{cfg.height} camera rays, {t_} triangles) [{smi}]")
+    soups_out = {}
+    for n_soup, (so, sd, spacked) in b8_soups.items():
+        if n_soup == 513:
+            continue
+        ms_s = cuda_ms(lambda: ipk.launch_closest_hit(so, sd, spacked, 0.0, inf), 5)
+        bnd_s, by_s = bound(n * 32 + 64 * n_soup, b8_ops(b8c[f"soup{n_soup}"]))
+        soups_out[n_soup] = dict(ms=ms_s, bound_ms=bnd_s, bound_by=by_s)
+        print(f"[time] B8 on the {n_soup}-triangle soup's camera rays: {ms_s:.4f} ms, "
+              f"bound {bnd_s:.4f} ms by {by_s} ({bnd_s / ms_s:.1%}) [{smi}]")
     out["b8"] = dict(max_abs_err=b8_err, ms=b8_ms, plain_ms=b8_plain_ms,
-                     bound_ms=b8_bound, bound_by=b8_by)
+                     bound_ms=b8_bound, bound_by=b8_by, census=b8c, soups=soups_out)
+    del b8_soups
     del o_b, d_b
 
     # ---- 9. the headline step: bench.py's mean-image loss, value and grad
@@ -2914,8 +3163,11 @@ def stats_phase(smi, dev):
     traces through the entry point, the counts read.  Then, per trace, the
     radiance bit for bit that of the launch without stats, the counters
     against the plain version's (cull_stats_hook through trace_plain's
-    on_search, on the card) on every 8th tile, and both launches timed
-    beside the bound of this run's data."""
+    on_search, on the card) on every 8th tile, the counting walk's census
+    on those tiles (stats_census_hook: box tests, rows opened and past the
+    t-first reject, SIMD, how soon the masks fill), and both launches
+    timed beside the bound of this run's data; last, the counting
+    instances' ``-Xptxas -v`` and the loops of the Kajiya one's SASS."""
     import torch
 
     from rvpt_tpu_torch import FilmConfig
@@ -3008,6 +3260,17 @@ def stats_phase(smi, dev):
             check(torch.equal(got[1], got[0]), f"{name} {integ}: processed != listed")
             check(bool((got[2] <= got[0]).all().item()), f"{name} {integ}: still > listed")
             check(got[0].sum().item() > 0, f"{name} {integ}: nothing listed")
+            # Step 1's census of the counting walk on the same tiles.
+            census = {}
+            pk.trace_plain(pt.tables, pt.counts, pixel[lanes], frame, salt, nb, "reference",
+                           rays=tuple(c[lanes] for c in rays), integ=integ, tris_last=True,
+                           on_search=stats_census_hook(pt.tables, pt.counts, pt.cull, integ,
+                                                       nb, census))
+            print(f"[stats-census] {name} {cfg.width}x{cfg.height} x {nb}, {integ}, every "
+                  f"8th tile: {stats_census_text(census)} [{smi}]")
+            cs = {key: sum(r.get(key, 0) for r in census.values()) for key in STATS_CENSUS}
+            check(cs["box"] == work["clusters"] and cs["opened"] == work["tris"],
+                  f"{name} {integ}: the census and the counters' work disagree")
             # The bound: K1's BVH form on the whole film (its searches,
             # walks and shading, counted by the plain version and the walk's
             # counting instance) plus the stats walk's box, bit and triangle
@@ -3019,13 +3282,22 @@ def stats_phase(smi, dev):
                                                   census))
             own = census_summary(census)["own"]
             scale = n / lanes.numel()
+            # The counting walk's own tests: box tests, bits, each passed
+            # cluster's rows to their t and the rows past the reject in full
+            # (the exit's savings depend on the order warps run in, and are
+            # not taken off); the parent's count, every row in full, beside.
             stats_ops = scale * (work["root"] * OPS_BOX + work["clusters"] * OPS_BOX
-                                 + work["bits"] + work["tris"] * OPS_WALK_TRI)
+                                 + work["bits"] + cs["opened"] * OPS_ROW_T
+                                 + cs["full"] * (OPS_WALK_TRI - OPS_ROW_T))
+            parent_ops = scale * (work["root"] * OPS_BOX + work["clusters"] * OPS_BOX
+                                  + work["bits"] + work["tris"] * OPS_WALK_TRI)
             words = -(-(pt.cull.shape[0] - 1) // 32)
             mask_bytes = 2 * 4 * grid * pk.stats_slots(nb, integ) * words
             table_bytes = 4 * (pt.tables.numel() + pt.nodes.numel() + pt.cull.numel())
             bnds = walk_bounds(36 * n + 8 * n + table_bytes + mask_bytes + 12 * grid,
                                k1_ops(kwork, seed) + stats_ops, kwork, own)
+            parent_bnd, _ = bound(36 * n + 8 * n + table_bytes + mask_bytes + 12 * grid,
+                                  k1_ops(kwork, seed) + parent_ops + own_walk_ops(own))
             for _ in range(2):
                 counted()
                 plain_k1()
@@ -3038,11 +3310,27 @@ def stats_phase(smi, dev):
                   f"radiance bit-identical: {same}; stats launch {ms:.4f} ms, without "
                   f"stats {k1_ms:.4f}/{k1_ms2:.4f} ms, plain {plain_ms:.2f} ms on "
                   f"{lanes.numel()} rays; {bounds_text(bnds, ms, kwork, own)} (stats walk "
-                  f"{ {k2: round(v * scale) for k2, v in work.items()} }) [{smi}]")
+                  f"{ {k2: round(v * scale) for k2, v in work.items()} }, rows opened "
+                  f"{round(cs['opened'] * scale)}, past the reject {round(cs['full'] * scale)}; "
+                  f"every row in full, the parent's count, not the bound: "
+                  f"{parent_bnd:.4f} ms, {parent_bnd / ms:.1%}) [{smi}]")
             out["runs"][f"{name} {integ}"] = dict(
                 ms=ms, k1_ms=min(k1_ms, k1_ms2), plain_ms=plain_ms,
-                plain_rays=lanes.numel(), **bnds, walk_own=own, tiles_equal=eq,
+                plain_rays=lanes.numel(), **bnds, parent_count_bound_ms=parent_bnd,
+                walk_own=own, tiles_equal=eq, census=census,
                 max_abs_err=(k - acc).abs().max().item(), bit_identical=same)
+    from rvpt_tpu_torch.ops import build
+
+    info = build.BUILD_INFO["path_kernel"]
+    table = ptxas_table(info["log"])
+    names = demangle(table)
+    for mangled, row in sorted(table.items(), key=lambda kv: names[kv[0]]):
+        if re.search(r"path_kernel<\d, \d, true, true>|stats_scan_kernel|count_clusters",
+                     names[mangled]):
+            print(f"[stats-ptxas] {names[mangled]}: {row}")
+    for line in sass_text(sass_loops(info["path"], r"(path_kernel<0, 0, true, true>)"),
+                          ("LDG", "LDS")):
+        print(f"[stats-sass] {line}")
     return out
 
 
@@ -3388,7 +3676,7 @@ def main() -> int:
         "launches": train["launches"]["bwd_kernel"], **train["k2"],
         "library_ms": None,
     }, {
-        "name": "closest_hit", "route": "cuda",
+        "name": "closest_hit", "route": "cuda", "redesign": B8_REDESIGN,
         "source": "rvpt_tpu_torch/csrc/closest_hit.cu",
         "replaces": "rvpt_tpu/ops/intersect_pk.py:89",
         "launches": train["launches"]["closest_hit"], **train["b8"],
@@ -3518,7 +3806,7 @@ def main() -> int:
         # Launches: the six PathTracer.trace(stats=True) calls of phase 22;
         # the headline numbers mesh_demo(3)'s Kajiya, every run beside them.
         "name": "path_kernel_stats", "route": "cuda",
-        "redesign": WALK_REDESIGN,
+        "redesign": STATS_REDESIGN,
         "source": "rvpt_tpu_torch/csrc/path_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:1193",
         "launches": stats["launches"],

@@ -1,14 +1,14 @@
 """Before/after timings of the redesigned kernels on one NVIDIA card: the
 row forms of K1 and B3 (their row search), the BVH forms of K1 and B3 (their walk, and the big-mesh route, B5's function
 folded into one K1 or B3 launch per frame), B4 (the Hart march) and K2
-(the whole-chain pullback), B6 (the big-mesh Hart march) and B7's segment
-sum, for the tree of rvpt_tpu_torch at ``--tree`` (the checkout root by
+(the whole-chain pullback), B6 (the big-mesh Hart march), B7's segment
+sum, K1's counting instances (``stats``) and B8, for the tree of rvpt_tpu_torch at ``--tree`` (the checkout root by
 default; a parent commit unpacked by ``git archive`` into a gitignored
 directory for "before").  It drives only entry points that every tree of
 the port has: ``PathTracer.trace_hart``, ``launch_path_kernel``,
 ``launch_bwd_kernel``, ``Renderer.draw``, ``BigMeshTracer.trace`` and
 ``.trace_hart``, ``replay_soa.launch_segsum``, ``make_fast_kajiya`` and
-``inverse.recover``.
+``inverse.recover``, ``launch_path_stats`` and ``launch_closest_hit``.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME]
 
@@ -65,8 +65,21 @@ Every run times every section.  Prints:
   (the pullback and its table sum, torch.profiler) inside one Cornell
   fwd+bwd step at 1080p x 4 (``bench.py``'s mean-image loss over albedo
   and emission) and one rabbit step at 1024x512 x 8 (``backward="auto"``:
-  K1's BVH-form records, then K2), beside each step's device time.
+  K1's BVH-form records, then K2), beside each step's device time;
+* stats: K1's counting instance (``launch_path_stats``) as chip_smoke.py
+  phase 22 runs it, rabbit at 1024x512 and mesh_demo(3) at 1080p, 8
+  bounces, Kajiya, Whitted and Cook, each beside the same launch without
+  stats (the controls): CUDA events and device time, and digests of the
+  counters and radiances;
+* b8: B8 on the 1080p Cornell camera and bounce-2 rays and on the 300-,
+  600- and 1,000-triangle soups (CUDA events, device time, a digest of t
+  and the index), and the device time of ``recover``'s 8-frame target
+  render;
+* kernels: per function of path_kernel and closest_hit, its registers
+  and stack and a digest of its SASS, so that two trees' instances
+  compare by name.
 
+The digests of two trees' runs compare bit for bit within one call.
 The last line is one JSON object with every number.
 """
 
@@ -525,6 +538,167 @@ def row_timings(dev, hd, pk, builtin):
     return out
 
 
+def digest(*tensors):
+    """sha256 (first 16 hex digits) of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def stats_timings(dev, hd, pk, builtin):
+    """K1's counting instance as chip_smoke.py phase 22 runs it
+    (``launch_path_stats``: rabbit at 1024x512 and mesh_demo(3) at 1080p,
+    8 bounces, reference, camera rays passed in, Kajiya, Whitted and
+    Cook), each beside the same launch without stats: CUDA events per call
+    (two runs of 10), the device time of the path kernel and of the
+    summing kernel, and the digests of the counters and of both radiances."""
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
+
+    out = {}
+    frame, salt, nb = 3, 16, 8
+    for name, cfg, make in (
+            ("rabbit", FilmConfig(1024, 512), builtin.rabbit),
+            ("mesh3", hd, lambda aspect, device: builtin.mesh_demo(3, aspect=aspect,
+                                                                   device=device))):
+        scene, cam = make(aspect=cfg.aspect, device=dev)
+        pt = pk.PathTracer(scene)
+        pixel, xs, ys = _pixel_grid(cfg, dev)
+        ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, frame, 0)
+        rays = tuple(c.contiguous() for c in (*ray.origin.T, *ray.direction.T))
+        n = cfg.num_pixels
+        for integ in ("kajiya", "whitted", "cook"):
+            def counted(pt=pt, pixel=pixel, rays=rays, n=n, integ=integ):
+                return pk.launch_path_stats(pt.tables, pt.counts, pt.tree, pt.cull, pixel,
+                                            n, frame, salt, nb, "reference", rays=rays,
+                                            integ=integ)
+
+            def plain_k1(pt=pt, pixel=pixel, rays=rays, n=n, integ=integ):
+                return pk.launch_path_kernel(pt.tables, pt.counts, pixel, n, frame, salt,
+                                             nb, "reference", rays=rays, integ=integ,
+                                             tree=pt.tree)
+
+            rgb, agg = counted()
+            bare = plain_k1()
+            entry = {"counters": digest(agg), "rgb": digest(rgb), "rgb_without": digest(bare),
+                     "listed": agg[0].sum().item(), "still": agg[2].sum().item()}
+            for label, fn in (("stats", counted), ("without", plain_k1)):
+                fn()
+                entry[f"{label}_ms"] = [cuda_ms(fn, 10) for _ in range(2)]
+                parts, total = device_ms(fn, 5, ("path_kernel", "stats_sum_kernel"))
+                entry[f"{label}_device_ms"] = parts["path_kernel"]
+                if label == "stats":
+                    entry["sum_device_ms"] = parts["stats_sum_kernel"]
+            out[f"{name}_{integ}"] = entry
+        del pt, scene, rays, ray
+        torch.cuda.empty_cache()
+    return out
+
+
+def b8_timings(dev, hd, pk, builtin):
+    """B8 (``launch_closest_hit``) on the 1080p Cornell camera rays and
+    bounce-2 rays (K1's collect record, 4 bounces, rays passed in) and on
+    hart_soup's 300-, 600- and 1,000-triangle soups' camera rays: CUDA
+    events per call (two runs of 20), device time, and the digest of t and
+    the index; and the device time of ``recover``'s target render, 8
+    frames of the plain path at 1080p x 4 bounces (``render_sample_chw``,
+    32 B8 launches), B8's share apart."""
+    import torch
+
+    from rvpt_tpu_torch import RenderSettings
+    from rvpt_tpu_torch.ops import intersect_pk as ipk
+    from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays, render_sample_chw
+
+    out, inf = {}, float("inf")
+    scene, cam = builtin.cornell_box(aspect=hd.aspect, device=dev)
+    pt = pk.PathTracer(scene)
+    pixel, xs, ys = _pixel_grid(hd, dev)
+    ray = jittered_camera_rays(cam, hd, pixel, xs, ys, 0, 0)
+    rays = tuple(c.contiguous() for c in (*ray.origin.T, *ray.direction.T))
+    _, rec = pk.launch_path_kernel(pt.tables, pt.counts, pixel, hd.num_pixels, 1, 16, 4,
+                                   "standard", rays=rays, collect=True)
+    packed = ipk.pack_triangles(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    cases = {"cornell_camera": (ray.origin.contiguous(), ray.direction.contiguous(), packed),
+             "cornell_bounce2": (rec.fields[1, 0:3].T.contiguous(),
+                                 rec.fields[1, 3:6].T.contiguous(), packed)}
+    del rec
+    for n_tri in (300, 600, 1000):
+        sscene, scam = hart_soup(dev, n_tri, hd)
+        sray = jittered_camera_rays(scam, hd, pixel, xs, ys, 0, 0)
+        cases[f"soup{n_tri}"] = (sray.origin.contiguous(), sray.direction.contiguous(),
+                                 ipk.pack_triangles(sscene.tri_v0, sscene.tri_v1,
+                                                    sscene.tri_v2))
+    for name, (o, d, tri) in cases.items():
+        def b8(o=o, d=d, tri=tri):
+            return ipk.launch_closest_hit(o, d, tri, 0.0, inf)
+
+        t, idx = b8()
+        iters = 20 if tri.shape[0] < 100 else 5
+        parts, _ = device_ms(b8, iters, ("closest_hit_kernel",))
+        out[name] = {"digest": digest(t, idx), "hits": int((idx >= 0).sum().item()),
+                     "ms": [cuda_ms(b8, iters) for _ in range(2)],
+                     "device_ms": parts["closest_hit_kernel"]}
+    st = RenderSettings(max_bounces=4, aa=1, style="standard")
+
+    def target():
+        return sum(render_sample_chw(scene, cam, st, hd, f) for f in range(8)) / 8
+
+    img = target()
+    parts, total = device_ms(target, 2, ("closest_hit_kernel",))
+    out["recover_target"] = {"digest": digest(img), "device_ms": total,
+                             "closest_hit_ms": parts["closest_hit_kernel"]}
+    return out
+
+
+def kernel_record(build):
+    """Per kernel function of path_kernel and closest_hit, as this tree
+    built them: registers and stack (``cuobjdump -res-usage``) and a
+    digest of its SASS without addresses (``cuobjdump -sass``), so two
+    trees' instances compare by name."""
+    import hashlib
+    import re
+
+    from chip_smoke import demangle
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    rec = {}
+    for name in ("path_kernel", "closest_hit"):
+        lib = str(build._lib_path(name))
+        res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                             check=True, timeout=300).stdout
+        usage, cur = {}, None
+        for line in res.splitlines():
+            m = re.search(r"Function (\S+):", line)
+            cur = m.group(1) if m else cur
+            m = re.search(r"REG:(\d+) STACK:(\d+)", line)
+            if m and cur:
+                usage[cur] = (int(m.group(1)), int(m.group(2)))
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        code, cur = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = code.setdefault(m.group(1), [])
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+            if m and cur is not None:
+                cur.append(m.group(1).strip())
+        names = demangle(set(usage) | set(code))
+        for mangled in sorted(set(usage) | set(code)):
+            body = "\n".join(code.get(mangled, []))
+            reg, stack = usage.get(mangled, (None, None))
+            rec[names.get(mangled, mangled)] = {
+                "registers": reg, "stack": stack,
+                "sass": hashlib.sha256(body.encode()).hexdigest()[:16]}
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
@@ -555,7 +729,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     build.build_all(("bigmesh_hart", "replay_lookup", "bigmesh_kernel", "path_kernel",
-                     "primary_kernel", "hart_kernel", "bwd_kernel"))
+                     "primary_kernel", "hart_kernel", "bwd_kernel", "closest_hit"))
     print(f"[ab] {label}: built in {time.perf_counter() - t0:.1f} s")
     rec = {"label": label, "card": smi}
     hd = FilmConfig(1920, 1080)
@@ -579,6 +753,17 @@ def main() -> int:
     print(f"[ab] {label} B4: {json.dumps(rec['b4'])}")
     rec["k2"] = bwd_timings(dev, hd, pk, builtin)
     print(f"[ab] {label} K2: {json.dumps(rec['k2'])}")
+    torch.cuda.empty_cache()
+    rec["stats"] = stats_timings(dev, hd, pk, builtin)
+    for k, v in rec["stats"].items():
+        print(f"[ab] {label} stats {k}: {json.dumps(v)}")
+    torch.cuda.empty_cache()
+    rec["b8"] = b8_timings(dev, hd, pk, builtin)
+    for k, v in rec["b8"].items():
+        print(f"[ab] {label} b8 {k}: {json.dumps(v)}")
+    rec["kernels"] = kernel_record(build)
+    for k, v in rec["kernels"].items():
+        print(f"[ab] {label} kernel {k}: {json.dumps(v)}")
     print(json.dumps(rec))
     return 0
 

@@ -93,9 +93,15 @@
 // search) listed and passed masks, one warp-aggregated atomicOr per word
 // and group of lanes on one word; stats_sum_kernel counts the bits.  The
 // walk reads the winner of no search, so the radiance and records are those
-// of the instances without it, bit for bit.  Its cost: per live lane and
-// search one root and n_clu box tests and 16 triangle tests per passed
-// cluster, all from L2-resident rows.
+// of the instances without it, bit for bit.  Redesigned for Hopper
+// (count_clusters): a block stages the boxes into shared memory after the
+// tables (two float4 per row, read by a warp's lanes in step as
+// broadcasts; 513 rows are 16.4 KB); a triangle is the row search's t-only
+// test on pack_walk's aligned rows, with the t-first reject, and keeps no
+// hit record; and a lane stops its scan once every remaining word of its
+// masks is full (an exact early exit).  Its cost: per live
+// lane and search one root and up to n_clu box tests from shared memory,
+// and up to 16 triangle rows opened per passed cluster from L2.
 //
 // Rounding: every expression keeps the operation order of the JAX kernel
 // and of the plain PyTorch version beside this wrapper
@@ -122,7 +128,6 @@ constexpr int NO_RECORD = 0, FULL_RECORD = 1, HITS_RECORD = 2;
 constexpr int THREADS = 256;
 constexpr int CULL_K = 16;       // pathkernel.CULL_K
 constexpr int CULL_TILE = 8192;  // pathkernel.CULL_TILE (a multiple of 32)
-constexpr int BOX_STRIDE = 8;    // cull_rows: lo xyz, hi xyz, 2 unused
 // The walk's stack form (bvh_walk.cuh, walk's PACKED): two arrays, which
 // ran faster here than the packed entry.
 constexpr bool PACKED_STACK = false;
@@ -149,34 +154,71 @@ __device__ __forceinline__ void or_word(uint32_t* word, uint32_t bits) {
   }
 }
 
-// The culled walk of one search for one lane (_culled_tris :371-470, split
-// by lane): boxes are cull_rows' rows (the root, then n_clu clusters), the
-// masks the (tile, search) words of the listed and passed bits, `seed` the
-// sphere/plane winner's t.
-__device__ void count_clusters(const float* __restrict__ boxes, int n_clu,
-                               const float* __restrict__ tri, int n_tri,
-                               float seed, float ox, float oy, float oz,
-                               float dx, float dy, float dz, float mint,
-                               uint32_t* listed, uint32_t* passed) {
+// Row k of the staged cull_rows boxes (lo xyz, hi xyz, two unused), as a
+// node for the slab test.
+__device__ __forceinline__ bvh::Node box_node(const float4* boxes, int k) {
+  const float4 a = boxes[2 * k], b = boxes[2 * k + 1];
+  return bvh::Node{a.x, a.y, a.z, a.w, b.x, b.y, 0, 0};
+}
+
+// Floats of shared memory before the staged boxes (16-byte aligned) and
+// of the boxes themselves: the counting instances' extra staging.
+__host__ __device__ constexpr int boxes_at(int staged) {
+  return (staged + 3) & ~3;
+}
+
+// The counting walk of one search for one lane (_culled_tris :371-470,
+// split by lane): `boxes` cull_rows' rows staged in shared memory (the
+// root, then n_clu clusters, two float4 each), `rows` pack_walk's triangle
+// rows (leaf order, the clusters' order), the masks the (tile, search)
+// words of the listed and passed bits, `seed` the sphere/plane winner's t.
+//
+// Two facts make it cheaper than a full search and keep every bit the
+// parent's.  The scan reads only the best t: a cluster passes on t0 < ht,
+// and the (t, index) tie rule never changes t, so each triangle is the row
+// search's t-only test (test_tri_row with the t-first reject against ht)
+// and no hit record is kept.  And mask bits are only ever set: a lane
+// first reads its masks' words (L2 loads of the atomics' targets; a bit
+// once seen set stays set) and scans only up to the first word from which
+// every word of both masks is already full (the exact early exit), since
+// nothing it could OR into those words changes them and nothing after the
+// scan reads ht.  A lane reads the boxes in step with its warp's other
+// lanes, so a box row is one shared-memory broadcast.
+__device__ __forceinline__ void count_clusters(
+    const float4* boxes, int n_clu, const float4* __restrict__ rows,
+    int n_tri, float seed, float ox, float oy, float oz, float dx, float dy,
+    float dz, float mint, uint32_t* listed, uint32_t* passed) {
   const bvh::InvDir iv = bvh::inv_dir(dx, dy, dz);
   float t0;
-  if (!bvh::slab(bvh::load_node(boxes, 0), ox, oy, oz, iv, mint, t0)) return;
-  Hit h = miss();
-  h.t = seed;
-  for (int w = 0; w * 32 < n_clu; ++w) {
+  if (!bvh::slab(box_node(boxes, 0), ox, oy, oz, iv, mint, t0)) return;
+  const int words = (n_clu + 31) / 32;
+  int stop = words;  // the scan ends before word `stop`
+  for (; stop > 0; --stop) {
+    const int w = stop - 1;
+    const int hi = min(32, n_clu - 32 * w);
+    const uint32_t all = hi == 32 ? ~0u : (1u << hi) - 1u;
+    if ((__ldcg(listed + w) & __ldcg(passed + w) & all) != all) break;
+  }
+  float ht = seed;
+  for (int w = 0; w < stop; ++w) {
     uint32_t lb = 0u, pb = 0u;
     const int hi = min(32, n_clu - 32 * w);
     for (int k = 0; k < hi; ++k) {
       const int c = 32 * w + k;
-      if (!bvh::slab(bvh::load_node(boxes, 1 + c), ox, oy, oz, iv, mint, t0)) {
+      if (!bvh::slab(box_node(boxes, 1 + c), ox, oy, oz, iv, mint, t0)) {
         continue;
       }
       lb |= 1u << k;
-      if (!(t0 < h.t)) continue;
+      if (!(t0 < ht)) continue;
       pb |= 1u << k;
       const int end = min(CULL_K * (c + 1), n_tri);
       for (int j = CULL_K * c; j < end; ++j) {
-        bvh::test_triangle(tri, j, ox, oy, oz, dx, dy, dz, mint, h);
+        float t;
+        float4 a;
+        if (scene::test_tri_row<true>(rows + walk::ROW * j, ox, oy, oz, dx,
+                                      dy, dz, mint, ht, t, a)) {
+          ht = t;
+        }
       }
     }
     or_word(listed + w, lb);
@@ -200,6 +242,68 @@ __global__ void stats_sum_kernel(const uint32_t* __restrict__ listed,
   out[tile] = (float)nl;
   out[grid + tile] = (float)nl;
   out[2 * grid + tile] = (float)np;
+}
+
+// The counting walk's scan checked against the parent's: for ray i the
+// sphere/plane winner's t, then every cluster in id order (no masks, no
+// exit) by count_clusters' t-only test on pack_walk's rows and by the full
+// bvh::test_triangle on pack_fwd's rows; writes both scans' final t and
+// the number of clusters after which their running t differ in any bit.
+__global__ void __launch_bounds__(THREADS) stats_scan_kernel(
+    const float* __restrict__ tables, int n_tri, int n_sph, int n_pln,
+    int n_mat, const float* __restrict__ walk_rows, int n_clu,
+    const float* __restrict__ boxes, const float* __restrict__ ox_in,
+    const float* __restrict__ oy_in, const float* __restrict__ oz_in,
+    const float* __restrict__ dx_in, const float* __restrict__ dy_in,
+    const float* __restrict__ dz_in, int n, float mint,
+    float* __restrict__ t_ref, float* __restrict__ t_new,
+    int32_t* __restrict__ differ) {
+  extern __shared__ __align__(16) float smem[];
+  const Tables s =
+      stage(smem, nullptr, tables + TRI_STRIDE * n_tri, 0, n_sph, n_pln, n_mat);
+  float4* box_s = reinterpret_cast<float4*>(
+      smem + boxes_at(staged_floats(0, n_sph, n_pln, n_mat)));
+  for (int k = threadIdx.x; k < 2 * (n_clu + 1); k += blockDim.x) {
+    box_s[k] = __ldg(reinterpret_cast<const float4*>(boxes) + k);
+  }
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float ox = ox_in[i], oy = oy_in[i], oz = oz_in[i];
+  const float dx = dx_in[i], dy = dy_in[i], dz = dz_in[i];
+  const float4* rows = reinterpret_cast<const float4*>(walk_rows);
+  Hit h = miss();
+  search_spheres(s, ox, oy, oz, dx, dy, dz, mint, h);
+  search_planes(s, ox, oy, oz, dx, dy, dz, mint, h);
+  float ht = h.t;
+  int bad = 0;
+  const bvh::InvDir iv = bvh::inv_dir(dx, dy, dz);
+  float t0;
+  if (bvh::slab(box_node(box_s, 0), ox, oy, oz, iv, mint, t0)) {
+    for (int c = 0; c < n_clu; ++c) {
+      if (!bvh::slab(box_node(box_s, 1 + c), ox, oy, oz, iv, mint, t0)) {
+        continue;
+      }
+      const bool pass_ref = t0 < h.t, pass_new = t0 < ht;
+      const int end = min(CULL_K * (c + 1), n_tri);
+      for (int j = CULL_K * c; j < end; ++j) {
+        if (pass_ref) {
+          bvh::test_triangle(tables, j, ox, oy, oz, dx, dy, dz, mint, h);
+        }
+        float t;
+        float4 a;
+        if (pass_new &&
+            scene::test_tri_row<true>(rows + walk::ROW * j, ox, oy, oz, dx,
+                                      dy, dz, mint, ht, t, a)) {
+          ht = t;
+        }
+      }
+      bad += pass_ref != pass_new || __float_as_uint(h.t) != __float_as_uint(ht);
+    }
+  }
+  t_ref[i] = h.t;
+  t_new[i] = ht;
+  differ[i] = bad;
 }
 
 template <int INTEG, int COLLECT, bool BVH, bool STATS>
@@ -227,6 +331,16 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
           : stage(smem, cam_in, tables, n_tri, n_sph, n_pln, n_mat);
   const walk::Tree tree =
       BVH ? walk::tree(walk_rows, n_tri, nodes) : walk::Tree{};
+  // The counting instances stage the cluster boxes after the tables.
+  float4* box_s = reinterpret_cast<float4*>(
+      smem + boxes_at(staged_floats(0, n_sph, n_pln, n_mat)));
+  if constexpr (STATS) {
+    const float4* src = reinterpret_cast<const float4*>(boxes);
+    for (int k = threadIdx.x; k < 2 * (n_clu + 1); k += blockDim.x) {
+      box_s[k] = __ldg(src + k);
+    }
+    __syncthreads();
+  }
   const float* cam = smem;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   // Counter slots: bounce b's search, then Whitted's shadow search of
@@ -240,8 +354,8 @@ __global__ void __launch_bounds__(THREADS) path_kernel(
   auto count_search = [&](int slot, float seed, float ox, float oy, float oz,
                           float dx, float dy, float dz) {
     const int64_t base = ((int64_t)(i / CULL_TILE) * slots + slot) * words;
-    count_clusters(boxes, n_clu, tables, n_tri, seed, ox, oy, oz, dx, dy, dz,
-                   mint, st_listed + base, st_passed + base);
+    count_clusters(box_s, n_clu, tree.rows, n_tri, seed, ox, oy, oz, dx, dy,
+                   dz, mint, st_listed + base, st_passed + base);
   };
   auto search = [&](int slot, float ox, float oy, float oz, float dx,
                     float dy, float dz) -> Hit {
@@ -418,8 +532,9 @@ int launch(const float* tables, int n_tri, int n_sph, int n_pln, int n_mat,
            int max_bounces, int standard, int cam_mode, float mint,
            void* stream, int n_clu, const float* boxes, uint32_t* st_listed,
            uint32_t* st_passed) {
+  const int staged = staged_floats(BVH ? 0 : n_tri, n_sph, n_pln, n_mat);
   const size_t smem =
-      sizeof(float) * staged_floats(BVH ? 0 : n_tri, n_sph, n_pln, n_mat);
+      sizeof(float) * (STATS ? boxes_at(staged) + 8 * (n_clu + 1) : staged);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         path_kernel<INTEG, COLLECT, BVH, STATS>,
@@ -519,6 +634,31 @@ int rvpt_path_stats_sum(const uint32_t* listed, const uint32_t* passed,
   stats_sum_kernel<<<(grid + THREADS - 1) / THREADS, THREADS, 0,
                      (cudaStream_t)stream>>>(listed, passed, grid, per_tile,
                                              out);
+  return (int)cudaGetLastError();
+}
+
+// stats_scan_kernel on n rays passed in (tables as the BVH form's,
+// walk_rows pack_walk's, boxes cull_rows'); returns cudaGetLastError().
+int rvpt_stats_scan(const float* tables, int n_tri, int n_sph, int n_pln,
+                    int n_mat, const float* walk_rows, int n_clu,
+                    const float* boxes, const float* ox, const float* oy,
+                    const float* oz, const float* dx, const float* dy,
+                    const float* dz, int n, float mint, float* t_ref,
+                    float* t_new, int32_t* differ, void* stream) {
+  if (n <= 0) return 0;
+  const size_t smem =
+      sizeof(float) * (boxes_at(staged_floats(0, n_sph, n_pln, n_mat)) +
+                       8 * (n_clu + 1));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stats_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  stats_scan_kernel<<<(n + THREADS - 1) / THREADS, THREADS, smem,
+                      (cudaStream_t)stream>>>(
+      tables, n_tri, n_sph, n_pln, n_mat, walk_rows, n_clu, boxes, ox, oy, oz,
+      dx, dy, dz, n, mint, t_ref, t_new, differ);
   return (int)cudaGetLastError();
 }
 

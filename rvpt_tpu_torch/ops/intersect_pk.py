@@ -3,7 +3,8 @@
 ``rvpt_tpu/ops/intersect_pk.py`` fuses the pairwise ray/triangle test and
 its min-reduction into one Pallas kernel (closest_hit_pallas :174).  Here
 the same function is ``csrc/closest_hit.cu``, hand-written CUDA for Hopper:
-one thread per ray over triangle rows staged in shared memory.  Its plain
+one thread per ray over triangle rows staged in shared memory as four
+aligned float4, with a t-first reject.  Its plain
 version is ``ops.intersect.closest_hit_triangles``; ``closest_hit_scene``
 launches this kernel for rays on the card and takes the plain version for
 rays on the CPU.
@@ -62,6 +63,9 @@ def launch_closest_hit(origin, direction, packed, mint, maxt):
     check_cuda(packed, torch.float32, "packed triangles", device=dev)
     if packed.dim() != 2 or packed.shape[1] != len(FIELDS):
         raise ValueError(f"packed triangles: need [T, 16], got {tuple(packed.shape)}")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed triangles: the kernel loads 16-byte rows, need a "
+                         "16-byte aligned tensor")
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     idx = torch.empty((n,), dtype=torch.int64, device=dev)
     lib = _lib()
@@ -75,3 +79,4 @@ def launch_closest_hit(origin, direction, packed, mint, maxt):
 
 
 launch_closest_hit.launches = 0
+

@@ -1276,6 +1276,10 @@ def _path_lib():
         lib.rvpt_max_table_floats.restype = i32
         lib.rvpt_row_reject.argtypes = [i32]
         lib.rvpt_row_reject.restype = i32
+        lib.rvpt_stats_scan.argtypes = [ptr, i32, i32, i32, i32, ptr, i32, ptr,
+                                        *[ptr] * 6, i32, ctypes.c_float, ptr, ptr,
+                                        ptr, ptr]
+        lib.rvpt_stats_scan.restype = i32
         lib._rvpt_bound = True
     return lib
 
@@ -1410,6 +1414,8 @@ def _launch_path(tables, counts, pix, n, frame, salt_base, max_bounces, style,
             raise ValueError("the stats counters need the BVH form")
         n_clu = cull.shape[0] - 1
         check_cuda(cull, torch.float32, "cluster boxes", 8 * (n_clu + 1), dev)
+        if cull.data_ptr() % 16:
+            raise ValueError("cluster boxes: need a 16-byte aligned buffer")
         if not 0 < n_clu <= CULL_MAX_TRIS // CULL_K:
             raise ValueError(f"{n_clu} clusters: the culled form takes 1.."
                              f"{CULL_MAX_TRIS // CULL_K}")
@@ -1479,6 +1485,38 @@ def launch_path_stats(tables, counts, tree, cull, pix, n, frame, salt_base,
 
 
 launch_path_stats.launches = 0
+
+
+def stats_scan(tables, counts, tree, cull, rays, mint=0.0):
+    """The counting instances' cluster scan checked on the card against the
+    parent's: for each ray (six f32[N], rays passed in) the sphere/plane
+    winner's t, then every cluster of ``cull`` (``cull_rows``) in id order,
+    by the t-only test on ``tree``'s rows and by the full triangle test
+    (``bvh::test_triangle``) on ``pack_fwd``'s -> (t f32[N] of each scan,
+    int32[N] clusters after which they differ: 0 where the two agree).  A
+    check, on no path; counts its launches in ``stats_scan.launches``."""
+    t, s, p, nm = counts
+    dev = tables.device
+    lib = _tree_lib(_path_lib, tables, counts, tree)
+    n = rays[0].numel()
+    for k, c in enumerate(rays):
+        check_cuda(c, torch.float32, f"ray component {k}", n, dev)
+    n_clu = cull.shape[0] - 1
+    check_cuda(cull, torch.float32, "cluster boxes", 8 * (n_clu + 1), dev)
+    t_ref = torch.empty((n,), dtype=torch.float32, device=dev)
+    t_new = torch.empty_like(t_ref)
+    differ = torch.empty((n,), dtype=torch.int32, device=dev)
+    err = lib.rvpt_stats_scan(
+        tables.data_ptr(), t, s, p, nm, tree.rows.data_ptr(), n_clu,
+        cull.data_ptr(), *(c.data_ptr() for c in rays), n, float(mint),
+        t_ref.data_ptr(), t_new.data_ptr(), differ.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, err, "stats scan")
+    stats_scan.launches += 1
+    return t_ref, t_new, differ
+
+
+stats_scan.launches = 0
 launch_path_kernel.launches = 0
 
 

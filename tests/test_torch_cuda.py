@@ -7,7 +7,8 @@ redesigned walk of K1 and B3 against B5's binary walk, on mesh_demo(3),
 rabbit and a soup with a sphere and a plane), the redesigned walk's
 counting instance against the binary walk's, B5
 bigmesh_kernel with its collect instance, B6 bigmesh_hart, B7
-replay_lookup's gather and segment sum, K1's stats counting instance)
+replay_lookup's gather and segment sum, K1's stats counting instance and
+its cluster scan against the parent's full triangle test)
 against their plain PyTorch versions, and the CLI, on the card.  Every
 test here needs an NVIDIA card and skips without one.  This file imports
 no JAX, so it also runs on a machine without it:
@@ -408,6 +409,83 @@ def test_closest_hit_matches_plain(dev, bounced):
     assert same.float().mean().item() >= 0.999
     assert (widx >= 0).float().mean().item() > 0.05
     torch.testing.assert_close(t[same], wt[same], rtol=1e-5, atol=0.0)
+
+
+def _b8_edge_case(case, dev):
+    """(o, d, v0, v1, v2, mint, maxt) of one of B8's edge cases (the inputs
+    of tests/test_torch_edges_b8_stats.py, made here from numpy): duplicate
+    triangles (every hit a tie), mint at a hit's t, rays parallel to the
+    triangles' planes (dn == 0), a finite maxt, 512 triangles (one chunk)
+    and 513 (one row past it, that row the nearest for some rays)."""
+    import numpy as np
+
+    from rvpt_tpu_torch.ops import intersect as tint
+
+    def soup(n, seed):
+        r = np.random.default_rng(seed)
+        c = r.uniform(-2, 2, (n, 3)).astype(np.float32)
+        c[:, 2] += 4.0
+        size = 2.0 * np.sqrt(12.0 / n)
+        return [c, c + r.normal(0, size, (n, 3)).astype(np.float32),
+                c + r.normal(0, size, (n, 3)).astype(np.float32)]
+
+    r = np.random.default_rng(1)
+    o = r.uniform(-0.5, 0.5, (65536, 3)).astype(np.float32)
+    d = r.normal(size=(65536, 3)).astype(np.float32)
+    d[:, 2] = np.abs(d[:, 2]) + 0.5
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    vs = soup(128, 3)
+    mint, maxt = 0.0, float("inf")
+    if case == "ties":
+        vs = [np.concatenate([v[:64], v[:64]]) for v in vs]
+    elif case == "parallel":
+        z = np.round(vs[0][:, 2])
+        for v in vs:
+            v[:, 2] = z
+        d[: d.shape[0] // 2, 2] = 0.0
+    elif case == "maxt":
+        maxt = 4.0
+    elif case in ("rows512", "rows513"):
+        vs = soup(512, 5)
+        if case == "rows513":
+            near = np.array([[-3.0, -3.0, 1.0], [3.0, -3.0, 1.0], [0.0, 0.5, 1.0]],
+                            dtype=np.float32)
+            vs = [np.concatenate([v, near[k][None]]) for k, v in enumerate(vs)]
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    vs = [torch.from_numpy(v).to(dev) for v in vs]
+    if case == "at_mint":
+        t, i = tint.closest_hit_triangles(o, d, *vs, 0.0, maxt)
+        mint = float(t[i >= 0][0].item())
+    return (o, d, *vs, mint, maxt)
+
+
+@pytest.mark.parametrize("case", ["ties", "at_mint", "parallel", "maxt", "rows512",
+                                  "rows513"])
+def test_closest_hit_edges_match_plain(dev, case):
+    """B8 (float4 rows, the t-first reject, one stage for a table of up to
+    512 rows) against closest_hit_triangles on its edge inputs: the index
+    equal on every ray on ties and at the chunk edge, the bar of
+    test_closest_hit_matches_plain elsewhere; t and the index of a miss."""
+    from rvpt_tpu_torch.ops import intersect as tint
+    from rvpt_tpu_torch.ops import intersect_pk as tipk
+
+    o, d, v0, v1, v2, mint, maxt = _b8_edge_case(case, dev)
+    t, idx = tipk.launch_closest_hit(o, d, tipk.pack_triangles(v0, v1, v2), mint, maxt)
+    wt, widx = tint.closest_hit_triangles(o, d, v0, v1, v2, mint, maxt)
+    torch.cuda.synchronize()
+    same = idx == widx
+    if case in ("ties", "rows512", "rows513"):
+        assert torch.equal(idx, widx)
+    else:
+        assert same.float().mean().item() >= 0.999
+    assert (widx >= 0).any()
+    torch.testing.assert_close(t[same], wt[same], rtol=1e-5, atol=0.0)
+    assert bool(torch.isinf(t[idx < 0]).all()) and bool((t[idx >= 0] > mint).all())
+    assert bool((t[idx >= 0] < maxt).all())
+    if case == "ties":
+        assert bool((idx < 64).all())
+    if case == "rows513":
+        assert int((idx == 512).sum().item()) > 0
 
 
 def test_cuda_scene_never_reaches_a_plain_version(dev, monkeypatch):
@@ -1669,7 +1747,7 @@ def test_mesh_step_never_reaches_a_plain_version(dev, monkeypatch):
 
 
 @pytest.mark.parametrize("integ", ["kajiya", "whitted", "cook"])
-@pytest.mark.parametrize("name", ["mesh_demo3", "soup"])
+@pytest.mark.parametrize("name", ["mesh_demo3", "soup", "soup1000"])
 def test_stats_instance_matches_plain(dev, name, integ):
     """K1's counting instance (PathTracer.trace(stats=True)) on a film of
     one whole and one partial 8,192-ray tile, camera rays made in the
@@ -1680,8 +1758,8 @@ def test_stats_instance_matches_plain(dev, name, integ):
     from rvpt_tpu_torch.utils import debug
 
     cfg = FilmConfig(width=256, height=40)
-    if name == "soup":
-        scene, cam = _mixed_soup(600, dev)
+    if name.startswith("soup"):
+        scene, cam = _mixed_soup(1000 if name == "soup1000" else 600, dev)
     else:
         scene, cam = builtin.mesh_demo(3, aspect=cfg.aspect, device=dev)
     pt = tpk.PathTracer(scene)
@@ -1709,6 +1787,42 @@ def test_stats_instance_matches_plain(dev, name, integ):
         assert all(torch.equal(a, b) for a, b in zip(rgb2, rgb))
         assert torch.equal(rec.fields, rec0.fields) and torch.equal(rec.hits, rec0.hits)
         assert torch.equal(torch.stack(agg2), got)
+
+
+@pytest.mark.parametrize("name", ["mesh_demo3", "soup1000"])
+def test_stats_scan_matches_the_full_test(dev, name):
+    """The counting walk's t-only triangle test against the parent's full
+    bvh::test_triangle (``stats_scan``, a small launch that runs both scans
+    over every cluster): on the rays of every search of a Kajiya, Whitted
+    and Cook trace (the plain version's on_search hook, 6 bounces), the
+    running best t agrees in every bit after every cluster, and so does
+    every passed-or-not decision."""
+    cfg = FilmConfig(width=256, height=40)
+    if name == "soup1000":
+        scene, cam = _mixed_soup(1000, dev)
+    else:
+        scene, cam = builtin.mesh_demo(3, aspect=cfg.aspect, device=dev)
+    pt = tpk.PathTracer(scene)
+    searches = []
+
+    def hook(o3, d3, live=None):
+        lanes = (torch.arange(o3[0].numel(), device=dev) if live is None
+                 else torch.nonzero(live).squeeze(1))
+        searches.append(tuple(c[lanes].contiguous() for c in (*o3, *d3)))
+
+    for integ in ("kajiya", "whitted", "cook"):
+        tpk.trace_plain(pt.tables, pt.counts, torch.arange(cfg.num_pixels, device=dev), 2,
+                        16, 6, "standard", cam_params=tpk.camera_params(cam, cfg),
+                        cam_mode=cam.mode, integ=integ, tris_last=True, on_search=hook)
+    before = tpk.stats_scan.launches
+    rays = [torch.cat([s[k] for s in searches]) for k in range(6)]
+    t_ref, t_new, differ = tpk.stats_scan(pt.tables, pt.counts, pt.tree, pt.cull, rays)
+    torch.cuda.synchronize()
+    assert tpk.stats_scan.launches == before + 1
+    assert rays[0].numel() > cfg.num_pixels
+    assert int(differ.sum().item()) == 0
+    assert torch.equal(t_ref.view(torch.int32), t_new.view(torch.int32))
+    assert bool((t_ref < 3e38).any())
 
 
 def test_cli_renders_on_the_card_by_default(dev, tmp_path):
