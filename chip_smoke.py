@@ -194,7 +194,28 @@ Phases, each of which raises on failure:
    run from --stats, every PNG of the right shape and not black;
 24. the viewer, headless: Viewer(Renderer, backend=callable) x32 steps on
    the 1080p Cornell box, a scripted W press at step 16 moves the camera
-   and accumulation restarts (film.frame back to 1); ms/step.
+   and accumulation restarts (film.frame back to 1); ms/step;
+25. this slice's main path, the sharded path (parallel/): (a) world 1
+   under NCCL in this process (initialize_distributed on a free localhost
+   port, make_mesh(1, 1)): Renderer(mesh=...) x16 of the 1080p Cornell
+   Kajiya frame with the counts zeroed before it and read after it (K1
+   exactly 16), its film phase 5's bit for bit; a split frame (AO,
+   Whitted, Hart, Kajiya) and a mesh_demo(5) Kajiya frame at 1080p x 8
+   through render_sample_sharded_fast, and one make_train_step(mesh=...)
+   step at 1080p, each bit for bit its unsharded counterpart and timed
+   beside it (CUDA events); the collectives' time per frame and per step;
+   (b) world 2 on the one card: two spawned processes under gloo on
+   cuda:0 (parallel.dryrun.parity_job): a (2, 1) mesh's 1080p Cornell
+   Kajiya sample bit for bit the unsharded one, a (1, 2) mesh's within
+   atol 1e-6 of the two salt streams' mean, a (2, 1) fast train step's
+   parameters equal on both ranks and within rtol 1e-5 of the unsharded
+   step's, each rank's K1 launches; the process group destroyed after;
+26. the examples (rvpt_tpu_torch/examples) at the JAX examples' sizes:
+   inverse_rendering, geometry_recovery and camera_pose_recovery in this
+   process (the mean albedo and emission errors and the radius error below
+   their start; the pose within 5e-3),
+   multihost_render as two `python -m` processes under gloo on the card,
+   its PNG the single-process render's bit for bit.
 
 Prints the kernel record as a JSON line (launches of the main paths:
 the trainer for K1, K2 and B8, the split-screen draws for B3 and B4, the
@@ -204,8 +225,9 @@ fwd+bwd step for B7 and K1's hits-only collect instance, the rabbit step
 for K1's BVH-form records, the stats traces of phase 22 for the counting
 instance; B5, on no main path, with the launches of its own checks in
 phases 15 and 18; times, bounds and errors of this run; every K1 and B3
-BVH-form row says what its walk's redesign is), a JSON line of
-the CLI runs and the viewer, the
+BVH-form row says what its walk's redesign is; K1's launches in the
+sharded draws of phase 25), a JSON line of the CLI runs and the viewer,
+a JSON line of phases 25 and 26, the
 card's name and power limit, then, last, one JSON line {"ok": true,
 "device": {...}}.
 """
@@ -3449,6 +3471,272 @@ def cli_phases(smi, dev, out_dir):
     return out
 
 
+def sharded_phase(smi, dev, out_dir, film5):
+    """Phase 25: the sharded path (``parallel/``).  (a) World 1 under NCCL in
+    this process: ``Renderer(mesh=...)`` x16 of the 1080p Cornell Kajiya
+    frame (its film phase 5's bit for bit, K1's count up by exactly 16), a
+    split frame (AO, Whitted, Hart, Kajiya), a mesh_demo(5) Kajiya frame at
+    1080p x 8 and one ``make_train_step(mesh=...)`` step, each bit for bit
+    its unsharded counterpart and timed beside it (CUDA events), and the
+    collectives' time per frame and per step.  (b) World 2 on the one card:
+    two spawned processes under gloo, both on cuda:0
+    (``parallel.dryrun.parity_job``): a (2, 1) mesh's Cornell Kajiya sample
+    bit for bit the unsharded one, a (1, 2) mesh's the mean of the two salt
+    streams within atol 1e-6, and a (2, 1) fast train step equal on both
+    ranks and within rtol 1e-5 of the unsharded step; each rank's K1
+    launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rvpt_tpu_torch import FilmConfig, RenderSettings
+    from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.parallel import dryrun
+    from rvpt_tpu_torch.parallel import sharded as sh
+    from rvpt_tpu_torch.parallel.distributed import initialize_distributed
+    from rvpt_tpu_torch.parallel.mesh import SPP_AXIS, TILE_AXIS, make_mesh
+    from rvpt_tpu_torch.render import make_tracer, render_sample_fast_chw
+    from rvpt_tpu_torch.renderer import Renderer
+    from rvpt_tpu_torch.scene import builtin
+    from rvpt_tpu_torch.train import inverse
+
+    t_phase = time.perf_counter()
+    rec = {}
+    cfg = FilmConfig(1920, 1080)
+    n = cfg.num_pixels
+    st = RenderSettings(max_bounces=4, style="standard")
+    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+
+    # ---- (a) world 1, NCCL
+    initialize_distributed(f"127.0.0.1:{dryrun.free_port()}", 1, 0)
+    check(dist.get_backend() == "nccl", f"world 1 runs {dist.get_backend()}, not NCCL")
+    mesh = make_mesh(1, 1)
+
+    def draws(m):
+        r = Renderer(scene, cam, st, cfg, mesh=m)
+        r.draw()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(15):
+            r.draw()
+        stop.record()
+        r.flush()
+        stop.synchronize()
+        return r, start.elapsed_time(stop) / 15
+
+    plain_r, plain_ms = draws(None)
+    pk.launch_path_kernel.launches = 0
+    sharded_r, sharded_ms = draws(mesh)
+    launches = pk.launch_path_kernel.launches
+    check(launches == 16, f"K1 launched {launches} times in 16 sharded draws")
+    check(sharded_r.film.frame == 16, f"sharded film at frame {sharded_r.film.frame}")
+    check(torch.equal(sharded_r.film.accum, film5),
+          "the sharded film is not phase 5's film bit for bit")
+    check(torch.equal(plain_r.film.accum, film5), "the unsharded film is not phase 5's")
+    rec["draw"] = {"ms": sharded_ms, "unsharded_ms": plain_ms, "launches": launches}
+    print(f"[sharded] world 1 (NCCL, (1, 1) mesh): Renderer.draw x16, 1080p Cornell "
+          f"Kajiya: film bit for bit phase 5's, K1 launches {launches}; "
+          f"{sharded_ms:.4f} ms/frame (CUDA events over 15) against unsharded "
+          f"{plain_ms:.4f} [{smi}]")
+    del plain_r, sharded_r
+
+    def frame_pair(label, scene_, cam_, st_, iters):
+        tracer = make_tracer(scene_)
+        cp = None if pk.is_bigmesh(scene_) else pk.camera_params(cam_, cfg)
+        got = sh.render_sample_sharded_fast(scene_, cam_, st_, cfg, 0, mesh, tracer, cp)
+        want = render_sample_fast_chw(scene_, cam_, st_, cfg, 0, tracer, cp)
+        check(torch.equal(got, want), f"sharded {label} frame is not the unsharded one")
+        ms = cuda_ms(lambda: sh.render_sample_sharded_fast(
+            scene_, cam_, st_, cfg, 0, mesh, tracer, cp), iters)
+        plain = cuda_ms(lambda: render_sample_fast_chw(
+            scene_, cam_, st_, cfg, 0, tracer, cp), iters)
+        rec[label] = {"ms": ms, "unsharded_ms": plain}
+        print(f"[sharded] world 1: {label} sample bit for bit the unsharded one; "
+              f"{ms:.4f} ms against {plain:.4f} (CUDA events over {iters}) [{smi}]")
+
+    split = st.replace(top_left_render_mode=5, top_right_render_mode=7,
+                       bottom_left_render_mode=10, bottom_right_render_mode=9)
+    frame_pair("split", scene, cam, split, 10)
+    mscene, mcam = builtin.mesh_demo(subdiv=5, aspect=cfg.aspect, device=dev)
+    frame_pair("mesh_demo(5) kajiya x8", mscene, mcam,
+               RenderSettings(max_bounces=8, style="standard"), 5)
+    del mscene, mcam
+
+    target = film5
+    init = inverse.apply_params(scene, {
+        "materials.albedo": torch.full_like(scene.materials.albedo, 0.5),
+        "materials.emission": scene.materials.emission * 0.25})
+    steps = {}
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        step, opt = inverse.make_train_step(init, cam, st, cfg, m, target,
+                                            learning_rate=3e-2)
+        params, opt, loss = step(inverse.trainable_params(init), opt, 0)
+        first = {k: v.detach().clone() for k, v in params.items()}
+        ms = cuda_ms(lambda: step(params, opt, 1), 5)
+        steps[label] = (first, float(loss), ms)
+    for k in steps["unsharded"][0]:
+        check(torch.equal(steps["sharded"][0][k], steps["unsharded"][0][k]),
+              f"sharded step's {k} is not the unsharded step's")
+    rec["step"] = {"ms": steps["sharded"][2], "unsharded_ms": steps["unsharded"][2],
+                   "loss": steps["sharded"][1], "unsharded_loss": steps["unsharded"][1]}
+    print(f"[sharded] world 1: make_train_step(mesh=...) at 1080p: parameters bit for "
+          f"bit the unsharded step's (loss {steps['sharded'][1]:.6f} against "
+          f"{steps['unsharded'][1]:.6f}); {steps['sharded'][2]:.4f} ms/step against "
+          f"{steps['unsharded'][2]:.4f} (CUDA events over 5) [{smi}]")
+
+    # The path's collectives per frame and per step: none at world 1 (an
+    # axis of one rank runs none); beside them what one NCCL all_reduce and
+    # one list all_gather of the film cost on this group of one, checked.
+    frame_coll, step_coll = dryrun.collectives_ms(mesh, n, dev, reps=20)
+    x = torch.rand((3, n), device=dev)
+    y, parts = x.clone(), [torch.empty_like(x)]
+
+    def nccl_pair():
+        dist.all_reduce(y, group=mesh.get_group(SPP_AXIS))
+        dist.all_gather(parts, x, group=mesh.get_group(TILE_AXIS))
+
+    pair_ms = cuda_ms(nccl_pair, 20)
+    check(torch.equal(y, x) and torch.equal(parts[0], x),
+          "NCCL's all_reduce or all_gather over one rank changed the film")
+    rec["collectives_ms"] = {"frame": frame_coll, "step": step_coll,
+                             "nccl_all_reduce_and_all_gather_of_the_film": pair_ms}
+    print(f"[sharded] world 1: the path's collectives {frame_coll:.4f} ms per frame, "
+          f"{step_coll:.4f} ms per step (none run; host clock over 20); one NCCL "
+          f"all_reduce + all_gather of the 1080p film on this group: {pair_ms:.4f} ms "
+          f"(CUDA events over 20) [{smi}]")
+    dist.destroy_process_group()
+
+    # ---- (b) world 2 on the one card, gloo
+    job_dir = os.path.join(out_dir, "sharded_job")
+    cases = [("fast_9_cornell", (2, 1), (1920, 1080)),
+             ("fast_9_cornell", (1, 2), (1920, 1080)),
+             ("train_fast_cornell", (2, 1), (1920, 1080)),
+             ("collectives", (2, 1), (1920, 1080)),
+             ("collectives", (1, 2), (1920, 1080))]
+    t0 = time.perf_counter()
+    dryrun.spawn(dryrun.parity_job, 2, args=(job_dir, cases, "cuda", "gloo", 4),
+                 timeout=300)
+    job_s = time.perf_counter() - t0
+    ranks = [dict(np.load(os.path.join(job_dir, f"rank{r}.npz"))) for r in range(2)]
+
+    def key(name, shape):
+        return f"{name}@{shape[0]}x{shape[1]}@1920x1080"
+
+    k21, k12 = key("fast_9_cornell", (2, 1)), key("fast_9_cornell", (1, 2))
+    for k in (k21, k12):
+        check(np.array_equal(ranks[0][f"{k}.got.image"], ranks[1][f"{k}.got.image"]),
+              f"{k}: the ranks' images differ")
+    check(np.array_equal(ranks[0][f"{k21}.got.image"], ranks[0][f"{k21}.want.image"]),
+          "the (2, 1) mesh's sample is not the unsharded one bit for bit")
+    spp_err = float(np.abs(ranks[0][f"{k12}.got.image"]
+                           - ranks[0][f"{k12}.want.image"]).max())
+    check(spp_err <= 1e-6, f"the (1, 2) mesh's sample is {spp_err} off the salt streams' mean")
+    kt = key("train_fast_cornell", (2, 1))
+    train_err = 0.0
+    for leaf in ("materials.albedo", "materials.emission"):
+        got = ranks[0][f"{kt}.got.{leaf}"]
+        check(np.array_equal(got, ranks[1][f"{kt}.got.{leaf}"]),
+              f"the ranks' {leaf} differ after the sharded step")
+        want = ranks[0][f"{kt}.want.{leaf}"]
+        check(np.allclose(got, want, rtol=1e-5, atol=0),
+              f"the sharded step's {leaf} is off the unsharded step's")
+        train_err = max(train_err, float((np.abs(got - want) / np.abs(want)).max()))
+    k1 = {k: [int(ranks[r][f"{k}.got.k1_launches"]) for r in range(2)] for k in (k21, k12)}
+    check(all(v == [1, 1] for v in k1.values()), f"K1 launches per rank {k1}")
+    coll = {f"{shape[0]}x{shape[1]}": {
+        part: [float(ranks[r][f"{key('collectives', shape)}.got.{part}_ms"]) for r in range(2)]
+        for part in ("frame", "step")} for shape in ((2, 1), (1, 2))}
+    rec["world2"] = {"seconds": job_s, "k1_launches": k1, "spp_max_abs_err": spp_err,
+                     "train_max_rel_err": train_err, "collectives_ms": coll,
+                     "rank_seconds": {k: [float(ranks[r][f"{k}.got.seconds"])
+                                          for r in range(2)] for k in (k21, k12, kt)}}
+    print(f"[sharded] world 2 (gloo, both ranks on cuda:0), {job_s:.1f} s: (2, 1) "
+          f"Cornell Kajiya sample bit for bit the unsharded one, each rank one K1 "
+          f"launch on half the pixels ({k1[k21]}); (1, 2) the salt streams' mean within "
+          f"{spp_err:.3g} (bar 1e-6), K1 {k1[k12]}; (2, 1) fast train step equal on both "
+          f"ranks, {train_err:.3g} relative off the unsharded step (bar 1e-5); the "
+          f"collectives per rank, ms per frame and per step (host clock) {coll}; case "
+          f"seconds per rank {rec['world2']['rank_seconds']} [{smi}]")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[sharded] phase 25 in {rec['seconds']:.1f} s")
+    return rec
+
+
+def examples_phase(smi, dev, out_dir):
+    """Phase 26: the trainer's and the distributed flow's examples at the
+    JAX examples' sizes: inverse_rendering (96x96, 400 steps),
+    geometry_recovery (48x48, 120), camera_pose_recovery (64x64, 300) in
+    this process, and multihost_render (256x128, 8 frames) as two
+    ``python -m`` processes under gloo on the one card, whose PNG must be
+    the single-process render's bit for bit."""
+    import contextlib
+    import io
+
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig, RenderSettings
+    from rvpt_tpu_torch.examples import (camera_pose_recovery, geometry_recovery,
+                                         inverse_rendering)
+    from rvpt_tpu_torch.parallel.dryrun import free_port
+    from rvpt_tpu_torch.render import _pixel_grid, render_pixels
+    from rvpt_tpu_torch.scene import builtin
+    from rvpt_tpu_torch.utils.image import read_png, write_png
+
+    rec = {}
+    for name, mod, argv in (
+            ("inverse_rendering", inverse_rendering, ["--out-dir", out_dir]),
+            ("geometry_recovery", geometry_recovery, []),
+            ("camera_pose_recovery", camera_pose_recovery, [])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            err = mod.main(argv)
+        rec[name] = {"error": err, "seconds": time.perf_counter() - t0,
+                     "last_line": log.getvalue().strip().splitlines()[-1]}
+        print(f"[examples] {name} at its JAX size: {rec[name]['last_line']} "
+              f"({rec[name]['seconds']:.1f} s) [{smi}]")
+    inv = rec["inverse_rendering"]["error"]
+    for k in ("albedo", "emission"):
+        check(inv[f"{k}_mean"] < inv[f"{k}_mean_start"],
+              f"inverse_rendering's mean {k} error did not fall: {inv}")
+    check(rec["geometry_recovery"]["error"] < 0.3,
+          f"geometry_recovery's radius error {rec['geometry_recovery']['error']}")
+    check(rec["camera_pose_recovery"]["error"] < 5e-3, "camera pose not recovered")
+
+    png = os.path.join(out_dir, "multihost.png")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "rvpt_tpu_torch.examples.multihost_render",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(r), "--backend", "gloo", "--out", png],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, o in zip(procs, outs):
+        check(p.returncode == 0, f"multihost_render failed:\n{o}")
+    cfg = FilmConfig(256, 128)
+    scene, cam = builtin.cornell_box(aspect=cfg.aspect, device=dev)
+    pixel, xs, ys = _pixel_grid(cfg, dev)
+    acc = torch.zeros((cfg.num_pixels, 3), device=dev)
+    for f in range(8):
+        acc = (acc * f + render_pixels(scene, cam, RenderSettings(max_bounces=4), cfg, f,
+                                       pixel, xs, ys)) / (f + 1)
+    want = os.path.join(out_dir, "multihost_single.png")
+    write_png(want, acc.cpu().numpy().reshape(128, 256, 3))
+    check((read_png(png) == read_png(want)).all(),
+          "multihost_render's PNG is not the single-process render's")
+    rec["multihost_render"] = {"seconds": time.perf_counter() - t0}
+    print(f"[examples] multihost_render, 2 ranks (gloo, cuda:0), 256x128 x 8 frames: "
+          f"PNG bit for bit the single-process render's "
+          f"({rec['multihost_render']['seconds']:.1f} s)")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3604,6 +3892,7 @@ def main() -> int:
     launches = pk.launch_path_kernel.launches
     check(launches == 16, f"path kernel launched {launches} times in 16 draws")
     accum = r.film.accum
+    film5 = accum.clone()  # phase 25's sharded draws must reproduce it
     check(r.film.frame == 16, f"film accumulated {r.film.frame} frames, not 16")
     check(bool(torch.isfinite(accum).all().item()), "film has non-finite values")
     check(accum.mean().item() > 0.01, "film is black")
@@ -3644,6 +3933,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     stats = stats_phase(smi, dev)
     app = cli_phases(smi, dev, out_dir)
+    sharded = sharded_phase(smi, dev, out_dir, film5)
+    examples = examples_phase(smi, dev, out_dir)
 
     # B5's launches on the main paths, each run's counts zeroed before it.
     b5_draws = mesh["launches"]["bigmesh_kernel"] + app["launches"].get("bigmesh_kernel", 0)
@@ -3658,6 +3949,7 @@ def main() -> int:
         "replaces": "rvpt_tpu/ops/pathkernel.py:1115",
         "launches": train["launches"]["path_kernel"],
         "launches_display": display_launches,
+        "launches_sharded": sharded["draw"]["launches"],
         "launches_split": split["path_kernel"],
         "max_abs_err": max_err, "within_1e-4": close,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
@@ -3818,6 +4110,7 @@ def main() -> int:
     print(json.dumps({"mesh_steps": steps, "mesh_train": grad["train"]}))
     print(json.dumps({"cli": app["runs"], "cli_launches": app["launches"],
                       "viewer": app["viewer"]}))
+    print(json.dumps({"sharded": sharded, "examples": examples}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

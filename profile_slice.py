@@ -4,7 +4,7 @@ training step.
     python3 profile_slice.py [--fwd-bwd] [--width 1920] [--height 1080]
                              [--bounces 4] [--frames 20] [--repeats 3]
                              [--scene cornell|rabbit|mesh3|mesh5|terrain]
-                             [--mode 9]
+                             [--mode 9] [--mesh]
 
 Default mode drives ``Renderer.draw`` (style standard) of ``--scene`` (the
 Cornell box by default; rabbit, mesh_demo(3), mesh_demo(5) or
@@ -17,7 +17,11 @@ rays, K1 with records, K2 and its table sum, and the autograd glue.  On a
 mesh it is the mesh step of bench.py:125-160 (chip_smoke.py phase 19) over
 albedo, emission and the vertices: on a big mesh K1's hits-only collect
 instance (one launch), then the SoA replay with the B7 gather and segment
-sum; on rabbit K1's BVH form with records, then K2.  Prints:
+sum; on rabbit K1's BVH form with records, then K2.  ``--mesh`` draws
+the display frame through ``Renderer(mesh=...)`` on a world of one under
+NCCL (``parallel.distributed.initialize_distributed`` on a free localhost
+port, ``parallel.mesh.make_mesh(1, 1)``): the sharded path's collectives
+show as the ``nccl`` part.  Prints:
 
 * wall ms per frame or step without the profiler, timed with CUDA events
   over ``--frames`` iterations, ``--repeats`` times;
@@ -30,7 +34,9 @@ sum; on rabbit K1's BVH form with records, then K2.  Prints:
   operations and host-to-device copies per iteration by name, the device's
   idle share of the traced window (1 - union of device intervals /
   window), and an estimate of the idle share without the profiler (1 -
-  device time / unprofiled wall time).
+  device time / unprofiled wall time);
+* the host's CUDA runtime calls per iteration that can wait on the device
+  or allocate (names holding Synchronize, Malloc, Free or Memcpy).
 
 The last line is one JSON object with every number.  The trace is written
 to out/profile_slice_trace.json (out/profile_fwd_bwd_trace.json with
@@ -80,13 +86,23 @@ def _display(a, dev):
              "bottom_left_render_mode", "bottom_right_render_mode")
     st = RenderSettings(max_bounces=a.bounces, style="standard",
                         **dict.fromkeys(quads, a.mode))
-    r = Renderer(scene, cam, st, cfg)
+    mesh = None
+    if a.mesh:
+        from rvpt_tpu_torch.parallel.distributed import initialize_distributed
+        from rvpt_tpu_torch.parallel.dryrun import free_port
+        from rvpt_tpu_torch.parallel.mesh import make_mesh
+
+        initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+        mesh = make_mesh(1, 1)
+    r = Renderer(scene, cam, st, cfg, mesh=mesh)
     parts = {"path_kernel": ("path_kernel",), "primary_kernel": ("primary_kernel",),
              "bigmesh_hart": ("bigmesh_hart", "march_kernel"),
              "hart_kernel": ("hart_kernel",),
-             "bigmesh_kernel": ("bigmesh_kernel",)}
+             "bigmesh_kernel": ("bigmesh_kernel",), "nccl": ("nccl",)}
     name = ("profile_slice_trace.json" if a.scene == "cornell" and a.mode == 9
             else f"profile_slice_{a.scene}_mode{a.mode}_trace.json")
+    if a.mesh:
+        name = name.replace("_trace.json", "_mesh_trace.json")
     return r.draw, r.flush, parts, name
 
 
@@ -147,7 +163,11 @@ def main() -> int:
                     help="the display frame's or the training step's scene")
     ap.add_argument("--mode", type=int, default=9,
                     help="the display frame's integrator mode (9: Kajiya)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="draw through Renderer(mesh=...) on a world of one (NCCL)")
     a = ap.parse_args()
+    if a.mesh and a.fwd_bwd:
+        ap.error("--mesh profiles the display frame")
 
     import torch
 
@@ -179,7 +199,8 @@ def main() -> int:
         flush()
         stop.synchronize()
         wall_ms.append(start.elapsed_time(stop) / a.frames)
-    print(f"[wall] {mode} {a.scene} mode {a.mode} {a.width}x{a.height} x {a.bounces} bounces: "
+    print(f"[wall] {mode}{' mesh' if a.mesh else ''} {a.scene} mode {a.mode} "
+          f"{a.width}x{a.height} x {a.bounces} bounces: "
           f"{[round(v, 4) for v in wall_ms]} ms/{unit} over {a.repeats} x {a.frames} "
           f"iterations, unprofiled [{smi}]")
 
@@ -219,9 +240,14 @@ def main() -> int:
     glue_us = dev_us - sum(part_us.values())
     by_name = Counter(e["name"] for e in dev_ev)
     h2d = sum(1 for e in dev_ev if "HtoD" in e["name"])
+    runtime = Counter(e["name"] for e in events if e.get("ph") == "X"
+                      and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                      and w0 <= e["ts"] <= w1
+                      and any(k in e["name"] for k in ("Synchronize", "Malloc",
+                                                       "Free", "Memcpy")))
 
     rec = {
-        "mode": mode, "shape": [a.width, a.height, a.bounces], "iterations": per,
+        "mode": mode, "mesh": a.mesh, "shape": [a.width, a.height, a.bounces], "iterations": per,
         "scene": a.scene, "integrator_mode": a.mode,
         "card": smi, f"wall_ms_per_{unit}": wall_ms,
         f"traced_window_ms_per_{unit}": (span_end - w0) / 1e3 / per,
@@ -239,11 +265,12 @@ def main() -> int:
         # unprofiled wall time of the same work.
         "device_idle_share_unprofiled_est":
             1.0 - dev_us / 1e3 / per / min(wall_ms),
+        f"runtime_calls_per_{unit}": {k: v / per for k, v in runtime.most_common()},
         "device_ops": {k: v / per for k, v in by_name.most_common()},
     }
     for k, v in rec.items():
-        if k not in ("device_ops", "card", "shape", "iterations", "mode", "scene",
-                     "integrator_mode"):
+        if k not in ("device_ops", "card", "shape", "iterations", "mode", "mesh",
+                     "scene", "integrator_mode"):
             print(f"[profile] {k}: {v}")
     for name, n in rec["device_ops"].items():
         print(f"[profile] per {unit} {n:g} x {name[:100]}")

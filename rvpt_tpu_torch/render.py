@@ -233,44 +233,66 @@ def render_sample_fast_chw(scene, camera, settings: RenderSettings,
     kernel on exactly its own pixels (the RNG keys by global pixel id, so
     values match the plain path's evaluate-and-select) and writes the
     quadrant into its rectangle of the film."""
-    from .ops.pathkernel import BigMeshTracer, camera_params
-
     if not _megakernel_eligible(scene, settings):
         return render_sample_chw(scene, camera, settings, cfg, frame)
-    pt = tracer if tracer is not None else make_tracer(scene)
-    big = isinstance(pt, BigMeshTracer)
-    if cam_params is None and not big:
-        cam_params = camera_params(camera, cfg)
+    pt, cam_params = _tracer_and_camera(scene, camera, cfg, tracer, cam_params)
     modes = set(settings.modes())
-
-    def sample(pixel, mode):
-        if big:
-            xs = pixel % cfg.width
-            ys = torch.div(pixel, cfg.width, rounding_mode="floor")
-        acc = None
-        for i in range(settings.aa):
-            if big:
-                out = _trace_mode_bigmesh(pt, camera, settings, cfg, pixel, xs,
-                                          ys, frame, i * AA_STRIDE, mode)
-            else:
-                out = _trace_mode_kernel(pt, camera, settings, cam_params,
-                                         pixel, frame, i * AA_STRIDE, mode)
-            acc = out if acc is None else acc + out
-        if settings.aa > 1:
-            acc = acc * (1.0 / settings.aa)
-        return acc
-
     if len(modes) == 1:
         (mode,) = modes
-        pixel = (torch.arange(cfg.num_pixels, device=scene.device) if big
-                 else cfg.num_pixels)
-        return sample(pixel, mode).reshape(3, cfg.height, cfg.width)
+        pixel = (torch.arange(cfg.num_pixels, device=scene.device)
+                 if _is_big(pt) else cfg.num_pixels)
+        return _sample_mode(pt, camera, settings, cfg, cam_params, pixel, frame,
+                            mode).reshape(3, cfg.height, cfg.width)
     out = torch.empty((3, cfg.height, cfg.width), dtype=torch.float32,
                       device=scene.device)
     for m, (y0, y1, x0, x1) in _split_partition(cfg, settings):
         sub = _rect_pixels(y0, y1, x0, x1, cfg.width, scene.device)
-        out[:, y0:y1, x0:x1] = sample(sub, m).reshape(3, y1 - y0, x1 - x0)
+        out[:, y0:y1, x0:x1] = _sample_mode(
+            pt, camera, settings, cfg, cam_params, sub, frame, m).reshape(
+                3, y1 - y0, x1 - x0)
     return out
+
+
+def _is_big(pt) -> bool:
+    from .ops.pathkernel import BigMeshTracer
+
+    return isinstance(pt, BigMeshTracer)
+
+
+def _tracer_and_camera(scene, camera, cfg: FilmConfig, tracer, cam_params):
+    """``tracer`` (or ``make_tracer(scene)``) and the camera vector of
+    ``camera`` and ``cfg`` (None for a big mesh, whose rays are made in
+    PyTorch), each built here when the caller has none."""
+    from .ops.pathkernel import camera_params
+
+    pt = tracer if tracer is not None else make_tracer(scene)
+    if cam_params is None and not _is_big(pt):
+        cam_params = camera_params(camera, cfg)
+    return pt, cam_params
+
+
+def _sample_mode(pt, camera, settings: RenderSettings, cfg: FilmConfig,
+                 cam_params, pixel, frame, mode, aa_offset: int = 0):
+    """The AA-averaged kernel pass of integrator ``mode`` over a pixel
+    batch -> f32[3, n]; ``aa_offset`` offsets the AA sample index (a spp
+    rank's salts, as ``render_pixels``)."""
+    big = _is_big(pt)
+    if big:
+        xs = pixel % cfg.width
+        ys = torch.div(pixel, cfg.width, rounding_mode="floor")
+    acc = None
+    for i in range(settings.aa):
+        salt0 = ((i + int(aa_offset)) * AA_STRIDE) & 0xFFFFFFFF
+        if big:
+            out = _trace_mode_bigmesh(pt, camera, settings, cfg, pixel, xs, ys,
+                                      frame, salt0, mode)
+        else:
+            out = _trace_mode_kernel(pt, camera, settings, cam_params, pixel,
+                                     frame, salt0, mode)
+        acc = out if acc is None else acc + out
+    if settings.aa > 1:
+        acc = acc * (1.0 / settings.aa)
+    return acc
 
 
 def render_frame(scene, camera, settings: RenderSettings, cfg: FilmConfig,

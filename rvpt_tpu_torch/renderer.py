@@ -8,7 +8,8 @@ analog of reload_shaders, rvpt.cpp:444-468), draws the debug views and
 saves and resumes checkpoints.  Frames of any integrator, or of the 4-way
 split-screen, go through the kernels of ``ops.pathkernel``; the tracer
 that holds their tables (``PathTracer``, or ``BigMeshTracer`` for a big
-mesh) is built once per scene.
+mesh) is built once per scene.  With a ``(tiles, spp)`` device mesh,
+every frame is rendered across its ranks (``parallel.sharded``).
 """
 
 from __future__ import annotations
@@ -48,8 +49,10 @@ def _camera_fingerprint(camera: Camera):
 
 class Renderer:
     """``use_bvh`` attaches a BVH to the scene (its triangles then take the
-    kernels' BVH form); ``mesh`` must be None: the sharded frame step is
-    ROADMAP A14."""
+    kernels' BVH form); ``mesh``, a ``(tiles, spp)`` ``DeviceMesh``
+    (``parallel.mesh.make_mesh``), shards every frame over its ranks; each
+    rank then draws, and holds the whole film, so ``image``,
+    ``save_image`` and checkpoints work on every rank."""
 
     def __init__(
         self,
@@ -62,7 +65,13 @@ class Renderer:
         frames_in_flight: int = MAX_FRAMES_IN_FLIGHT,
     ) -> None:
         if mesh is not None:
-            raise NotImplementedError("sharded rendering (mesh) is ROADMAP A14")
+            from .parallel.sharded import mesh_coords
+
+            mesh_coords(mesh)  # a (tiles, spp) DeviceMesh, or raise
+        self.mesh = mesh
+        # The sharded frame step, made once per (settings, film, mesh).
+        self._sharded_step = None
+        self._sharded_key = None
         self.settings = settings or RenderSettings()
         self.film_cfg = film or FilmConfig()
         self.camera = camera
@@ -124,9 +133,23 @@ class Renderer:
         self._prev_state = state
 
         self.timer.frame_start()
-        self.film, image = render_frame(
-            self.scene, self.camera, self.settings, self.film_cfg, self.film,
-            dirty, tracer=self.tracer, cam_params=self._cam_params)
+        if self.mesh is not None:
+            key = (self.settings, self.film_cfg, self.mesh)
+            if self._sharded_key != key:
+                from .parallel.sharded import make_render_fn
+
+                self._sharded_step = make_render_fn(
+                    self.scene, self.camera, self.settings, self.film_cfg,
+                    self.mesh)
+                self._sharded_key = key
+            self.film, image = self._sharded_step(
+                self.scene, self.camera, self.film, dirty, tracer=self.tracer,
+                cam_params=self._cam_params)
+        else:
+            self.film, image = render_frame(
+                self.scene, self.camera, self.settings, self.film_cfg,
+                self.film, dirty, tracer=self.tracer,
+                cam_params=self._cam_params)
         # Launches are asynchronous: wait only for the frame before last, so
         # the timer measures steady-state throughput.
         if self.device.type == "cuda":
@@ -157,8 +180,13 @@ class Renderer:
 
     def reload(self) -> list[str]:
         """Re-import the package's changed modules and drop the kernel
-        libraries (``SourceWatcher``); returns the reloaded modules."""
-        return self._watcher.reload_if_changed()
+        libraries (``SourceWatcher``); returns the reloaded modules.  The
+        sharded frame step closes over module functions, so a reload drops
+        it."""
+        dirty = self._watcher.reload_if_changed()
+        if dirty:
+            self._sharded_step = self._sharded_key = None
+        return dirty
 
     def host_bvh(self) -> BvhHost:
         """A BVH of the scene's triangles built on the host (the BVH debug

@@ -1,12 +1,15 @@
 """Inverse rendering: recover scene parameters by gradient descent through
-the path tracer (mirror of ``rvpt_tpu/train/inverse.py``, single device).
+the path tracer (mirror of ``rvpt_tpu/train/inverse.py``).
 
 Parameter groups (``PARAM_GROUPS``) select which leaves train: materials
 (albedo/emission/ior), geometry (triangle vertices, sphere center/radius,
 plane normal/offset) and camera pose (translation/rotation), every leaf the
 paired trace of ``ops.fast_grad`` returns cotangents for.  The optimizer is
 ``torch.optim.Adam`` with optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8
-added after the square root).  Sharded training (``mesh``) is ROADMAP A14.
+added after the square root).  With a ``(tiles, spp)`` device mesh each
+rank renders its own pixels and samples and the scene gradients are summed
+over every rank before the step (``parallel.sharded``), so the parameters
+stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -105,17 +108,22 @@ def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh=None):
     on a big mesh K1's hits-only records forward and the SoA replay
     backward).
 
-    Returns ``render_fast(scene, camera, frame) -> f32[3, H, W]``; aa > 1
-    averages per-sample traces with the display path's AA_STRIDE salt
-    layout, so the gradient is the mean of per-sample gradients."""
+    Returns ``render_fast(scene, camera, frame)``: f32[3, H, W], or with a
+    mesh this rank's share f32[3, per] (its tile's pixel ids,
+    ``sharded._padded_grid``, at its spp rank's salts; no collective).
+    aa > 1 averages per-sample traces with the display path's AA_STRIDE
+    salt layout, so the gradient is the mean of per-sample gradients."""
     from ..core import rng as rng_mod
     from ..models import camera as camera_mod
     from ..models.integrators import AA_STRIDE
     from ..ops.fast_grad import make_fast_kajiya
     from ..render import _INTEGRATOR_SITE, _JITTER_SITE, _pixel_grid
 
+    spp = 0
     if mesh is not None:
-        raise NotImplementedError("sharded training is ROADMAP A14")
+        from ..parallel.sharded import _padded_grid, mesh_coords
+
+        n_tiles, _, tile, spp = mesh_coords(mesh)
     trace = make_fast_kajiya(scene_tpl, _INTEGRATOR_SITE, settings.max_bounces,
                              style=settings.style)
     aa = settings.aa
@@ -124,18 +132,20 @@ def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh=None):
     def render_fast(s, cam, frame):
         dev = s.device
         if dev not in grid:  # the pixel grid of this film, once per device
-            grid[dev] = _pixel_grid(cfg, dev)
+            grid[dev] = (_pixel_grid(cfg, dev) if mesh is None
+                         else _padded_grid(cfg, n_tiles, tile, dev))
         pixel, xs, ys = grid[dev]
         acc = 0.0
         for i in range(aa):
-            salt_i = i * AA_STRIDE
+            salt_i = (i + spp * aa) * AA_STRIDE
             ju, jv = rng_mod.uniform2(pixel, frame, salt_i + _JITTER_SITE)
             cx = (xs.to(torch.float32) + ju) / cfg.width
             cy = 1.0 - (ys.to(torch.float32) + jv) / cfg.height
             ray = camera_mod.generate_rays(cam, cx, cy)
             acc = acc + trace(s, ray.origin, ray.direction, pixel, frame,
                               salt=salt_i)
-        return (acc.T / aa).reshape(3, cfg.height, cfg.width)
+        out = acc.T / aa
+        return out if mesh is not None else out.reshape(3, cfg.height, cfg.width)
 
     return render_fast
 
@@ -158,17 +168,18 @@ def accumulate_frames(render, cfg: FilmConfig, params, frame0, k):
     gradient of a loss on the result flows back through every one of the k
     samples (the EMA update of ops/film.py sits on the gradient path).
 
-    ``render(params, frame) -> f32[3,H,W]``; frames frame0..frame0+k-1
-    decorrelate the per-frame RNG streams.  A fresh film starts at frame 0,
-    which the accumulate op itself treats as the dirty reset."""
+    ``render(params, frame) -> f32[3,H,W]`` (a rank's f32[3, per] slice
+    under a mesh: the film takes the sample's shape); frames
+    frame0..frame0+k-1 decorrelate the per-frame RNG streams.  A fresh film
+    starts at frame 0, which the accumulate op itself treats as the dirty
+    reset."""
     from ..ops import film as film_ops
 
     film = None
     for i in range(int(k)):
         sample = render(params, frame0 + i)
         if film is None:
-            film = film_ops.Film.create(cfg.height, cfg.width,
-                                        device=sample.device)
+            film = film_ops.Film(accum=torch.zeros_like(sample), frame=0)
         film = film_ops.accumulate(film, sample, False)
     return film.accum
 
@@ -176,7 +187,7 @@ def accumulate_frames(render, cfg: FilmConfig, params, frame0, k):
 def make_train_step(scene, camera, settings: RenderSettings, cfg: FilmConfig,
                     mesh, target, learning_rate: float = 2e-2, fast="auto",
                     groups=DEFAULT_GROUPS, accum_frames: int = 1):
-    """Build (step fn, optimizer) for single-device training.
+    """Build (step fn, optimizer) for training.
 
     ``target`` is channels-first f32[3,H,W] (the film layout).  The
     optimizer is a ``torch.optim.Adam`` over copies of
@@ -190,13 +201,26 @@ def make_train_step(scene, camera, settings: RenderSettings, cfg: FilmConfig,
 
     ``fast``: "auto" and True render through the paired trace of
     ``ops.fast_grad`` (where ``_fast_eligible``; True raises otherwise),
-    False through autograd of the plain integrator path.  ``mesh`` must be
-    None: sharded training is ROADMAP A14.  ``accum_frames`` > 1 targets
-    the EMA-accumulated film after that many frames (``accumulate_frames``)."""
-    if mesh is not None:
-        raise NotImplementedError("sharded training (mesh) is ROADMAP A14")
+    False through autograd of the plain integrator path.  ``mesh``: None,
+    or a ``(tiles, spp)`` ``DeviceMesh`` over which the step is sharded:
+    each rank renders its tile's pixels at its spp rank's salts, the first
+    buffer of the estimator is averaged over ``spp``, the residual on the
+    rank's own pixels drives the backward of its second buffer (over the
+    spp count), and the scene gradients are summed over every rank
+    (``parallel.sharded.allreduce_grads``) before Adam, so every rank takes
+    the same step and each gradient counts once; ``loss`` is the whole
+    image's.  ``accum_frames`` > 1 targets the EMA-accumulated film after
+    that many frames (``accumulate_frames``)."""
     if fast not in (True, False, "auto"):
         raise ValueError(f"fast must be True, False or 'auto', got {fast!r}")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from ..parallel import sharded as sh
+        from ..parallel.mesh import SPP_AXIS, TILE_AXIS
+        from ..render import render_pixels
+
+        n_tiles, n_spp, tile, spp = sh.mesh_coords(mesh)
     names = list(trainable_params(scene, groups, camera))
     live = {k: v.detach().clone().requires_grad_(True)
             for k, v in trainable_params(scene, groups, camera).items()}
@@ -209,13 +233,23 @@ def make_train_step(scene, camera, settings: RenderSettings, cfg: FilmConfig,
             "kernels serve (render._megakernel_eligible)")
     use_fast = eligible if fast == "auto" else bool(fast)
     if use_fast:
-        render_fast = _make_fast_render(scene, camera, settings, cfg)
+        render_fast = _make_fast_render(scene, camera, settings, cfg, mesh)
+    numel = target.numel()
+    if mesh is not None:
+        pixel, xs, ys = sh._padded_grid(cfg, n_tiles, tile, target.device)
+        # Lanes past the film's last pixel (the last tile's padding).
+        n_real = min(max(cfg.num_pixels - tile * pixel.shape[0], 0),
+                     pixel.shape[0])
+        target = target.reshape(3, -1)[:, pixel]
 
     def render(p, frame):
         s = apply_params(scene, p)
         cam = apply_camera(camera, p)
         if use_fast:
             return render_fast(s, cam, frame)
+        if mesh is not None:
+            return render_pixels(s, cam, settings, cfg, frame, pixel, xs, ys,
+                                 aa_offset=spp * settings.aa).T
         return render_sample_chw(s, cam, settings, cfg, frame)
 
     k = max(int(accum_frames), 1)
@@ -240,11 +274,24 @@ def make_train_step(scene, camera, settings: RenderSettings, cfg: FilmConfig,
         frame = int(frame)
         with torch.no_grad():
             img_a = render_used(tensors, frame * (2 * k) + 4096)
+            if mesh is not None and n_spp > 1:
+                img_a = img_a.contiguous()
+                dist.all_reduce(img_a, group=mesh.get_group(SPP_AXIS))
+                img_a = img_a / n_spp
         img_b = render_used(tensors, frame * (2 * k) + 4096 + k)
-        residual = 2.0 * (img_a - target) / img_a.numel()
+        diff = img_a - target
         opt_state.zero_grad(set_to_none=True)
-        img_b.backward(residual)
-        loss = torch.mean(torch.square(img_a - target))
+        if mesh is None:
+            img_b.backward(2.0 * diff / numel)
+            loss = torch.mean(torch.square(img_a - target))
+        else:
+            diff[:, n_real:] = 0.0
+            img_b.backward(2.0 * diff / numel / n_spp)
+            sh.allreduce_grads(tensors.values())
+            loss = diff.square().sum()
+            if n_tiles > 1:
+                dist.all_reduce(loss, group=mesh.get_group(TILE_AXIS))
+            loss = loss / numel
         opt_state.step()
         constrain_params(tensors)
         return tensors, opt_state, loss

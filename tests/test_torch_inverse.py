@@ -186,5 +186,5 @@ def test_train_step_dual_estimator_and_options():
     assert torch.equal(scene.materials.emission, params["materials.emission"])
     with pytest.raises(ValueError):
         inverse.make_train_step(scene, cam, st, cfg, None, target, fast="interpret")
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         inverse.make_train_step(scene, cam, st, cfg, object(), target)

@@ -332,7 +332,7 @@ def test_renderer_use_bvh_and_mesh():
     r.draw()
     r.set_scene(ts)
     assert r._prev_state is None and r.scene.bvh is None and not r.tracer.bvh_form
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Renderer(ts, tc, mesh=object())
 
 
