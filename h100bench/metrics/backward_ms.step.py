@@ -1,0 +1,10 @@
+"""Host time per trainer step in the program's ``rvpt.step.backward`` span:
+the residual, ``zero_grad``, the backward of the second render and the
+loss."""
+
+from h100bench.spans import for_run
+
+
+def read(run):
+    s = for_run(run, "step")
+    return None if s is None else s.host_ms("rvpt.step.backward")

@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import annotate
 from .build import check_cuda, check_launch, load_library
 from .intersect import triangle_precompute
 
@@ -56,26 +57,27 @@ def launch_closest_hit(origin, direction, packed, mint, maxt):
     (t f32[N], +inf on a miss; idx int64[N], -1 on a miss).  ``origin`` and
     ``direction`` are f32[N, 3]; ``packed`` from ``pack_triangles``.
     Counts one launch in ``launch_closest_hit.launches``."""
-    n = origin.shape[0]
-    dev = origin.device
-    check_cuda(origin, torch.float32, "origin", 3 * n)
-    check_cuda(direction, torch.float32, "direction", 3 * n, dev)
-    check_cuda(packed, torch.float32, "packed triangles", device=dev)
-    if packed.dim() != 2 or packed.shape[1] != len(FIELDS):
-        raise ValueError(f"packed triangles: need [T, 16], got {tuple(packed.shape)}")
-    if packed.data_ptr() % 16:
-        raise ValueError("packed triangles: the kernel loads 16-byte rows, need a "
-                         "16-byte aligned tensor")
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    idx = torch.empty((n,), dtype=torch.int64, device=dev)
-    lib = _lib()
-    err = lib.rvpt_closest_hit(
-        origin.data_ptr(), direction.data_ptr(), packed.data_ptr(),
-        packed.shape[0], n, float(mint), float(maxt), t.data_ptr(),
-        idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, err, "closest-hit kernel")
-    launch_closest_hit.launches += 1
-    return t, idx
+    with annotate("launch_closest_hit"):
+        n = origin.shape[0]
+        dev = origin.device
+        check_cuda(origin, torch.float32, "origin", 3 * n)
+        check_cuda(direction, torch.float32, "direction", 3 * n, dev)
+        check_cuda(packed, torch.float32, "packed triangles", device=dev)
+        if packed.dim() != 2 or packed.shape[1] != len(FIELDS):
+            raise ValueError(f"packed triangles: need [T, 16], got {tuple(packed.shape)}")
+        if packed.data_ptr() % 16:
+            raise ValueError("packed triangles: the kernel loads 16-byte rows, need a "
+                             "16-byte aligned tensor")
+        t = torch.empty((n,), dtype=torch.float32, device=dev)
+        idx = torch.empty((n,), dtype=torch.int64, device=dev)
+        lib = _lib()
+        err = lib.rvpt_closest_hit(
+            origin.data_ptr(), direction.data_ptr(), packed.data_ptr(),
+            packed.shape[0], n, float(mint), float(maxt), t.data_ptr(),
+            idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        check_launch(lib, err, "closest-hit kernel")
+        launch_closest_hit.launches += 1
+        return t, idx
 
 
 launch_closest_hit.launches = 0

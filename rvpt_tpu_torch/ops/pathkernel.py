@@ -65,6 +65,7 @@ from torch import nn
 
 from ..core import rng
 from ..scene.scene import Scene
+from ..utils.profiling import annotate
 from .build import check_cuda, check_launch, load_library
 from .intersect import _min_and_first_index, triangle_precompute
 
@@ -1457,11 +1458,12 @@ def launch_path_kernel(tables, counts, pix, n, frame, salt_base, max_bounces,
     (``trace_plain(tris_last=True)``); None the row form.  Other arguments
     as ``trace_plain``.  Counts one launch in
     ``launch_path_kernel.launches``."""
-    out, record, _ = _launch_path(
-        tables, counts, pix, n, frame, salt_base, max_bounces, style, rays,
-        cam_params, cam_mode, jitter_salt, mint, collect, integ, tree, None)
-    launch_path_kernel.launches += 1
-    return out if record is None else (out, record)
+    with annotate("launch_path_kernel"):
+        out, record, _ = _launch_path(
+            tables, counts, pix, n, frame, salt_base, max_bounces, style, rays,
+            cam_params, cam_mode, jitter_salt, mint, collect, integ, tree, None)
+        launch_path_kernel.launches += 1
+        return out if record is None else (out, record)
 
 
 def launch_path_stats(tables, counts, tree, cull, pix, n, frame, salt_base,
@@ -1477,11 +1479,12 @@ def launch_path_stats(tables, counts, tree, cull, pix, n, frame, salt_base,
     ``cull_rows``; the radiance and records are those of
     ``launch_path_kernel``, bit for bit.  Counts one launch (the pair) in
     ``launch_path_stats.launches``."""
-    out, record, agg = _launch_path(
-        tables, counts, pix, n, frame, salt_base, max_bounces, style, rays,
-        cam_params, cam_mode, jitter_salt, mint, collect, integ, tree, cull)
-    launch_path_stats.launches += 1
-    return (out, agg) if record is None else (out, record, agg)
+    with annotate("launch_path_stats"):
+        out, record, agg = _launch_path(
+            tables, counts, pix, n, frame, salt_base, max_bounces, style, rays,
+            cam_params, cam_mode, jitter_salt, mint, collect, integ, tree, cull)
+        launch_path_stats.launches += 1
+        return (out, agg) if record is None else (out, record, agg)
 
 
 launch_path_stats.launches = 0
@@ -1495,25 +1498,26 @@ def stats_scan(tables, counts, tree, cull, rays, mint=0.0):
     (``bvh::test_triangle``) on ``pack_fwd``'s -> (t f32[N] of each scan,
     int32[N] clusters after which they differ: 0 where the two agree).  A
     check, on no path; counts its launches in ``stats_scan.launches``."""
-    t, s, p, nm = counts
-    dev = tables.device
-    lib = _tree_lib(_path_lib, tables, counts, tree)
-    n = rays[0].numel()
-    for k, c in enumerate(rays):
-        check_cuda(c, torch.float32, f"ray component {k}", n, dev)
-    n_clu = cull.shape[0] - 1
-    check_cuda(cull, torch.float32, "cluster boxes", 8 * (n_clu + 1), dev)
-    t_ref = torch.empty((n,), dtype=torch.float32, device=dev)
-    t_new = torch.empty_like(t_ref)
-    differ = torch.empty((n,), dtype=torch.int32, device=dev)
-    err = lib.rvpt_stats_scan(
-        tables.data_ptr(), t, s, p, nm, tree.rows.data_ptr(), n_clu,
-        cull.data_ptr(), *(c.data_ptr() for c in rays), n, float(mint),
-        t_ref.data_ptr(), t_new.data_ptr(), differ.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, err, "stats scan")
-    stats_scan.launches += 1
-    return t_ref, t_new, differ
+    with annotate("stats_scan"):
+        t, s, p, nm = counts
+        dev = tables.device
+        lib = _tree_lib(_path_lib, tables, counts, tree)
+        n = rays[0].numel()
+        for k, c in enumerate(rays):
+            check_cuda(c, torch.float32, f"ray component {k}", n, dev)
+        n_clu = cull.shape[0] - 1
+        check_cuda(cull, torch.float32, "cluster boxes", 8 * (n_clu + 1), dev)
+        t_ref = torch.empty((n,), dtype=torch.float32, device=dev)
+        t_new = torch.empty_like(t_ref)
+        differ = torch.empty((n,), dtype=torch.int32, device=dev)
+        err = lib.rvpt_stats_scan(
+            tables.data_ptr(), t, s, p, nm, tree.rows.data_ptr(), n_clu,
+            cull.data_ptr(), *(c.data_ptr() for c in rays), n, float(mint),
+            t_ref.data_ptr(), t_new.data_ptr(), differ.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        check_launch(lib, err, "stats scan")
+        stats_scan.launches += 1
+        return t_ref, t_new, differ
 
 
 stats_scan.launches = 0
@@ -1548,25 +1552,26 @@ def launch_primary_kernel(tables, counts, pix, n, frame, salt_base, mode,
     ``cam_params``.
     Other arguments as ``primary_plain``.  Counts one launch in
     ``launch_primary_kernel.launches``."""
-    if mode not in PRIMARY_MODES:
-        raise ValueError(f"mode {mode} is not a primary-hit mode")
-    nrays = int(nrays)
-    if nrays < 1:
-        raise ValueError(f"nrays must be at least 1, got {nrays}")
-    t, s, p, nm = counts
-    dev = tables.device
-    lib = _tree_lib(_primary_lib, tables, counts, tree)
-    ray_ptrs, cam_ptr = _check_rays(pix, n, rays, cam_params, dev)
-    out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    err = lib.rvpt_primary(
-        tables.data_ptr(), t, s, p, nm, *_tree_ptrs(tree), cam_ptr,
-        _ptr(pix), *ray_ptrs, out.data_ptr(), n,
-        int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
-        int(jitter_salt) & 0xFFFFFFFF, int(mode), int(cam_mode), float(mint),
-        nrays, _f32(1.0 / nrays), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, err, "primary-hit kernel")
-    launch_primary_kernel.launches += 1
-    return out
+    with annotate("launch_primary_kernel"):
+        if mode not in PRIMARY_MODES:
+            raise ValueError(f"mode {mode} is not a primary-hit mode")
+        nrays = int(nrays)
+        if nrays < 1:
+            raise ValueError(f"nrays must be at least 1, got {nrays}")
+        t, s, p, nm = counts
+        dev = tables.device
+        lib = _tree_lib(_primary_lib, tables, counts, tree)
+        ray_ptrs, cam_ptr = _check_rays(pix, n, rays, cam_params, dev)
+        out = torch.empty((3, n), dtype=torch.float32, device=dev)
+        err = lib.rvpt_primary(
+            tables.data_ptr(), t, s, p, nm, *_tree_ptrs(tree), cam_ptr,
+            _ptr(pix), *ray_ptrs, out.data_ptr(), n,
+            int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
+            int(jitter_salt) & 0xFFFFFFFF, int(mode), int(cam_mode), float(mint),
+            nrays, _f32(1.0 / nrays), torch.cuda.current_stream(dev).cuda_stream)
+        check_launch(lib, err, "primary-hit kernel")
+        launch_primary_kernel.launches += 1
+        return out
 
 
 launch_primary_kernel.launches = 0
@@ -1626,10 +1631,11 @@ def launch_hart_kernel(htables, n_tri, pix, n, frame, cam_params,
     card.  ``htables``/``n_tri`` from ``pack_hart`` (zero triangles
     allowed); ``pix`` int64[n] pixel ids, or None for the ids 0..n-1.
     Counts one launch in ``launch_hart_kernel.launches``."""
-    out, _ = _run_hart(htables, n_tri, pix, n, frame, cam_params, cam_mode,
-                       jitter_salt, mint)
-    launch_hart_kernel.launches += 1
-    return out
+    with annotate("launch_hart_kernel"):
+        out, _ = _run_hart(htables, n_tri, pix, n, frame, cam_params, cam_mode,
+                           jitter_salt, mint)
+        launch_hart_kernel.launches += 1
+        return out
 
 
 def count_hart_sweep(htables, n_tri, pix, n, frame, cam_params,
@@ -1711,10 +1717,11 @@ def launch_bigmesh_kernel(tables, counts, nodes, pix, state, frame, salt,
     ``pix`` is unused and the result the winner of
     ``bigmesh_search_plain``.  Counts one launch in
     ``launch_bigmesh_kernel.launches``."""
-    out = _run_bigmesh(tables, counts, nodes, pix, state, frame, salt, mint,
-                       search_only, collect=collect)
-    launch_bigmesh_kernel.launches += 1
-    return out[:2] if search_only else out
+    with annotate("launch_bigmesh_kernel"):
+        out = _run_bigmesh(tables, counts, nodes, pix, state, frame, salt, mint,
+                           search_only, collect=collect)
+        launch_bigmesh_kernel.launches += 1
+        return out[:2] if search_only else out
 
 
 def count_bvh_walk(tables, counts, nodes, rays, live, mint=0.0, lanes=False):
@@ -1811,9 +1818,10 @@ def launch_bigmesh_hart(htables, n_tri, nodes, p, live):
     points ``p`` f32[3, N], ``live`` f32[N] (0/1) -> f32[N] as
     ``bigmesh_distance_plain``.  Counts one launch in
     ``launch_bigmesh_hart.launches``."""
-    out, _ = _run_bigmesh_hart(htables, n_tri, nodes, p, live)
-    launch_bigmesh_hart.launches += 1
-    return out
+    with annotate("launch_bigmesh_hart"):
+        out, _ = _run_bigmesh_hart(htables, n_tri, nodes, p, live)
+        launch_bigmesh_hart.launches += 1
+        return out
 
 
 # Margin of the march's escape ball over the mesh's bound: ten times
@@ -1864,10 +1872,11 @@ def launch_bigmesh_march(htables, n_tri, nodes, o, d, mint=0.0, live=None,
     reads the root box back to the host).  Counts one launch in
     ``launch_bigmesh_march.launches`` (none for no rays, which launch
     nothing)."""
-    out, _ = _run_bigmesh_march(htables, n_tri, nodes, o, d, mint, live, escape)
-    if out.numel():
-        launch_bigmesh_march.launches += 1
-    return out
+    with annotate("launch_bigmesh_march"):
+        out, _ = _run_bigmesh_march(htables, n_tri, nodes, o, d, mint, live, escape)
+        if out.numel():
+            launch_bigmesh_march.launches += 1
+        return out
 
 
 launch_bigmesh_march.launches = 0
@@ -1950,16 +1959,17 @@ class PathTracer(nn.Module):
 
     def __init__(self, scene: Scene, mint: float = 0.0):
         super().__init__()
-        tables, self.counts = pack_fwd(scene)
-        self.register_buffer("tables", tables)
-        self.bvh_form = scene.bvh is not None and scene.num_triangles > 0
-        tree = pack_tree(scene, tables, self.counts) if self.bvh_form else None
-        self.register_buffer("nodes", None if tree is None else tree.nodes)
-        self.register_buffer("walk", None if tree is None else tree.rows)
-        self.register_buffer(
-            "cull", cull_rows(pack_cull(scene)) if is_culled(scene) else None)
-        htables, self.hart_count = pack_hart(scene)
-        self.register_buffer("hart_tables", htables)
+        with annotate("pack"):
+            tables, self.counts = pack_fwd(scene)
+            self.register_buffer("tables", tables)
+            self.bvh_form = scene.bvh is not None and scene.num_triangles > 0
+            tree = pack_tree(scene, tables, self.counts) if self.bvh_form else None
+            self.register_buffer("nodes", None if tree is None else tree.nodes)
+            self.register_buffer("walk", None if tree is None else tree.rows)
+            self.register_buffer(
+                "cull", cull_rows(pack_cull(scene)) if is_culled(scene) else None)
+            htables, self.hart_count = pack_hart(scene)
+            self.register_buffer("hart_tables", htables)
         self.mint = float(mint)
 
     @property
@@ -2544,41 +2554,42 @@ def launch_bwd_kernel(tables, counts, record: PathRecord, pix, frame,
     one per block for large ones), and the per-block partials reduced by a
     second kernel in a fixed order.  Counts one launch (the pair) in
     ``launch_bwd_kernel.launches``."""
-    t, s, p, nm = counts
-    dev = tables.device
-    if t > MAX_BWD_TRIANGLES:
-        raise ValueError(
-            f"{t} triangles exceed the backward kernel's shared-memory "
-            f"staging ({MAX_BWD_TRIANGLES})")
-    check_cuda(tables, torch.float32, "tables", 10 * t + 5 * s + 5 * p + 8 * nm)
-    nb, nf, n = record.fields.shape
-    if nf != len(RECORD_FIELDS) or record.hits.shape != (nb, 2, n):
-        raise ValueError("record: need fields [B,13,N] and hits [B,2,N]")
-    check_cuda(record.fields, torch.float32, "record fields", device=dev)
-    check_cuda(record.hits, torch.int32, "record hits", device=dev)
-    check_cuda(g, torch.float32, "cotangent", 3 * n, dev)
-    if pix is not None:
-        check_cuda(pix, torch.int64, "pixel", n, dev)
-    lib = _bwd_lib()
-    n_grad = 9 * t + 4 * s + 4 * p + 7 * nm
-    blocks = lib.rvpt_bwd_blocks(n, t, s, p, nm)
-    if blocks < 0:
-        check_launch(lib, -blocks, "backward kernel (occupancy query)")
-    go = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    gd = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    partials = torch.empty((max(n_grad * blocks, 1),), dtype=torch.float32,
-                           device=dev)
-    gflat = torch.empty((n_grad,), dtype=torch.float32, device=dev)
-    err = lib.rvpt_bwd(
-        tables.data_ptr(), t, s, p, nm,
-        None if pix is None else pix.data_ptr(), record.fields.data_ptr(),
-        record.hits.data_ptr(), g.data_ptr(), go.data_ptr(), gd.data_ptr(),
-        partials.data_ptr(), gflat.data_ptr(), n, nb, blocks,
-        int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
-        int(style == "standard"), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, err, "backward kernel")
-    launch_bwd_kernel.launches += 1
-    return gflat, go, gd
+    with annotate("launch_bwd_kernel"):
+        t, s, p, nm = counts
+        dev = tables.device
+        if t > MAX_BWD_TRIANGLES:
+            raise ValueError(
+                f"{t} triangles exceed the backward kernel's shared-memory "
+                f"staging ({MAX_BWD_TRIANGLES})")
+        check_cuda(tables, torch.float32, "tables", 10 * t + 5 * s + 5 * p + 8 * nm)
+        nb, nf, n = record.fields.shape
+        if nf != len(RECORD_FIELDS) or record.hits.shape != (nb, 2, n):
+            raise ValueError("record: need fields [B,13,N] and hits [B,2,N]")
+        check_cuda(record.fields, torch.float32, "record fields", device=dev)
+        check_cuda(record.hits, torch.int32, "record hits", device=dev)
+        check_cuda(g, torch.float32, "cotangent", 3 * n, dev)
+        if pix is not None:
+            check_cuda(pix, torch.int64, "pixel", n, dev)
+        lib = _bwd_lib()
+        n_grad = 9 * t + 4 * s + 4 * p + 7 * nm
+        blocks = lib.rvpt_bwd_blocks(n, t, s, p, nm)
+        if blocks < 0:
+            check_launch(lib, -blocks, "backward kernel (occupancy query)")
+        go = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        gd = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        partials = torch.empty((max(n_grad * blocks, 1),), dtype=torch.float32,
+                               device=dev)
+        gflat = torch.empty((n_grad,), dtype=torch.float32, device=dev)
+        err = lib.rvpt_bwd(
+            tables.data_ptr(), t, s, p, nm,
+            None if pix is None else pix.data_ptr(), record.fields.data_ptr(),
+            record.hits.data_ptr(), g.data_ptr(), go.data_ptr(), gd.data_ptr(),
+            partials.data_ptr(), gflat.data_ptr(), n, nb, blocks,
+            int(frame) & 0xFFFFFFFF, int(salt_base) & 0xFFFFFFFF,
+            int(style == "standard"), torch.cuda.current_stream(dev).cuda_stream)
+        check_launch(lib, err, "backward kernel")
+        launch_bwd_kernel.launches += 1
+        return gflat, go, gd
 
 
 launch_bwd_kernel.launches = 0

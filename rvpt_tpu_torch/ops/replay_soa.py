@@ -40,6 +40,7 @@ import torch
 
 from ..core import rng
 from ..core.math import TWO_PI
+from ..utils.profiling import annotate
 from .build import check_cuda, check_launch, load_library
 from .pathkernel import _on_device
 
@@ -94,17 +95,18 @@ def launch_gather(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA gather on the tables' card -> f32[C, N], as
     ``gather_plain`` (bit for bit).  ``idx`` int32[N] must lie in [0, T).
     Counts one launch in ``launch_gather.launches``."""
-    _check_tables(tables)
-    check_cuda(idx, torch.int32, "idx", device=tables.device)
-    c, t = tables.shape
-    n = idx.numel()
-    out = torch.empty((c, n), dtype=torch.float32, device=tables.device)
-    lib = _lookup_lib()
-    err = lib.rvpt_gather(tables.data_ptr(), c, t, idx.data_ptr(), out.data_ptr(),
-                          n, torch.cuda.current_stream(tables.device).cuda_stream)
-    check_launch(lib, err, "gather")
-    launch_gather.launches += 1
-    return out
+    with annotate("launch_gather"):
+        _check_tables(tables)
+        check_cuda(idx, torch.int32, "idx", device=tables.device)
+        c, t = tables.shape
+        n = idx.numel()
+        out = torch.empty((c, n), dtype=torch.float32, device=tables.device)
+        lib = _lookup_lib()
+        err = lib.rvpt_gather(tables.data_ptr(), c, t, idx.data_ptr(), out.data_ptr(),
+                              n, torch.cuda.current_stream(tables.device).cuda_stream)
+        check_launch(lib, err, "gather")
+        launch_gather.launches += 1
+        return out
 
 
 launch_gather.launches = 0
@@ -116,21 +118,22 @@ def launch_segsum(idx: torch.Tensor, g: torch.Tensor, t_rows: int) -> torch.Tens
     in shared memory (``csrc/replay_lookup.cu``), then into a float64
     scratch this wrapper allocates, by atomics in no fixed order; then
     rounded to f32.  Counts one launch in ``launch_segsum.launches``."""
-    if g.dim() != 2:
-        raise ValueError(f"g: need [C, N], got {tuple(g.shape)}")
-    check_cuda(g, torch.float32, "g")
-    n = g.shape[1]
-    check_cuda(idx, torch.int32, "idx", n, g.device)
-    c = g.shape[0]
-    out = torch.empty((c, int(t_rows)), dtype=torch.float32, device=g.device)
-    acc = torch.empty((c, int(t_rows)), dtype=torch.float64, device=g.device)
-    lib = _lookup_lib()
-    err = lib.rvpt_segsum(idx.data_ptr(), g.data_ptr(), c, n, int(t_rows),
-                          acc.data_ptr(), out.data_ptr(),
-                          torch.cuda.current_stream(g.device).cuda_stream)
-    check_launch(lib, err, "segment sum")
-    launch_segsum.launches += 1
-    return out
+    with annotate("launch_segsum"):
+        if g.dim() != 2:
+            raise ValueError(f"g: need [C, N], got {tuple(g.shape)}")
+        check_cuda(g, torch.float32, "g")
+        n = g.shape[1]
+        check_cuda(idx, torch.int32, "idx", n, g.device)
+        c = g.shape[0]
+        out = torch.empty((c, int(t_rows)), dtype=torch.float32, device=g.device)
+        acc = torch.empty((c, int(t_rows)), dtype=torch.float64, device=g.device)
+        lib = _lookup_lib()
+        err = lib.rvpt_segsum(idx.data_ptr(), g.data_ptr(), c, n, int(t_rows),
+                              acc.data_ptr(), out.data_ptr(),
+                              torch.cuda.current_stream(g.device).cuda_stream)
+        check_launch(lib, err, "segment sum")
+        launch_segsum.launches += 1
+        return out
 
 
 launch_segsum.launches = 0
@@ -275,139 +278,141 @@ def kajiya_replay_soa(scene, origin, direction, pixel, frame, salt_base,
     active = torch.ones((n,), dtype=torch.bool, device=dev)
 
     for bounce in range(nbounce):
-        fam, idx = fams[bounce], idxs[bounce]
-        t = wnx = wny = wnz = zeros
-        mat_id = torch.zeros((n,), dtype=torch.int64, device=dev)
+        with annotate("replay.bounce"):
+            fam, idx = fams[bounce], idxs[bounce]
+            t = wnx = wny = wnz = zeros
+            mat_id = torch.zeros((n,), dtype=torch.int64, device=dev)
 
-        if n_tri:
-            m = fam == 0
-            safe = torch.clamp(idx, 0, n_tri - 1).long()
-            looked = _lookup_group(tri_tabs, safe, 9 if group_mat else None)
-            v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z = looked[:9]
-            e0x, e0y, e0z = v1x - v0x, v1y - v0y, v1z - v0z
-            e1x, e1y, e1z = v2x - v0x, v2y - v0y, v2z - v0z
-            nx = e0y * e1z - e0z * e1y
-            ny = e0z * e1x - e0x * e1z
-            nz = e0x * e1y - e0y * e1x
-            dn = dx * nx + dy * ny + dz * nz
-            t_t = _safe_div((v0x - ox) * nx + (v0y - oy) * ny + (v0z - oz) * nz,
-                            dn)
-            t = torch.where(m, torch.clamp(t_t, -1e6, 1e6), t)
-            wnx = torch.where(m, nx, wnx)
-            wny = torch.where(m, ny, wny)
-            wnz = torch.where(m, nz, wnz)
-            tri_mid = (looked[9].detach().to(torch.int64) if group_mat
-                       else _lookup(scene.tri_mat, safe))
-            mat_id = torch.where(m, tri_mid, mat_id)
+            if n_tri:
+                m = fam == 0
+                safe = torch.clamp(idx, 0, n_tri - 1).long()
+                looked = _lookup_group(tri_tabs, safe, 9 if group_mat else None)
+                v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z = looked[:9]
+                e0x, e0y, e0z = v1x - v0x, v1y - v0y, v1z - v0z
+                e1x, e1y, e1z = v2x - v0x, v2y - v0y, v2z - v0z
+                nx = e0y * e1z - e0z * e1y
+                ny = e0z * e1x - e0x * e1z
+                nz = e0x * e1y - e0y * e1x
+                dn = dx * nx + dy * ny + dz * nz
+                t_t = _safe_div((v0x - ox) * nx + (v0y - oy) * ny + (v0z - oz) * nz,
+                                dn)
+                t = torch.where(m, torch.clamp(t_t, -1e6, 1e6), t)
+                wnx = torch.where(m, nx, wnx)
+                wny = torch.where(m, ny, wny)
+                wnz = torch.where(m, nz, wnz)
+                tri_mid = (looked[9].detach().to(torch.int64) if group_mat
+                           else _lookup(scene.tri_mat, safe))
+                mat_id = torch.where(m, tri_mid, mat_id)
 
-        if n_sph:
-            m = fam == 1
-            safe = torch.clamp(idx, 0, n_sph - 1).long()
-            cx, cy, cz, r = _lookup_group(sph_tabs, safe)
-            ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-            dd = dx * dx + dy * dy + dz * dz
-            bh = dx * ocx + dy * ocy + dz * ocz
-            ct = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-            disc = torch.clamp(bh * bh - dd * ct, min=1e-12)
-            sq = torch.sqrt(disc)
-            t0 = _safe_div(-bh - sq, dd)
-            t1 = _safe_div(-bh + sq, dd)
-            t_s = torch.where(t0 > 0.0, t0, t1)
-            t_s = torch.where(m, torch.clamp(t_s, -1e6, 1e6), zeros)
-            t = torch.where(m, t_s, t)
-            wnx = torch.where(m, ox + t_s * dx - cx, wnx)
-            wny = torch.where(m, oy + t_s * dy - cy, wny)
-            wnz = torch.where(m, oz + t_s * dz - cz, wnz)
-            mat_id = torch.where(m, _lookup(scene.sph_mat, safe), mat_id)
+            if n_sph:
+                m = fam == 1
+                safe = torch.clamp(idx, 0, n_sph - 1).long()
+                cx, cy, cz, r = _lookup_group(sph_tabs, safe)
+                ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+                dd = dx * dx + dy * dy + dz * dz
+                bh = dx * ocx + dy * ocy + dz * ocz
+                ct = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+                disc = torch.clamp(bh * bh - dd * ct, min=1e-12)
+                sq = torch.sqrt(disc)
+                t0 = _safe_div(-bh - sq, dd)
+                t1 = _safe_div(-bh + sq, dd)
+                t_s = torch.where(t0 > 0.0, t0, t1)
+                t_s = torch.where(m, torch.clamp(t_s, -1e6, 1e6), zeros)
+                t = torch.where(m, t_s, t)
+                wnx = torch.where(m, ox + t_s * dx - cx, wnx)
+                wny = torch.where(m, oy + t_s * dy - cy, wny)
+                wnz = torch.where(m, oz + t_s * dz - cz, wnz)
+                mat_id = torch.where(m, _lookup(scene.sph_mat, safe), mat_id)
 
-        if n_pln:
-            m = fam == 2
-            safe = torch.clamp(idx, 0, n_pln - 1).long()
-            nx, ny, nz, doff = _lookup_group(pln_tabs, safe)
-            dn = dx * nx + dy * ny + dz * nz
-            t_p = _safe_div(doff - (ox * nx + oy * ny + oz * nz), dn)
-            t = torch.where(m, torch.clamp(t_p, -1e6, 1e6), t)
-            wnx = torch.where(m, nx, wnx)
-            wny = torch.where(m, ny, wny)
-            wnz = torch.where(m, nz, wnz)
-            mat_id = torch.where(m, _lookup(scene.pln_mat, safe), mat_id)
+            if n_pln:
+                m = fam == 2
+                safe = torch.clamp(idx, 0, n_pln - 1).long()
+                nx, ny, nz, doff = _lookup_group(pln_tabs, safe)
+                dn = dx * nx + dy * ny + dz * nz
+                t_p = _safe_div(doff - (ox * nx + oy * ny + oz * nz), dn)
+                t = torch.where(m, torch.clamp(t_p, -1e6, 1e6), t)
+                wnx = torch.where(m, nx, wnx)
+                wny = torch.where(m, ny, wny)
+                wnz = torch.where(m, nz, wnz)
+                mat_id = torch.where(m, _lookup(scene.pln_mat, safe), mat_id)
 
-        hit = fam >= 0
-        miss_now = active & ~hit
+            hit = fam >= 0
+            miss_now = active & ~hit
 
-        # The sky on a miss, d.y shifted into [0, 1].
-        sky_t = dy * 0.5 + 0.5
-        sky = [w + (bl - w) * sky_t for w, bl in zip(_WHITE, _BLUE)]
-        rr = torch.where(miss_now, rr + cr + tr * sky[0], rr)
-        rg = torch.where(miss_now, rg + cg + tg * sky[1], rg)
-        rb = torch.where(miss_now, rb + cb + tb * sky[2], rb)
-        active = active & hit
+            # The sky on a miss, d.y shifted into [0, 1].
+            sky_t = dy * 0.5 + 0.5
+            sky = [w + (bl - w) * sky_t for w, bl in zip(_WHITE, _BLUE)]
+            rr = torch.where(miss_now, rr + cr + tr * sky[0], rr)
+            rg = torch.where(miss_now, rg + cg + tg * sky[1], rg)
+            rb = torch.where(miss_now, rb + cb + tb * sky[2], rb)
+            active = active & hit
 
-        # The material.
-        msafe = torch.clamp(mat_id, 0, n_mat - 1)
-        alb_r, alb_g, alb_b, em_r, em_g, em_b, ior = _lookup_group(mat_tabs, msafe)
-        kind = _lookup(mats.kind, msafe)
+            # The material.
+            msafe = torch.clamp(mat_id, 0, n_mat - 1)
+            alb_r, alb_g, alb_b, em_r, em_g, em_b, ior = _lookup_group(mat_tabs, msafe)
+            kind = _lookup(mats.kind, msafe)
 
-        cr = torch.where(active, cr + tr * em_r, cr)
-        cg = torch.where(active, cg + tg * em_g, cg)
-        cb = torch.where(active, cb + tb * em_b, cb)
+            cr = torch.where(active, cr + tr * em_r, cr)
+            cg = torch.where(active, cg + tg * em_g, cg)
+            cb = torch.where(active, cb + tb * em_b, cb)
 
-        # The hit's geometry.
-        px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
-        inv_nl = _rsqrt_safe(wnx * wnx + wny * wny + wnz * wnz)
-        nX, nY, nZ = wnx * inv_nl, wny * inv_nl, wnz * inv_nl
-        inv_dl = _rsqrt_safe(dx * dx + dy * dy + dz * dz)
-        iX, iY, iZ = dx * inv_dl, dy * inv_dl, dz * inv_dl
+            # The hit's geometry.
+            px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
+            inv_nl = _rsqrt_safe(wnx * wnx + wny * wny + wnz * wnz)
+            nX, nY, nZ = wnx * inv_nl, wny * inv_nl, wnz * inv_nl
+            inv_dl = _rsqrt_safe(dx * dx + dy * dy + dz * dz)
+            iX, iY, iZ = dx * inv_dl, dy * inv_dl, dz * inv_dl
 
-        cos_view = iX * nX + iY * nY + iZ * nZ
-        flipped = cos_view > 0.0
-        cos_in = torch.abs(cos_view)
-        nX = torch.where(flipped, -nX, nX)
-        nY = torch.where(flipped, -nY, nY)
-        nZ = torch.where(flipped, -nZ, nZ)
-        eta = torch.where(flipped, ior, 1.0 / torch.clamp(ior, min=1e-8))
+            cos_view = iX * nX + iY * nY + iZ * nZ
+            flipped = cos_view > 0.0
+            cos_in = torch.abs(cos_view)
+            nX = torch.where(flipped, -nX, nX)
+            nY = torch.where(flipped, -nY, nY)
+            nZ = torch.where(flipped, -nZ, nZ)
+            eta = torch.where(flipped, ior, 1.0 / torch.clamp(ior, min=1e-8))
 
-        u, v, w = rng.uniform3(pixel, frame, salt_base + 4 * bounce)
+            u, v, w = rng.uniform3(pixel, frame, salt_base + 4 * bounce)
 
-        phi = TWO_PI * u
-        cos_t = 1.0 - 2.0 * v
-        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12))
-        lamX = nX + sin_t * torch.cos(phi)
-        lamY = nY + sin_t * torch.sin(phi)
-        lamZ = nZ + cos_t
+            phi = TWO_PI * u
+            cos_t = 1.0 - 2.0 * v
+            sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12))
+            lamX = nX + sin_t * torch.cos(phi)
+            lamY = nY + sin_t * torch.sin(phi)
+            lamZ = nZ + cos_t
 
-        refX = iX + 2.0 * cos_in * nX
-        refY = iY + 2.0 * cos_in * nY
-        refZ = iZ + 2.0 * cos_in * nZ
+            refX = iX + 2.0 * cos_in * nX
+            refY = iY + 2.0 * cos_in * nY
+            refZ = iZ + 2.0 * cos_in * nZ
 
-        cos_out_sqr = 1.0 - eta * eta * (1.0 - cos_in * cos_in)
-        cos_out = torch.sqrt(torch.clamp(cos_out_sqr, min=1e-12))
-        r_perp = (eta * cos_in - cos_out) / (eta * cos_in + cos_out)
-        r_par = (cos_in - eta * cos_out) / (cos_in + eta * cos_out)
-        f_refl = 0.5 * (r_perp * r_perp + r_par * r_par)
-        refl = (cos_out_sqr <= 0.0) | (w < f_refl)
-        k = eta * cos_in - cos_out
-        dieX = torch.where(refl, refX, eta * iX + k * nX)
-        dieY = torch.where(refl, refY, eta * iY + k * nY)
-        dieZ = torch.where(refl, refZ, eta * iZ + k * nZ)
-        die_off = torch.where(refl, torch.full_like(k, _EPSILON), torch.full_like(k, -_EPSILON))
+            cos_out_sqr = 1.0 - eta * eta * (1.0 - cos_in * cos_in)
+            cos_out = torch.sqrt(torch.clamp(cos_out_sqr, min=1e-12))
+            r_perp = (eta * cos_in - cos_out) / (eta * cos_in + cos_out)
+            r_par = (cos_in - eta * cos_out) / (cos_in + eta * cos_out)
+            f_refl = 0.5 * (r_perp * r_perp + r_par * r_par)
+            refl = (cos_out_sqr <= 0.0) | (w < f_refl)
+            k = eta * cos_in - cos_out
+            dieX = torch.where(refl, refX, eta * iX + k * nX)
+            dieY = torch.where(refl, refY, eta * iY + k * nY)
+            dieZ = torch.where(refl, refZ, eta * iZ + k * nZ)
+            die_off = torch.where(refl, torch.full_like(k, _EPSILON),
+                                  torch.full_like(k, -_EPSILON))
 
-        is_lam = kind == 0
-        is_mir = kind == 1
-        out_dx = torch.where(is_lam, lamX, torch.where(is_mir, refX, dieX))
-        out_dy = torch.where(is_lam, lamY, torch.where(is_mir, refY, dieY))
-        out_dz = torch.where(is_lam, lamZ, torch.where(is_mir, refZ, dieZ))
-        off = torch.where(is_lam | is_mir, torch.full_like(k, _EPSILON), die_off)
+            is_lam = kind == 0
+            is_mir = kind == 1
+            out_dx = torch.where(is_lam, lamX, torch.where(is_mir, refX, dieX))
+            out_dy = torch.where(is_lam, lamY, torch.where(is_mir, refY, dieY))
+            out_dz = torch.where(is_lam, lamZ, torch.where(is_mir, refZ, dieZ))
+            off = torch.where(is_lam | is_mir, torch.full_like(k, _EPSILON), die_off)
 
-        ox = torch.where(active, px + off * nX, ox)
-        oy = torch.where(active, py + off * nY, oy)
-        oz = torch.where(active, pz + off * nZ, oz)
-        dx = torch.where(active, out_dx, dx)
-        dy = torch.where(active, out_dy, dy)
-        dz = torch.where(active, out_dz, dz)
-        tr = torch.where(active, tr * alb_r, tr)
-        tg = torch.where(active, tg * alb_g, tg)
-        tb = torch.where(active, tb * alb_b, tb)
+            ox = torch.where(active, px + off * nX, ox)
+            oy = torch.where(active, py + off * nY, oy)
+            oz = torch.where(active, pz + off * nZ, oz)
+            dx = torch.where(active, out_dx, dx)
+            dy = torch.where(active, out_dy, dy)
+            dz = torch.where(active, out_dz, dz)
+            tr = torch.where(active, tr * alb_r, tr)
+            tg = torch.where(active, tg * alb_g, tg)
+            tb = torch.where(active, tb * alb_b, tb)
 
     if style == "standard":
         rr = torch.where(active, rr + cr, rr)

@@ -28,6 +28,7 @@ from .core.device import resolve_device
 from .models import camera as camera_mod
 from .models.integrators import AA_STRIDE, INTEGRATORS, eval_integrator
 from .ops import film as film_ops
+from .utils.profiling import annotate
 
 _JITTER_SITE = 0
 _INTEGRATOR_SITE = 16
@@ -65,11 +66,12 @@ def _mode_masks(settings: RenderSettings, xs, ys, cfg: FilmConfig):
 def jittered_camera_rays(camera, cfg: FilmConfig, pixel, xs, ys, frame, salt0):
     """AA-jittered camera rays for a pixel batch: RNG site, y flip and
     reciprocal film scale of the JAX path."""
-    ju, jv = rng.uniform2(pixel, frame, salt0 + _JITTER_SITE)
-    # Jittered film coordinates, y flipped (compute_pass.comp:153-154).
-    cx = (xs.to(torch.float32) + ju) * (1.0 / cfg.width)
-    cy = 1.0 - (ys.to(torch.float32) + jv) * (1.0 / cfg.height)
-    return camera_mod.generate_rays(camera, cx, cy)
+    with annotate("rays"):
+        ju, jv = rng.uniform2(pixel, frame, salt0 + _JITTER_SITE)
+        # Jittered film coordinates, y flipped (compute_pass.comp:153-154).
+        cx = (xs.to(torch.float32) + ju) * (1.0 / cfg.width)
+        cy = 1.0 - (ys.to(torch.float32) + jv) * (1.0 / cfg.height)
+        return camera_mod.generate_rays(camera, cx, cy)
 
 
 def render_pixels(scene, camera, settings: RenderSettings, cfg: FilmConfig,
@@ -303,10 +305,12 @@ def render_frame(scene, camera, settings: RenderSettings, cfg: FilmConfig,
     ``fast=True`` (display) takes the kernels, ``fast=False`` the plain
     integrator path."""
     frame = 0 if dirty else int(film.frame)
-    if fast:
-        sample = render_sample_fast_chw(scene, camera, settings, cfg, frame,
-                                        tracer=tracer, cam_params=cam_params)
-    else:
-        sample = render_sample_chw(scene, camera, settings, cfg, frame)
-    new_film = film_ops.accumulate(film, sample, dirty)
+    with annotate("frame.sample"):
+        if fast:
+            sample = render_sample_fast_chw(scene, camera, settings, cfg, frame,
+                                            tracer=tracer, cam_params=cam_params)
+        else:
+            sample = render_sample_chw(scene, camera, settings, cfg, frame)
+    with annotate("frame.ema"):
+        new_film = film_ops.accumulate(film, sample, dirty)
     return new_film, new_film.accum

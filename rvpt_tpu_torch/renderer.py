@@ -31,6 +31,7 @@ from .scene.scene import Scene
 from .utils import checkpoint as ckpt
 from .utils.hot_reload import SourceWatcher
 from .utils.image import write_png
+from .utils.profiling import annotate
 from .utils.timer import FrameTimer
 
 MAX_FRAMES_IN_FLIGHT = 2
@@ -152,12 +153,13 @@ class Renderer:
                 cam_params=self._cam_params)
         # Launches are asynchronous: wait only for the frame before last, so
         # the timer measures steady-state throughput.
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event()
-            ev.record()
-            self._inflight.append(ev)
-            while len(self._inflight) >= self.frames_in_flight:
-                self._inflight.popleft().synchronize()
+        with annotate("frame.wait"):
+            if self.device.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record()
+                self._inflight.append(ev)
+                while len(self._inflight) >= self.frames_in_flight:
+                    self._inflight.popleft().synchronize()
         self.timer.frame_stop()
         self._image_dev = image
         return image

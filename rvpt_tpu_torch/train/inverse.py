@@ -21,6 +21,7 @@ import torch
 from ..config import FilmConfig, RenderSettings
 from ..render import render_sample_chw
 from ..scene.scene import Scene
+from ..utils.profiling import annotate
 
 # group name -> tuple of (container, leaf) addresses
 PARAM_GROUPS = {
@@ -138,10 +139,11 @@ def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh=None):
         acc = 0.0
         for i in range(aa):
             salt_i = (i + spp * aa) * AA_STRIDE
-            ju, jv = rng_mod.uniform2(pixel, frame, salt_i + _JITTER_SITE)
-            cx = (xs.to(torch.float32) + ju) / cfg.width
-            cy = 1.0 - (ys.to(torch.float32) + jv) / cfg.height
-            ray = camera_mod.generate_rays(cam, cx, cy)
+            with annotate("rays"):
+                ju, jv = rng_mod.uniform2(pixel, frame, salt_i + _JITTER_SITE)
+                cx = (xs.to(torch.float32) + ju) / cfg.width
+                cy = 1.0 - (ys.to(torch.float32) + jv) / cfg.height
+                ray = camera_mod.generate_rays(cam, cx, cy)
             acc = acc + trace(s, ray.origin, ray.direction, pixel, frame,
                               salt=salt_i)
         out = acc.T / aa
@@ -261,7 +263,7 @@ def make_train_step(scene, camera, settings: RenderSettings, cfg: FilmConfig,
 
     def step(params, opt_state, frame):
         tensors = dict(zip(names, opt_state.param_groups[0]["params"]))
-        with torch.no_grad():
+        with annotate("step.load"), torch.no_grad():
             for name, x in tensors.items():
                 if params[name] is not x:
                     x.copy_(params[name])
@@ -272,28 +274,32 @@ def make_train_step(scene, camera, settings: RenderSettings, cfg: FilmConfig,
         # variance term pulls emission down.  With accum_frames each buffer
         # is the k-frame EMA film; the two streams use disjoint frame ids.
         frame = int(frame)
-        with torch.no_grad():
+        with annotate("step.render_a"), torch.no_grad():
             img_a = render_used(tensors, frame * (2 * k) + 4096)
             if mesh is not None and n_spp > 1:
                 img_a = img_a.contiguous()
                 dist.all_reduce(img_a, group=mesh.get_group(SPP_AXIS))
                 img_a = img_a / n_spp
-        img_b = render_used(tensors, frame * (2 * k) + 4096 + k)
-        diff = img_a - target
-        opt_state.zero_grad(set_to_none=True)
-        if mesh is None:
-            img_b.backward(2.0 * diff / numel)
-            loss = torch.mean(torch.square(img_a - target))
-        else:
-            diff[:, n_real:] = 0.0
-            img_b.backward(2.0 * diff / numel / n_spp)
-            sh.allreduce_grads(tensors.values())
-            loss = diff.square().sum()
-            if n_tiles > 1:
-                dist.all_reduce(loss, group=mesh.get_group(TILE_AXIS))
-            loss = loss / numel
-        opt_state.step()
-        constrain_params(tensors)
+        with annotate("step.render_b"):
+            img_b = render_used(tensors, frame * (2 * k) + 4096 + k)
+        with annotate("step.backward"):
+            diff = img_a - target
+            opt_state.zero_grad(set_to_none=True)
+            if mesh is None:
+                img_b.backward(2.0 * diff / numel)
+                loss = torch.mean(torch.square(img_a - target))
+            else:
+                diff[:, n_real:] = 0.0
+                img_b.backward(2.0 * diff / numel / n_spp)
+                sh.allreduce_grads(tensors.values())
+                loss = diff.square().sum()
+                if n_tiles > 1:
+                    dist.all_reduce(loss, group=mesh.get_group(TILE_AXIS))
+                loss = loss / numel
+        with annotate("step.adam"):
+            opt_state.step()
+        with annotate("step.constrain"):
+            constrain_params(tensors)
         return tensors, opt_state, loss
 
     return step, opt

@@ -1,21 +1,24 @@
-"""Profiling: device traces and derived throughput (mirror of
+"""Profiling: device traces and the port's named spans (mirror of
 ``rvpt_tpu/utils/profiling.py``).
 
 The reference's only profiling surface is a host frame timer with a
 50-frame rolling window (src/rvpt/timer.cpp:35-40) plus object names for
 external profilers (vk_util.h:31-64).  Here ``torch.profiler`` records the
-card's kernels and the host's ops into a Chrome trace, with named regions
-around host phases.
+card's kernels and the host's ops into a Chrome trace, and ``annotate``
+names the host phases inside it: every span of the port goes through it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from dataclasses import dataclass, field
 
 import torch
+
+# Prefix of every span the port records.
+SPAN = "rvpt."
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -41,56 +44,12 @@ def device_trace(log_dir: str):
 
 
 def annotate(name: str):
-    """A named region inside a device trace."""
-    return torch.profiler.record_function(name)
-
-
-def mrays_per_second(width: int, height: int, bounces: int, spp: int,
-                     seconds: float) -> float:
-    """Throughput of one frame: film rays x bounce upper bound / time.
-
-    Every bounce slot counts as a ray (the reference's dispatch does the
-    same work per pixel regardless of early termination), so numbers are
-    comparable across scenes.
-    """
-    if seconds <= 0.0:
-        return float("inf")
-    return width * height * spp * bounces / seconds / 1e6
-
-
-@dataclass
-class StepProfile:
-    """Per-step host timing ring, the Timer's profiling-oriented sibling.
-
-    Records (name -> seconds) phase durations per step; ``summary()`` gives
-    mean/min/max per phase over the retained window.
-    """
-
-    window: int = 50
-    _steps: list = field(default_factory=list)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        dt = time.perf_counter() - t0
-        if not self._steps or name in self._steps[-1]:
-            self._steps.append({})
-            if len(self._steps) > self.window:
-                self._steps.pop(0)
-        self._steps[-1][name] = dt
-
-    def summary(self) -> dict:
-        out: dict = {}
-        for step in self._steps:
-            for name, dt in step.items():
-                out.setdefault(name, []).append(dt)
-        return {
-            name: {
-                "mean_s": sum(v) / len(v),
-                "min_s": min(v),
-                "max_s": max(v),
-                "count": len(v),
-            }
-            for name, v in out.items()
-        }
+    """A span ``rvpt.<name>`` of the trace that a ``torch.profiler``
+    session is recording, in the same trace as the card's kernels (each
+    launch inside it tied to its kernel by the trace's correlation id).
+    With no session recording, one shared no-op context: entering a
+    ``record_function`` costs about 10 µs on the host even then, this
+    check under 1 µs."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN + name)
+    return _NO_SPAN

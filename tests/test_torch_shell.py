@@ -228,19 +228,11 @@ def test_metrics_rolling_and_jsonl(tmp_path):
 
 
 def test_profiling_helpers(tmp_path):
-    from rvpt_tpu.utils.profiling import mrays_per_second as j_mrays
-
-    assert profiling.mrays_per_second(1920, 1088, 8, 1, 0.1) == j_mrays(1920, 1088, 8, 1, 0.1)
-    prof = profiling.StepProfile(window=3)
-    for _ in range(5):
-        with prof.phase("render"):
-            pass
-    assert prof.summary()["render"]["count"] == 3
     with profiling.device_trace(str(tmp_path / "tr")) as p:
-        with profiling.annotate("rvpt_region"):
+        with profiling.annotate("region"):
             torch.ones(8).sum()
     assert os.path.exists(tmp_path / "tr" / "trace.json")
-    assert any(e.key == "rvpt_region" for e in p.key_averages())
+    assert any(e.key == "rvpt.region" for e in p.key_averages())
 
 
 def test_debug_validation_and_plain_routing():
