@@ -6,9 +6,9 @@ Needs one NVIDIA card (Hopper, sm_90a) and nvcc; there is no CPU path.
 Phases, each of which raises on failure:
 
 1. device: the card, its power limit, torch/CUDA/nvcc versions;
-2. build: the eight kernel sources (path_kernel K1, bwd_kernel K2,
+2. build: the nine kernel sources (path_kernel K1, bwd_kernel K2,
    closest_hit B8, primary_kernel B3, hart_kernel B4, bigmesh_kernel B5,
-   bigmesh_hart B6, replay_lookup B7) from rvpt_tpu_torch/csrc, one nvcc
+   bigmesh_hart B6, replay_lookup B7, camera_rays) from rvpt_tpu_torch/csrc, one nvcc
    each, started together, and the native scene-ingest library (g++);
 2b. the row census of K1's and B3's row forms on the 1080p Cornell box
    (4 bounces; AO 4 probes): every search of the Kajiya, Whitted and Cook
@@ -131,7 +131,17 @@ Phases, each of which raises on failure:
    split-screen (AO, Whitted, Hart, Kajiya), terrain_demo(225) x2; every loop with zeroed counts,
    a finite film that is not black, and its ms/frame; then the
    rabbit_kajiya and mesh2_kajiya goldens through the kernels (printed,
-   not asserted, as phase 4);
+   not asserted, as phase 4); the camera-ray kernel's launches counted in
+   every loop (one per single-mode big-mesh frame);
+16b. the camera-ray kernel (csrc/camera_rays.cu) against the plain
+   arithmetic it replaces (camera_rays_plain, under interpret_kernels) on
+   the card: mesh_demo(5)'s camera at 1920x1080 on the raster ids and on
+   each split-screen quadrant's id tensor, the display's reciprocal
+   multiply and the trainer's division, with no differing bit; the
+   kernel's and the plain version's device time (profiler), on the raster
+   ids and on an id tensor, the bound of 24 B written per ray (32 B with
+   ids) at the HBM rate beside them, and the wall per call of the route
+   and of the plain version;
 17. B7 against its plain versions: the gather (bit for bit) and the
    segment sum (within rtol 1e-5, atol 1e-5 of the float64 sum, in units
    of the cotangent's scale, in two calls) on mesh_demo(5)'s triangle
@@ -218,7 +228,9 @@ Phases, each of which raises on failure:
    its PNG the single-process render's bit for bit.
 
 Prints the kernel record as a JSON line (launches of the main paths:
-the trainer for K1, K2 and B8, the split-screen draws for B3 and B4, the
+the trainer for K1, K2, B8 and the camera rays (two per step, counted
+over phase 10's recover), the mesh_demo(5) Kajiya draws of phase 16 for
+the camera rays too, the split-screen draws for B3 and B4, the
 rabbit draws for K1's and B3's BVH forms, the mesh_demo(5) draws for the
 big-mesh route's K1 and B3 launches and B6's march, the mesh_demo(3)
 fwd+bwd step for B7 and K1's hits-only collect instance, the rabbit step
@@ -1223,6 +1235,7 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
     from rvpt_tpu_torch.ops import intersect as tint
     from rvpt_tpu_torch.ops import intersect_pk as ipk
     from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops.camera_rays import launch_camera_rays
     from rvpt_tpu_torch.ops.fast_grad import make_fast_kajiya
     from rvpt_tpu_torch.render import jittered_camera_rays, render_sample_chw
     from rvpt_tpu_torch.train import inverse
@@ -1525,6 +1538,7 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
     for f in range(frames):
         target = target + render_sample_chw(scene, cam, st10, cfg, f) / frames
     torch.cuda.synchronize()
+    launch_camera_rays.launches = 0
     t0 = time.perf_counter()
     rec_scene, losses, _ = inverse.recover(init, cam, st10, cfg, None, target,
                                            steps=train_steps, learning_rate=3e-2)
@@ -1532,7 +1546,8 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
     train_ms = (time.perf_counter() - t0) / train_steps * 1e3
     launches = {"path_kernel": pk.launch_path_kernel.launches,
                 "bwd_kernel": pk.launch_bwd_kernel.launches,
-                "closest_hit": ipk.launch_closest_hit.launches}
+                "closest_hit": ipk.launch_closest_hit.launches,
+                "camera_rays": launch_camera_rays.launches}
 
     def mean_err(a, b):
         return (a - b).abs().mean().item()
@@ -1554,6 +1569,9 @@ def training_phases(smi, dev, cfg, scene, cam, pixel, xs, ys, rays):
           and launches["bwd_kernel"] == train_steps,
           f"the trainer launched {launches}: expected one K1 and one K2 per "
           f"rendered gradient and one K1 per stop-gradient buffer")
+    check(launches["camera_rays"] == 2 * train_steps,
+          f"the trainer launched the camera-ray kernel {launches['camera_rays']} "
+          f"times in {train_steps} steps: expected one per rendered buffer")
     out["launches"] = launches
     return out
 
@@ -2305,6 +2323,7 @@ def mesh_phases(smi, dev, out_dir, here):
     from rvpt_tpu_torch.models.integrators import INTEGRATOR_NAMES
     from rvpt_tpu_torch.ops import intersect_pk as ipk
     from rvpt_tpu_torch.ops import pathkernel as pk
+    from rvpt_tpu_torch.ops.camera_rays import launch_camera_rays
     from rvpt_tpu_torch.ops.film import chw_to_hwc, to_srgb_u8
     from rvpt_tpu_torch.render import _pixel_grid, jittered_camera_rays
     from rvpt_tpu_torch.renderer import Renderer
@@ -2556,12 +2575,18 @@ def mesh_phases(smi, dev, out_dir, here):
                "bigmesh_hart": pk.launch_bigmesh_hart,
                "bigmesh_march": pk.launch_bigmesh_march}
 
+    # The camera-ray kernel's launches per loop, apart from the tracers':
+    # the big-mesh routes make their rays with it, the other routes in K1
+    # and B3 themselves.
+    rays_launches = out["camera_rays_launches"] = {}
+
     def draw_loop(label, scene, cam, cfg, st, frames, per_frame, png=None):
         r = Renderer(scene, cam, st, cfg)
         r.draw()  # the first draw builds the camera vector and the kernels' state
         r.flush()
         for k in kernels.values():
             k.launches = 0
+        launch_camera_rays.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(frames):
@@ -2571,6 +2596,7 @@ def mesh_phases(smi, dev, out_dir, here):
         frame_ms = (time.perf_counter() - t0) / frames * 1e3
         ran = {name: c for name, k in kernels.items() if (c := k.launches)}
         launches["bigmesh_kernel"] += pk.launch_bigmesh_kernel.launches
+        rays_launches[label] = launch_camera_rays.launches
         want = {k: v * frames for k, v in per_frame.items()}
         check(ran == want, f"{label}: {frames} draws launched {ran}, expected {want}")
         accum = r.film.accum
@@ -2587,7 +2613,8 @@ def mesh_phases(smi, dev, out_dir, here):
             saved = f"; saved {path}"
         print(f"[mesh-slice] {label}, {cfg.width}x{cfg.height}, {st.max_bounces} bounces, "
               f"{st.style}: Renderer.draw x{frames} {frame_ms:.4f} ms/frame; launches "
-              f"{ran}; film mean {accum.mean().item():.6f}{saved} [{smi}]")
+              f"{ran}, camera rays {rays_launches[label]}; film mean "
+              f"{accum.mean().item():.6f}{saved} [{smi}]")
         return frame_ms, ran
 
     hd8 = RenderSettings(max_bounces=8, style="standard")
@@ -2631,6 +2658,12 @@ def mesh_phases(smi, dev, out_dir, here):
             launches["bigmesh_hart"] = ran["bigmesh_march"]
         if mode < 7:
             launches["primary_kernel_bigmesh"] += ran["primary_kernel"]
+    for label, count in rays_launches.items():
+        if label.startswith("mesh_demo(5)"):  # the Kajiya draws x8, each mode x2
+            check(count == (8 if label == "mesh_demo(5) Kajiya" else 2),
+                  f"{label}: the camera-ray kernel launched {count} times, not "
+                  f"once per frame")
+    launches["camera_rays"] = rays_launches["mesh_demo(5) Kajiya"]
     split = hd8.replace(**dict(zip(quads, (5, 7, 10, 9))))
     ms, _ = draw_loop("mesh_demo(5) split-screen (AO, Whitted, Hart, Kajiya)", scene,
                       cam, hd, split, 2,
@@ -3737,6 +3770,98 @@ def examples_phase(smi, dev, out_dir):
     return rec
 
 
+def camera_rays_phase(smi, dev):
+    """Phase 16b: the camera-ray kernel bit for bit the plain arithmetic on
+    the card, on the 1080p mesh_demo(5) camera's raster ids and on each
+    split-screen quadrant's id tensor, in both roundings; timed beside its
+    plain version and its bound."""
+    import torch
+
+    from rvpt_tpu_torch import FilmConfig, RenderSettings
+    from rvpt_tpu_torch.ops.camera_rays import (camera_constants, camera_rays_plain,
+                                                launch_camera_rays)
+    from rvpt_tpu_torch.render import (_JITTER_SITE, _rect_pixels, _split_partition,
+                                       jittered_camera_rays)
+    from rvpt_tpu_torch.scene import builtin
+    from rvpt_tpu_torch.utils.debug import interpret_kernels
+
+    cfg = FilmConfig(1920, 1080)
+    n = cfg.num_pixels
+    cam = builtin.mesh_demo(5, aspect=cfg.aspect, device=dev)[1]
+    split = RenderSettings(top_left_render_mode=5, top_right_render_mode=7,
+                           bottom_left_render_mode=10, bottom_right_render_mode=9)
+    quads = [_rect_pixels(*rect, cfg.width, dev)
+             for _, rect in _split_partition(cfg, split)]
+
+    def differing(a, b):
+        bits = 0
+        for x, y in ((a.origin, b.origin), (a.direction, b.direction)):
+            x, y = x.expand(y.shape).contiguous(), y.expand(x.shape).contiguous()
+            bits += int((x.view(torch.int32) != y.view(torch.int32)).sum())
+        return bits
+
+    out = {"differing_bits": 0, "rays_checked": 0}
+    for divide in (False, True):
+        for label, pixel in [("raster", n)] + [(f"quadrant {q}", p)
+                                               for q, p in enumerate(quads)]:
+            before = launch_camera_rays.launches
+            got = jittered_camera_rays(cam, cfg, pixel, None, None, 1, 0,
+                                       divide=divide, planes=True)
+            with interpret_kernels():
+                want = jittered_camera_rays(cam, cfg, pixel, None, None, 1, 0,
+                                            divide=divide)
+            torch.cuda.synchronize()
+            launched = launch_camera_rays.launches - before
+            bits = differing(got, want)
+            rays = got.origin.shape[0]
+            print(f"[camera-rays] mesh_demo(5) camera, {cfg.width}x{cfg.height}, {label} "
+                  f"({rays} rays), {'division' if divide else 'reciprocal multiply'}: "
+                  f"{bits} differing bits against the plain arithmetic; {launched} launch")
+            check(launched == 1, f"camera rays ({label}): {launched} launches, not 1")
+            check(bits == 0, f"camera rays ({label}, divide={divide}): {bits} components "
+                  f"differ from the plain arithmetic")
+            out["differing_bits"] += bits
+            out["rays_checked"] += rays
+
+    consts = camera_constants(cam)
+    salt = _JITTER_SITE
+    ids = torch.arange(n, device=dev)
+
+    def kernel():
+        return launch_camera_rays(consts, cam.mode, cam.aspect, None, n, cfg.width,
+                                  cfg.height, 1, salt)
+
+    def kernel_ids():
+        return launch_camera_rays(consts, cam.mode, cam.aspect, ids, n, cfg.width,
+                                  cfg.height, 1, salt)
+
+    def route():
+        return jittered_camera_rays(cam, cfg, n, None, None, 1, 0, planes=True)
+
+    def plain():
+        return camera_rays_plain(cam, cfg, n, None, None, 1, salt)
+
+    # Device time from the profiler: back to back, a 0.02 ms launch through
+    # ctypes is paced by the host, which CUDA events would time instead.
+    name = "camera_rays_kernel"
+    ms = device_ms(kernel, 50, (name,))[0][name]
+    ids_ms = device_ms(kernel_ids, 50, (name,))[0][name]
+    _, plain_ms = device_ms(plain, 10, ())
+    route_wall_ms, plain_wall_ms = cuda_ms(route, 50), cuda_ms(plain, 10)
+    bnd, by = bound(24 * n, OPS_CAMERA * n)
+    ids_bnd, ids_by = bound(32 * n, OPS_CAMERA * n)
+    print(f"[time] camera rays, {cfg.width}x{cfg.height}, device time: kernel {ms:.4f} ms "
+          f"(bound {bnd:.4f} ms by {by}, 24 B written per ray; {bnd / ms:.1%} of it), on "
+          f"an id tensor {ids_ms:.4f} ms (bound {ids_bnd:.4f} ms by {ids_by}, 32 B per "
+          f"ray; {ids_bnd / ids_ms:.1%}), plain {plain_ms:.4f} ms; wall per call "
+          f"(CUDA events, back to back): jittered_camera_rays {route_wall_ms:.4f} ms, "
+          f"plain {plain_wall_ms:.4f} ms [{smi}]")
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, ids_ms=ids_ms,
+               ids_bound_ms=ids_bnd, ids_bound_by=ids_by, route_wall_ms=route_wall_ms,
+               plain_wall_ms=plain_wall_ms)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3912,6 +4037,7 @@ def main() -> int:
                               row_census)
     split = integ["split"]["launches"]
     mesh = mesh_phases(smi, dev, out_dir, here)
+    cam_rays = camera_rays_phase(smi, dev)
     del scene, pixel, xs, ys, rays, ray, got, want
     torch.cuda.empty_cache()
     from rvpt_tpu_torch.ops import intersect_pk as ipk
@@ -4094,6 +4220,17 @@ def main() -> int:
         "source": "rvpt_tpu_torch/csrc/bigmesh_kernel.cu",
         "replaces": "rvpt_tpu/ops/pathkernel.py:2366",
         "launches": b5_steps, **grad["b5_collect"], "library_ms": None,
+    }, {
+        # Replaces no TPU kernel: the JAX package makes these rays with jnp
+        # (rvpt_tpu/render.py:60).  Launches: phase 10's recover (two per
+        # step) and the mesh_demo(5) Kajiya draws of phase 16 (one per
+        # frame); the numbers those of phase 16b.
+        "name": "camera_rays", "route": "cuda",
+        "source": "rvpt_tpu_torch/csrc/camera_rays.cu", "replaces": None,
+        "launches": train["launches"]["camera_rays"] + mesh["launches"]["camera_rays"],
+        "launches_train": train["launches"]["camera_rays"],
+        "launches_display": mesh["launches"]["camera_rays"],
+        **cam_rays, "library_ms": None,
     }, {
         # Launches: the six PathTracer.trace(stats=True) calls of phase 22;
         # the headline numbers mesh_demo(3)'s Kajiya, every run beside them.

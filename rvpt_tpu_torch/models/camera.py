@@ -95,12 +95,17 @@ def generate_rays(cam: Camera, x: torch.Tensor, y: torch.Tensor) -> Ray:
     return _spherical(cam, m, x, y)
 
 
+def pinhole_w(cam: Camera) -> torch.Tensor:
+    """The pinhole's image-plane distance 1/tan(hfov/2), a 0-d tensor."""
+    hfov = cam.fov * (PI / 180.0)
+    return 1.0 / torch.tan(0.5 * hfov)
+
+
 def _pinhole(cam: Camera, m: torch.Tensor, x, y) -> Ray:
     """Pinhole rays (camera.glsl:29-51)."""
-    hfov = cam.fov * (PI / 180.0)
     u = cam.aspect * (2.0 * x - 1.0)
     v = 2.0 * y - 1.0
-    w = 1.0 / torch.tan(0.5 * hfov)
+    w = pinhole_w(cam)
     local = torch.stack([u, v, w.expand(u.shape)], dim=-1)
     direction = local @ m[:3, :3].T
     origin = m[:3, 3].expand(direction.shape)

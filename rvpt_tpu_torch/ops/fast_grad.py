@@ -137,7 +137,9 @@ class _SoaTrace(torch.autograd.Function):
         (r, g, b), (fams, idxs) = PathTracer(s).trace(
             pixel, o, d, frame, salt_base + salt, max_bounces, style=style,
             collect_hits=True)
-        ctx.save_for_backward(o, d, fams, idxs, *leaves)
+        # Row-major copies for the replay, whatever the caller's layout: on
+        # the card PyTorch's sums over the last axis round by the layout.
+        ctx.save_for_backward(o.contiguous(), d.contiguous(), fams, idxs, *leaves)
         ctx.spec, ctx.scene, ctx.pixel, ctx.frame, ctx.salt = (
             spec, s, pixel, frame, salt)
         return torch.stack([r, g, b], dim=-1)

@@ -23,11 +23,10 @@ import numpy as np
 import torch
 
 from .config import FilmConfig, RenderSettings
-from .core import rng
 from .core.device import resolve_device
-from .models import camera as camera_mod
 from .models.integrators import AA_STRIDE, INTEGRATORS, eval_integrator
 from .ops import film as film_ops
+from .ops.camera_rays import camera_rays
 from .utils.profiling import annotate
 
 _JITTER_SITE = 0
@@ -63,15 +62,19 @@ def _mode_masks(settings: RenderSettings, xs, ys, cfg: FilmConfig):
                        torch.where(right_t, tr, tl))
 
 
-def jittered_camera_rays(camera, cfg: FilmConfig, pixel, xs, ys, frame, salt0):
+def jittered_camera_rays(camera, cfg: FilmConfig, pixel, xs, ys, frame, salt0,
+                         divide: bool = False, planes: bool = False):
     """AA-jittered camera rays for a pixel batch: RNG site, y flip and
-    reciprocal film scale of the JAX path."""
+    reciprocal film scale of the JAX path (``divide``: divided by the film
+    size, the trainer's rounding).  ``pixel`` is an int64[N] tensor of
+    pixel ids or an int N (the raster ids), ``xs``/``ys`` their integer
+    coordinates or None.  On the card one launch of the camera-ray kernel,
+    bit for bit the plain arithmetic; ``planes`` asks for the kernel's
+    buffer views, for a caller that hands the rays to a kernel
+    (``ops.camera_rays.camera_rays``)."""
     with annotate("rays"):
-        ju, jv = rng.uniform2(pixel, frame, salt0 + _JITTER_SITE)
-        # Jittered film coordinates, y flipped (compute_pass.comp:153-154).
-        cx = (xs.to(torch.float32) + ju) * (1.0 / cfg.width)
-        cy = 1.0 - (ys.to(torch.float32) + jv) * (1.0 / cfg.height)
-        return camera_mod.generate_rays(camera, cx, cy)
+        return camera_rays(camera, cfg, pixel, xs, ys, frame,
+                           salt0 + _JITTER_SITE, divide, planes)
 
 
 def render_pixels(scene, camera, settings: RenderSettings, cfg: FilmConfig,
@@ -163,13 +166,14 @@ def _trace_mode_kernel(pt, camera, settings: RenderSettings, cam_params,
 
 
 def _trace_mode_bigmesh(bt, camera, settings: RenderSettings, cfg: FilmConfig,
-                        pixel, xs, ys, frame, salt0, mode):
+                        pixel, frame, salt0, mode):
     """One big-mesh integrator pass over a pixel batch -> f32[3, n]
     (``render.py:382``): camera rays made here with the jitter salts of
     ``render_pixels``, then ``BigMeshTracer.trace_mode``: the Hart march
     (10), or one launch of B3's (0-6) or K1's (7-9) BVH form on those
-    rays."""
-    ray = jittered_camera_rays(camera, cfg, pixel, xs, ys, frame, salt0)
+    rays.  ``pixel`` is an int64[n] tensor or an int n (the raster ids)."""
+    ray = jittered_camera_rays(camera, cfg, pixel, None, None, frame, salt0,
+                               planes=True)
     # nrays matters only to AO's probe loop.
     nrays = max(int(settings.max_bounces), 1) if mode == 5 else 1
     return bt.trace_mode(pixel, ray.origin, ray.direction, frame, mode,
@@ -241,10 +245,9 @@ def render_sample_fast_chw(scene, camera, settings: RenderSettings,
     modes = set(settings.modes())
     if len(modes) == 1:
         (mode,) = modes
-        pixel = (torch.arange(cfg.num_pixels, device=scene.device)
-                 if _is_big(pt) else cfg.num_pixels)
-        return _sample_mode(pt, camera, settings, cfg, cam_params, pixel, frame,
-                            mode).reshape(3, cfg.height, cfg.width)
+        return _sample_mode(pt, camera, settings, cfg, cam_params,
+                            cfg.num_pixels, frame, mode).reshape(
+                                3, cfg.height, cfg.width)
     out = torch.empty((3, cfg.height, cfg.width), dtype=torch.float32,
                       device=scene.device)
     for m, (y0, y1, x0, x1) in _split_partition(cfg, settings):
@@ -263,8 +266,9 @@ def _is_big(pt) -> bool:
 
 def _tracer_and_camera(scene, camera, cfg: FilmConfig, tracer, cam_params):
     """``tracer`` (or ``make_tracer(scene)``) and the camera vector of
-    ``camera`` and ``cfg`` (None for a big mesh, whose rays are made in
-    PyTorch), each built here when the caller has none."""
+    ``camera`` and ``cfg`` (None for a big mesh, whose rays
+    ``jittered_camera_rays`` makes), each built here when the caller has
+    none."""
     from .ops.pathkernel import camera_params
 
     pt = tracer if tracer is not None else make_tracer(scene)
@@ -279,15 +283,12 @@ def _sample_mode(pt, camera, settings: RenderSettings, cfg: FilmConfig,
     batch -> f32[3, n]; ``aa_offset`` offsets the AA sample index (a spp
     rank's salts, as ``render_pixels``)."""
     big = _is_big(pt)
-    if big:
-        xs = pixel % cfg.width
-        ys = torch.div(pixel, cfg.width, rounding_mode="floor")
     acc = None
     for i in range(settings.aa):
         salt0 = ((i + int(aa_offset)) * AA_STRIDE) & 0xFFFFFFFF
         if big:
-            out = _trace_mode_bigmesh(pt, camera, settings, cfg, pixel, xs, ys,
-                                      frame, salt0, mode)
+            out = _trace_mode_bigmesh(pt, camera, settings, cfg, pixel, frame,
+                                      salt0, mode)
         else:
             out = _trace_mode_kernel(pt, camera, settings, cam_params, pixel,
                                      frame, salt0, mode)

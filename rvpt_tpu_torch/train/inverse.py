@@ -114,11 +114,9 @@ def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh=None):
     ``sharded._padded_grid``, at its spp rank's salts; no collective).
     aa > 1 averages per-sample traces with the display path's AA_STRIDE
     salt layout, so the gradient is the mean of per-sample gradients."""
-    from ..core import rng as rng_mod
-    from ..models import camera as camera_mod
     from ..models.integrators import AA_STRIDE
     from ..ops.fast_grad import make_fast_kajiya
-    from ..render import _INTEGRATOR_SITE, _JITTER_SITE, _pixel_grid
+    from ..render import _INTEGRATOR_SITE, jittered_camera_rays
 
     spp = 0
     if mesh is not None:
@@ -131,19 +129,18 @@ def _make_fast_render(scene_tpl, camera_tpl, settings, cfg, mesh=None):
     grid = {}
 
     def render_fast(s, cam, frame):
-        dev = s.device
-        if dev not in grid:  # the pixel grid of this film, once per device
-            grid[dev] = (_pixel_grid(cfg, dev) if mesh is None
-                         else _padded_grid(cfg, n_tiles, tile, dev))
-        pixel, xs, ys = grid[dev]
+        if mesh is None:  # the whole film: the raster ids, no id tensor
+            pixel, xs, ys = cfg.num_pixels, None, None
+        else:
+            dev = s.device
+            if dev not in grid:  # this tile's pixel ids, once per device
+                grid[dev] = _padded_grid(cfg, n_tiles, tile, dev)
+            pixel, xs, ys = grid[dev]
         acc = 0.0
         for i in range(aa):
             salt_i = (i + spp * aa) * AA_STRIDE
-            with annotate("rays"):
-                ju, jv = rng_mod.uniform2(pixel, frame, salt_i + _JITTER_SITE)
-                cx = (xs.to(torch.float32) + ju) / cfg.width
-                cy = 1.0 - (ys.to(torch.float32) + jv) / cfg.height
-                ray = camera_mod.generate_rays(cam, cx, cy)
+            ray = jittered_camera_rays(cam, cfg, pixel, xs, ys, frame, salt_i,
+                                       divide=True, planes=True)
             acc = acc + trace(s, ray.origin, ray.direction, pixel, frame,
                               salt=salt_i)
         out = acc.T / aa
